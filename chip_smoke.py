@@ -5,15 +5,21 @@ their plain versions.
 
 Phases: (1) the card, versions and TF32 flags; (2) build the CUDA kernels from
 impx_torch/csrc; (3) each kernel against its plain PyTorch version at the
-main path's shapes; (4) DGNNS.produce_matches at the published eval config
+main path's shapes (the attention-mass kernel also twice on the same inputs,
+for the same bits); (4) DGNNS.produce_matches at the published eval config
 (15 layers, D = 256, 2048 keypoints, 4 pairs, bf16) with random weights from a
 seed carried through the reference-checkpoint loader, counting kernel
 launches and comparing with the plain path; (5) CUDA-event timings of each
 kernel, its plain version and the library call, and of the whole call;
 (6) a torch.profiler breakdown of the main path's device time by kernel and
-the device's idle share. The line before the last lists
-the kernels as JSON; the last line is {"ok": true, "device": {...}}. Any
-failure exits nonzero. Needs one CUDA device; exits nonzero without one.
+the device's idle share; (7) AdaGMN (EIMP) at the same config, mask-only and
+bucket-compacted, on pairs that overlap in part: launches per call, the keep
+counts after each pool, overflow, and agreement with the plain path;
+(8) pairs_per_s of both EIMP variants, kernel and plain path, and the
+profile of each (device time by kernel, host time by operation). The line
+before the last lists the kernels as JSON; the last line is
+{"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
+device; exits nonzero without one.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
+SFU_EXP_PER_S = 132 * 16 * 1.98e9   # MUFU: 16 per SM per clock, 132 SMs, 1.98 GHz boost
 
 B, N, D, H = 4, 2048, 256, 4      # the main path: 4 pairs of 2048 keypoints
 ITERS = 20
@@ -37,6 +44,13 @@ TIMED_RUNS = 12
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # atol = rtol, vs plain
 SINK_RTOL, SINK_ATOL, IDX_FLIP_MAX = 1e-3, 1e-6, 1e-3
 E2E_AGREE_MIN = 0.95              # indices0 equal, kernel vs plain path (bf16)
+MASS_RTOL, MASS_ATOL = 1e-4, 1e-6  # mass kernel vs plain: summation order only
+# EIMP: bench.py:186-188's schedule; a dustbin score that sends the unmatched
+# rows' plan mass to the dustbin, so that random weights leave pooling
+# something to drop (at the initial 1.0 every row keeps mass >= mscore_th)
+EIMP_COMPACTION = ((4, 1024), (8, 512), (12, 256))
+EIMP_BIN_SCORE = 9.0
+EIMP_KEEP_AGREE_MIN = 0.99        # final keep masks equal, kernel vs plain path
 
 
 def say(*parts):
@@ -114,6 +128,59 @@ def check_attention(dev, mha_fused, mha_reference):
                 fail(f"attention kernel disagrees with its plain version at {list(q.shape)} {dtype}")
             errs[(dtype, q.shape[-1])] = err.max().item()
     return errs[(torch.bfloat16, D // H)]
+
+
+# ---------------------------------------------------------- attention key mass
+def mass_inputs(gen, dev, dtype, b=2 * B, h=H, nq=N, nk=N, dh=D // H, fully_masked=False):
+    """q, k and padded key and query masks (up to 300 padded keypoints of
+    2048; up to half at small sizes); the last batch's keys all masked when
+    fully_masked."""
+    q = torch.randn((b, h, nq, dh), generator=gen).to(dev, dtype)
+    k = torch.randn((b, h, nk, dh), generator=gen).to(dev, dtype)
+    kmask = torch.arange(nk)[None] < padded_counts(gen, b, nk, max(nk - 300, nk // 2))[:, None]
+    qmask = torch.arange(nq)[None] < padded_counts(gen, b, nq, max(nq - 300, nq // 2))[:, None]
+    if fully_masked:
+        kmask[-1] = False
+    return q, k, kmask.to(dev), qmask.to(dev)
+
+
+def mass_bound(q, k, kmask, qmask) -> tuple[float, str, float, float]:
+    """This call's work over valid (query, key) pairs of each batch only (a
+    masked query adds 0 to every mass): one QK^T (2 flops a multiply-add)
+    versus reading the valid q and k rows and the masks and writing [B, Nk]
+    fp32; also the exponentials of those pairs at the special-function rate
+    (ms). Returns (bound ms, what bounds it, ms of the bytes, ms of the exps)."""
+    b, h, nq, dh = q.shape
+    nq_b, nk_b = qmask.sum(1).double(), kmask.sum(1).double()
+    pairs = (nq_b * nk_b).sum().item()
+    flops = 2.0 * h * dh * pairs
+    nbytes = q.element_size() * h * dh * (nq_b.sum() + nk_b.sum()).item() + 4 * (
+        kmask.numel() + qmask.numel() + b * k.shape[2])
+    t, by, t_bytes = bound(flops, PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32, nbytes)
+    return t, by, t_bytes, 1e3 * h * pairs / SFU_EXP_PER_S
+
+
+def check_mass(dev, attention_key_mass, attention_key_mass_reference):
+    gen = torch.Generator().manual_seed(7)
+    errs = {}
+    ragged = dict(b=3, h=2, nq=333, nk=290, dh=32, fully_masked=True)
+    for dtype, shape in ((torch.bfloat16, dict()), (torch.bfloat16, ragged), (torch.float32, ragged)):
+        q, k, kmask, qmask = mass_inputs(gen, dev, dtype, **shape)
+        out = attention_key_mass(q, k, kmask, qmask)
+        again = attention_key_mass(q, k, kmask, qmask)
+        torch.cuda.synchronize()
+        ref = attention_key_mass_reference(q, k, kmask, qmask)
+        err = (out - ref).abs()
+        bad = (err > MASS_ATOL + MASS_RTOL * ref.abs()).sum().item()
+        finite = bool(torch.isfinite(out).all())
+        same_bits = torch.equal(out, again)
+        say(f"check attention_key_mass q {list(q.shape)} k {list(k.shape)} {str(dtype)[6:]}: "
+            f"max_abs_err {err.max().item():.3e} (tol rtol={MASS_RTOL:g} atol={MASS_ATOL:g}), "
+            f"out of tolerance {bad}, finite {finite}, second run bitwise equal {same_bits}")
+        if bad or not finite or not same_bits:
+            fail(f"attention-mass kernel disagrees with its plain version or itself at {list(q.shape)} {dtype}")
+        errs.setdefault(dtype, err.max().item())
+    return errs[torch.bfloat16]
 
 
 # ---------------------------------------------------------------- Sinkhorn
@@ -223,7 +290,7 @@ def main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
     say(f"main path launches per produce_matches call: {launches}")
-    if launches != {"mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1}:
+    if launches != {"mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1, "attention_key_mass": 0}:
         fail(f"main path did not run through the kernels as expected: {launches}")
 
     model.use_kernels = False
@@ -299,25 +366,25 @@ KERNEL_GROUPS = (  # device kernel name -> the layer that launched it
     ("mha_fused (csrc/attention.cu)", ("attn_fwd",)),
     ("sinkhorn_fused_stats (csrc/sinkhorn.cu)",
      ("plan_rows", "update_u", "update_v", "row_stats", "col_stats")),
+    ("attention_key_mass (csrc/attention_mass.cu)", ("key_mass",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "sm90_", "cutlass", "nvjet", "xmma")),
 )
 
 
-def profile_main_path(dev, model, calls: int = 4):
-    """torch.profiler over `calls` produce_matches calls: the device
-    time per call by kernel group and by kernel, and the device's idle share
-    of the window from its first to its last kernel."""
+def profile_calls(label: str, call, inputs):
+    """torch.profiler over one call per input: the device time per call by
+    kernel group and by kernel, and the device's idle share of the window from
+    its first to its last kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator().manual_seed(5)
-    pairs = [permuted_pairs(gen, dev) for _ in range(calls)]
-    model.produce_matches(pairs[0], only_last=True, with_scores=False)
+    calls = len(inputs)
+    call(inputs[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for data in pairs:
-            model.produce_matches(data, only_last=True, with_scores=False)
+        for data in inputs:
+            call(data)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / calls
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -330,7 +397,7 @@ def profile_main_path(dev, model, calls: int = 4):
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
     window = spans[-1][1] - spans[0][0]
-    say(f"profile produce_matches B={B} N={N}: {calls} calls, host wall {wall_ms:.3f} ms/call, "
+    say(f"profile {label}: {calls} calls, host wall {wall_ms:.3f} ms/call, "
         f"device busy {busy / 1e3 / calls:.3f} ms/call, idle share {1 - busy / window:.3f} "
         f"of the kernel window, {len(kernels) / calls:.0f} device ops/call")
     by_name: dict[str, list[float]] = {}
@@ -348,15 +415,178 @@ def profile_main_path(dev, model, calls: int = 4):
             f"{t / busy:.3f} of busy")
     for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]:
         say(f"profile kernel {sum(ts) / 1e3 / calls:.3f} ms/call x{len(ts) / calls:.0f}: {name[:110]}")
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:10]
+    for e in host:  # where the host's time goes: dispatch, launches, any synchronisation
+        say(f"profile host {e.self_cpu_time_total / 1e3 / calls:.3f} ms/call self x{e.count / calls:.0f}: "
+            f"{e.key[:90]}")
+
+
+def profile_main_path(dev, model, calls: int = 4):
+    gen = torch.Generator().manual_seed(5)
+    pairs = [permuted_pairs(gen, dev) for _ in range(calls)]
+    profile_calls(f"produce_matches B={B} N={N}",
+                  lambda d: model.produce_matches(d, only_last=True, with_scores=False), pairs)
+
+
+# ---------------------------------------------------------------- EIMP
+def overlap_pairs(gen, dev, b=B, n=N, d=D):
+    """Pairs that overlap in part: about half of image 1's slots hold a
+    permuted, lightly noised copy of an image 0 keypoint, the rest fresh
+    random keypoints; 0-300 padded keypoints per image. Some keypoints match
+    and the rest can be pooled away (fully permuted pairs match nearly every
+    row, and pooling then keeps nearly all). The validity is a padded suffix
+    in each image, as keypoint sets padded to a bucket have, drawn per image;
+    tests/test_torch_kernels.py:overlap_pairs scatters validity instead, to
+    exercise the compaction gathers, and carries it through the permutation."""
+    d0, d1 = torch.randn((2, b, n, d), generator=gen)
+    k0, k1 = torch.rand((2, b, n, 2), generator=gen) - 0.5
+    s0, s1 = torch.rand((2, b, n), generator=gen)
+    v0 = torch.arange(n)[None] < padded_counts(gen, b, n, n - 300)[:, None]
+    v1 = torch.arange(n)[None] < padded_counts(gen, b, n, n - 300)[:, None]
+    perm = torch.stack([torch.randperm(n, generator=gen) for _ in range(b)])
+    take = lambda x: torch.gather(x, 1, perm.view(perm.shape + (1,) * (x.dim() - 2)).expand_as(x))
+    shared = torch.rand((b, n), generator=gen) < 0.5
+    pick = lambda a, c: torch.where(shared.view(shared.shape + (1,) * (a.dim() - 2)), a, c)
+    data = {"descriptors0": d0, "descriptors1": pick(take(d0) + 0.01 * torch.randn((b, n, d), generator=gen), d1),
+            "norm_keypoints0": k0, "norm_keypoints1": pick(take(k0), k1),
+            "scores0": s0, "scores1": pick(take(s0), s1), "valid0": v0, "valid1": v1}
+    return {k: x.to(dev) for k, x in data.items()}
+
+
+def eimp_models(dev, AdaGMN, MatcherConfig, load_reference_state_dict) -> dict:
+    """Both EIMP variants at eval_config('spp', 15) in bf16, with one set of
+    random weights carried through the reference-checkpoint loader."""
+    base = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="bfloat16")
+    source = AdaGMN(base, device=dev, seed=0)
+    source.bin_score.data.fill_(EIMP_BIN_SCORE)
+    state = load_reference_state_dict(reference_layout(source), base)
+    models = {}
+    for name, compaction in (("mask-only", ()), ("compacted", EIMP_COMPACTION)):
+        model = AdaGMN(dataclasses.replace(base, compaction=compaction), device=dev, seed=1)
+        model.load_state_dict(state)
+        for k, t in source.state_dict().items():
+            if not torch.equal(t, model.state_dict()[k]):
+                fail(f"EIMP weights carried through the reference layout differ at {k}")
+        models[name] = model
+    say(f"eimp: eval_config('spp', 15) bf16, n_min_tokens {base.n_min_tokens}, first_it_to_update "
+        f"{base.first_it_to_update}, bin_score {EIMP_BIN_SCORE}, compacted schedule {EIMP_COMPACTION}, "
+        f"B={B} N={N} D={D}")
+    return models
+
+
+def eimp_path(dev, models, kernels, pool_its):
+    """Each variant once through the kernels (launches counted from 0), then
+    through the plain path on the same inputs. Fails on wrong launch counts,
+    on pooling that dropped nothing in every pair, on disagreement with the
+    plain path or non-finite scores. Returns the mask-only run's launches."""
+    gen = torch.Generator().manual_seed(6)
+    data = overlap_pairs(gen, dev)
+    valid = (data["valid0"], data["valid1"])
+    n_valid = [v.sum(1) for v in valid]
+    n_layers = models["mask-only"].config.n_layers
+    want = {"mha_fused": 2 * n_layers, "sinkhorn_fused_stats": n_layers,
+            "attention_key_mass": 2 * len(pool_its)}
+    dropped_any = False
+    first_launches = None
+    for name, model in models.items():
+        pools = []
+
+        def recording(*args, _orig=model._pool_from_masses):
+            keep0, keep1 = args[6], args[7]
+            new0, new1 = _orig(*args)
+            pools.append((keep0.sum(1), keep1.sum(1), new0.sum(1), new1.sum(1)))
+            return new0, new1
+
+        model._pool_from_masses = recording
+        for fn in kernels.values():
+            fn.launches = 0
+        out = model.produce_matches(data, only_last=True, with_scores=False)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        del model._pool_from_masses
+        first_launches = first_launches or launches
+        say(f"eimp {name}: launches per produce_matches call {launches}")
+        if launches != want:
+            fail(f"EIMP {name} did not run through the kernels as expected: {launches}, want {want}")
+        after = {}
+        for it, counts in zip(pool_its, pools):
+            b0, b1, a0, a1 = (c.tolist() for c in counts)
+            after[it] = (a0, a1)
+            dropped_any |= any(a < b for a, b in zip(a0 + a1, b0 + b1))
+            say(f"eimp {name} pool at iteration {it}: keep0 {b0} -> {a0}, keep1 {b1} -> {a1}")
+        if "overflow0" in out:
+            totals = [torch.zeros_like(out["overflow0"]), torch.zeros_like(out["overflow1"])]
+            for it, k in EIMP_COMPACTION:
+                last = max((p for p in pool_its if p < it), default=None)
+                entering = after[last] if last is not None else [x.tolist() for x in n_valid]
+                over = [[max(c - k, 0) for c in side] for side in entering]
+                totals = [t + torch.tensor(o, device=t.device, dtype=t.dtype) for t, o in zip(totals, over)]
+                say(f"eimp {name} compaction before iteration {it} into {k}: kept {entering[0]} / "
+                    f"{entering[1]}, overflow per pair {over[0]} / {over[1]}")
+            say(f"eimp {name} overflow0 {out['overflow0'].tolist()} overflow1 {out['overflow1'].tolist()} "
+                "(reported, not a failure: random weights decide how many survive)")
+            if not (torch.equal(totals[0], out["overflow0"]) and torch.equal(totals[1], out["overflow1"])):
+                fail(f"EIMP {name}: overflow totals disagree with the keep counts")
+
+        model.use_kernels = False
+        ref = model.produce_matches(data, only_last=True, with_scores=False)
+        model.use_kernels = True
+        idx, ridx = out["indices0"][0], ref["indices0"][0]
+        agree = (idx == ridx)[valid[0]].float().mean().item()
+        keep_agree = torch.cat([(out[f"keep{i}"] == ref[f"keep{i}"])[valid[i]] for i in (0, 1)])
+        keep_agree = keep_agree.float().mean().item()
+        ms_err = (out["mscores0"][0] - ref["mscores0"][0]).abs().max().item()
+        say(f"eimp {name}: indices0 agreement with the plain path {agree:.4f} (min {E2E_AGREE_MIN}) "
+            f"over valid rows, keep agreement {keep_agree:.4f} (min {EIMP_KEEP_AGREE_MIN}) over valid "
+            f"keypoints; matches {(idx >= 0).sum(1).tolist()} (plain {(ridx >= 0).sum(1).tolist()}) of "
+            f"valid {n_valid[0].tolist()}; final keep0 {out['keep0'].sum(1).tolist()} (plain "
+            f"{ref['keep0'].sum(1).tolist()}); mscores0 max_abs_err {ms_err:.3e}")
+        if idx.shape != valid[0].shape or not bool(torch.isfinite(out["mscores0"][0]).all()):
+            fail(f"EIMP {name} output has the wrong shape or non-finite scores")
+        if agree < E2E_AGREE_MIN or keep_agree < EIMP_KEEP_AGREE_MIN:
+            fail(f"EIMP {name} kernel path disagrees with the plain path")
+    if not dropped_any:
+        fail("no pool dropped a keypoint in any pair: pooling was not exercised")
+    return first_launches
+
+
+def time_eimp(dev, models, mods, err, launches):
+    attention_key_mass, attention_key_mass_reference = mods
+    gen = torch.Generator().manual_seed(8)
+    ins = [mass_inputs(gen, dev, torch.bfloat16) for _ in range(4)]
+    m_ms = cuda_ms(attention_key_mass, ins)
+    m_plain = cuda_ms(attention_key_mass_reference, ins)
+    m_bound, m_by, m_bytes, m_exp = mass_bound(*ins[0])
+    say(f"time attention_key_mass {list(ins[0][0].shape)} bf16: ms {m_ms:.4f} bound_us "
+        f"{1e3 * m_bound:.2f} ({m_by}, one QK^T; bytes alone {1e3 * m_bytes:.2f} us; the "
+        f"exponentials {1e3 * m_exp:.2f} us at the special-function rate) launches "
+        f"{launches['attention_key_mass']} plain_ms {m_plain:.4f} library_ms none")
+    pairs = [(overlap_pairs(gen, dev),) for _ in range(4)]
+    for name, model in models.items():
+        call = lambda d: model.produce_matches(d, only_last=True, with_scores=False)
+        k_ms = cuda_ms(call, pairs)
+        model.use_kernels = False
+        p_ms = cuda_ms(call, pairs)
+        model.use_kernels = True
+        say(f"time eimp {name} produce_matches B={B} N={N} 15 layers bf16: kernel path {k_ms:.3f} ms "
+            f"= pairs_per_s {1e3 * B / k_ms:.2f}; plain path {p_ms:.3f} ms = pairs_per_s "
+            f"{1e3 * B / p_ms:.2f}")
+    return {"name": "attention_key_mass", "route": "cuda", "source": "impx_torch/csrc/attention_mass.cu",
+            "replaces": "impx/ops/pallas/attention.py:422", "launches": launches["attention_key_mass"],
+            "max_abs_err": err, "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
+            "bound_by": m_by, "library_ms": None}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from impx_torch.models import DGNNS, MatcherConfig
+    from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
+    from impx_torch.models.fast import _eimp_do_pool
     from impx_torch.ops.kernels import _build
-    from impx_torch.ops.kernels.attention import mha_fused, mha_reference
+    from impx_torch.ops.kernels.attention import (
+        attention_key_mass, attention_key_mass_reference, mha_fused, mha_reference)
     from impx_torch.ops.kernels.sinkhorn import (
         plan_dtype, sinkhorn_fused_stats, sinkhorn_stats_reference)
     from impx_torch.tools.convert import load_reference_state_dict
@@ -379,11 +609,26 @@ def main() -> int:
     errs = {"mha_fused": check_attention(dev, mha_fused, mha_reference),
             "sinkhorn_fused_stats": check_sinkhorn(dev, sinkhorn_fused_stats,
                                                    sinkhorn_stats_reference, plan_dtype)}
-    kernels = {"mha_fused": mha_fused, "sinkhorn_fused_stats": sinkhorn_fused_stats}
+    errs["attention_key_mass"] = check_mass(dev, attention_key_mass, attention_key_mass_reference)
+    kernels = {"mha_fused": mha_fused, "sinkhorn_fused_stats": sinkhorn_fused_stats,
+               "attention_key_mass": attention_key_mass}
     model, launches = main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels)
     rows = time_all(dev, model, (mha_fused, mha_reference, sinkhorn_fused_stats,
                                  sinkhorn_stats_reference, plan_dtype), errs, launches)
     profile_main_path(dev, model)
+    del model
+
+    models = eimp_models(dev, AdaGMN, MatcherConfig, load_reference_state_dict)
+    pool_its = [i for i, pool in enumerate(_eimp_do_pool(models["mask-only"].config)) if pool]
+    eimp_launches = eimp_path(dev, models, kernels, pool_its)
+    rows.append(time_eimp(dev, models, (attention_key_mass, attention_key_mass_reference),
+                          errs["attention_key_mass"], eimp_launches))
+    gen = torch.Generator().manual_seed(9)
+    pairs = [overlap_pairs(gen, dev) for _ in range(4)]
+    for name in ("compacted", "mask-only"):
+        profile_calls(f"eimp {name} produce_matches B={B} N={N}",
+                      lambda d, m=models[name]: m.produce_matches(d, only_last=True, with_scores=False),
+                      pairs)
     say(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))

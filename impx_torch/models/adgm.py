@@ -1,0 +1,116 @@
+"""AdaGMN — the EIMP matcher: DGNNS plus adaptive keypoint pooling
+(impx/models/adgm.py).
+
+Pooling is a masked computation: a bool keep mask per image shrinks on the
+pooling iterations, and attention keys, the Sinkhorn head and the matches see
+it. On a pooling iteration a keypoint survives if its row (column) mass in
+the assignment plan reaches mscore_th, or if either of its attention masses
+(summed over heads and queries, normalised) reaches the median of the
+score-surviving set; an image never pools below n_min_tokens kept keypoints.
+The masses come from the q/k states the layers carry, through the
+attention-mass kernel, so the probabilities never reach device memory.
+
+Not ported yet (the training slice): pool_masks from probability tensors,
+forward_train and the ground-truth masking.
+"""
+from __future__ import annotations
+
+import torch
+
+from impx_torch.models.dgnns import DGNNS
+from impx_torch.models.fast import forward_scan_eimp, forward_scan_eimp_compact
+from impx_torch.ops.kernels.attention import attention_key_mass, attention_key_mass_reference
+
+
+def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Lower median (torch.median semantics) of values[mask], per row of
+    [B, N]; +inf for a row with an empty mask, so that no keypoint reaches it
+    (impx/models/adgm.py:27)."""
+    filled = torch.where(mask, values, torch.inf)
+    sorted_vals = torch.sort(filled, dim=1).values
+    k = ((mask.sum(dim=1) - 1) // 2).clamp(0, values.shape[1] - 1)
+    return torch.gather(sorted_vals, 1, k[:, None])[:, 0]
+
+
+def _normalise(mass: torch.Tensor) -> torch.Tensor:
+    return mass / (mass.sum(dim=1, keepdim=True) + 1e-15)
+
+
+class AdaGMN(DGNNS):
+    def _key_masses(self, qk_self, qk_cross, keep0, keep1, qmask0, qmask1):
+        """Normalised key masses (n00, n01, n11, n10) from the stacked q/k
+        states [2B, H, N, dh], in two launches: the self state's keys are
+        [image 0; image 1] under [keep0; keep1], the cross state's (source
+        swapped) [image 1; image 0] under [keep1; keep0]; the queries that
+        count are [qmask0; qmask1] in both (impx/models/fast.py:668-681).
+        n01 has queries in image 1 and keys in image 0; n10 the reverse."""
+        mass = attention_key_mass if self.use_kernels else attention_key_mass_reference
+        b = keep0.shape[0]
+        qmask = torch.cat([qmask0, qmask1], dim=0)
+        m_self = mass(*qk_self, torch.cat([keep0, keep1], dim=0), qmask)
+        m_cross = mass(*qk_cross, torch.cat([keep1, keep0], dim=0), qmask)
+        return (_normalise(m_self[:b]), _normalise(m_cross[b:]),
+                _normalise(m_self[b:]), _normalise(m_cross[:b]))
+
+    def _masses_from_qk(self, s00, s01, s11, s10, keep0, keep1, qmask0=None, qmask1=None):
+        """Normalised key masses from per-direction (q, k) states [B, H, N, dh]
+        (impx/models/adgm.py:129): s00 queries 0 / keys 0, s01 queries 1 /
+        keys 0, s11 queries 1 / keys 1, s10 queries 0 / keys 1. The query
+        masks default to the keep masks. With the same N in both images the
+        states stack into two launches, else each direction takes its own."""
+        qmask0 = keep0 if qmask0 is None else qmask0
+        qmask1 = keep1 if qmask1 is None else qmask1
+        if keep0.shape[1] == keep1.shape[1]:
+            stack = lambda a, c: tuple(torch.cat([x, y], dim=0) for x, y in zip(a, c))
+            return self._key_masses(stack(s00, s11), stack(s10, s01), keep0, keep1, qmask0, qmask1)
+        mass = attention_key_mass if self.use_kernels else attention_key_mass_reference
+        return (_normalise(mass(*s00, keep0, qmask0)), _normalise(mass(*s01, keep0, qmask1)),
+                _normalise(mass(*s11, keep1, qmask1)), _normalise(mass(*s10, keep1, qmask0)))
+
+    def _pool_from_masses(self, rowmass, colmass, norm00, norm01, norm11, norm10,
+                          keep0, keep1, th: float, n_min_tokens: int):
+        """The pooling rule from the plan's interior row/column masses
+        [B, N] / [B, M] and the normalised key masses; returns the new keep
+        masks (impx/models/adgm.py:107)."""
+        def side(keep, pids, norm_a, norm_b):
+            aug = ((norm_a >= masked_median(norm_a, pids)[:, None])
+                   | (norm_b >= masked_median(norm_b, pids)[:, None]))
+            update = pids.any(dim=1, keepdim=True)
+            if n_min_tokens > 0:
+                update = update & (keep.sum(dim=1, keepdim=True) > n_min_tokens)
+            return torch.where(update, keep & (pids | aug), keep)
+
+        return (side(keep0, (rowmass >= th) & keep0, norm00, norm01),
+                side(keep1, (colmass >= th) & keep1, norm11, norm10))
+
+    def pool_masks(self, pred_score, s00, s01, s11, s10, keep0, keep1, mscore_th: float = 0.1,
+                   uncertainty_ratio: float = 1.0, n_min_tokens: int | None = None,
+                   qmask0=None, qmask1=None):
+        """One pooling step from the plan pred_score [B, N+1, M+1] and the
+        (q, k) states of `_masses_from_qk`; returns (keep0, keep1)
+        (impx/models/adgm.py:51). qmask0/qmask1: the queries that count in
+        the mass sums (default: the keep masks)."""
+        if n_min_tokens is None:
+            n_min_tokens = self.config.n_min_tokens
+        inner = pred_score[:, :-1, :-1]
+        masses = self._masses_from_qk(s00, s01, s11, s10, keep0, keep1, qmask0, qmask1)
+        return self._pool_from_masses(inner.sum(dim=2), inner.sum(dim=1), *masses, keep0, keep1,
+                                      mscore_th * uncertainty_ratio, n_min_tokens)
+
+    @torch.no_grad()
+    def produce_matches(self, data, p: float = 0.2, mscore_th: float = 0.1,
+                        uncertainty_ratio: float = 1.0, only_last: bool = False,
+                        with_scores: bool = True):
+        """Matches for a batch of pairs with EIMP pooling
+        (impx/models/adgm.py:246); inputs as DGNNS.produce_matches. Runs
+        forward_scan_eimp_compact when config.compaction is set, else
+        forward_scan_eimp. Adds 'keep0'/'keep1' [B, N] bool (the keypoints
+        that survived pooling) and, compacted, 'overflow0'/'overflow1' [B]
+        (survivors dropped because a bucket was full: re-run those pairs with
+        compaction=())."""
+        data = self._on_device(data)
+        kw = dict(p=p, mscore_th=mscore_th, uncertainty_ratio=uncertainty_ratio,
+                  only_last=only_last)
+        if self.config.compaction:
+            return forward_scan_eimp_compact(self, data, **kw)
+        return forward_scan_eimp(self, data, with_scores=with_scores, **kw)

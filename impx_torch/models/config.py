@@ -7,10 +7,9 @@ Left out of the copy:
   * `attn_impl` and `attn_block_q`: the port picks the attention by device (the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors), and the
     kernel chooses its own tiles;
-  * the EIMP fields (`n_min_tokens`, `first_it_to_update`, `compaction`), the
-    log-domain head (`log_ot`), the dual-softmax switch (`with_sinkhorn`) and
-    the training fields (`train_*`, `with_geo`, `geo_*`): they arrive with the
-    slices that port those paths.
+  * the log-domain head (`log_ot`), the dual-softmax switch (`with_sinkhorn`)
+    and the training fields (`train_*`, `with_geo`, `geo_*`): they arrive with
+    the slices that port those paths.
 """
 from __future__ import annotations
 
@@ -30,6 +29,14 @@ class MatcherConfig:
     # only 'in' (masked InstanceNorm, the published eval config) is ported;
     # batch norm arrives with training
     norm_fn: str = "bn"
+    # EIMP (AdaGMN): pooling never shrinks an image below n_min_tokens kept
+    # keypoints, and starts at iteration first_it_to_update
+    n_min_tokens: int = 256
+    first_it_to_update: int = 2
+    # EIMP bucketed compaction: ((iteration, bucket), ...); before
+    # `iteration`, gather both images' kept keypoints into `bucket` slots.
+    # Empty = mask-only pooling.
+    compaction: tuple = ()
     # activation stream dtype ('float32' | 'bfloat16'); InstanceNorm
     # statistics, the final projection and the Sinkhorn head stay fp32
     compute_dtype: str = "float32"
@@ -53,4 +60,5 @@ class MatcherConfig:
             match_threshold=0.2,
             ac_fn="relu",
             norm_fn="in",
+            n_min_tokens=256,
         )

@@ -1,4 +1,5 @@
-"""The stacked-batch forward of DGNNS (impx/models/fast.py:forward_scan :315).
+"""The stacked-batch forwards of DGNNS (impx/models/fast.py:forward_scan :315)
+and of AdaGMN, EIMP (forward_scan_eimp :731, forward_scan_eimp_compact :851).
 
 Both images of every pair go through each layer in one call, stacked on the
 batch axis [2B, N, D]: self layers attend within the stack, cross layers to
@@ -47,11 +48,9 @@ def final_matches_from_desc(model, desc, b: int, valid0, valid1, p: float, with_
     return {"scores": [score], "indices0": [idx0], "mscores0": [ms0]}
 
 
-def forward_scan(model, data: dict[str, Any], p: float = 0.2, only_last: bool = True,
-                 with_scores: bool = True):
-    """DGNNS produce_matches on tensors already on the model's device. Returns
-    the dict of GM.produce_matches; with_scores=False skips the plan."""
-    cfg = model.config
+def _encode(model, data: dict[str, Any]):
+    """Keypoint encoding of both images, stacked: (desc [2B, N, D] in the
+    compute dtype, valid0, valid1 [B, N] bool, B, N)."""
     b, n = data["descriptors0"].shape[:2]
     if data["descriptors1"].shape[1] != n:
         raise ValueError("the stacked batch needs the same keypoint count in both "
@@ -65,7 +64,15 @@ def forward_scan(model, data: dict[str, Any], p: float = 0.2, only_last: bool = 
     enc0 = model.encode_keypoint(model._norm_kpts(data, 0), data["scores0"], valid0)
     enc1 = model.encode_keypoint(model._norm_kpts(data, 1), data["scores1"], valid1)
     desc = torch.cat([data["descriptors0"] + enc0, data["descriptors1"] + enc1], dim=0)
-    desc = desc.to(model.compute_dtype)
+    return desc.to(model.compute_dtype), valid0, valid1, b, n
+
+
+def forward_scan(model, data: dict[str, Any], p: float = 0.2, only_last: bool = True,
+                 with_scores: bool = True):
+    """DGNNS produce_matches on tensors already on the model's device. Returns
+    the dict of GM.produce_matches; with_scores=False skips the plan."""
+    cfg = model.config
+    desc, valid0, valid1, b, _ = _encode(model, data)
     mask = torch.cat([valid0, valid1], dim=0)       # [2B, N]
     mask_swap = torch.cat([valid1, valid0], dim=0)
 
@@ -93,3 +100,170 @@ def forward_scan(model, data: dict[str, Any], p: float = 0.2, only_last: bool = 
         out_idx0.append(idx0)
         out_ms0.append(ms0)
     return {"scores": out_scores, "indices0": out_idx0, "mscores0": out_ms0}
+
+
+# --------------------------------------------------------------------- EIMP
+def _eimp_do_pool(cfg) -> list[bool]:
+    """Per iteration: does it pool? The iterations whose self layer shares
+    attention, from first_it_to_update on (impx/models/fast.py:724)."""
+    sharing = cfg.sharing_layers(True)
+    return [sharing[2 * i] and i >= cfg.first_it_to_update for i in range(cfg.n_layers)]
+
+
+def _eimp_step(model, i: int, state: tuple, b: int, p: float, th: float, do_pool: bool):
+    """Iteration i of EIMP (impx/models/fast.py:_eimp_make_body :607).
+
+    state = (desc, qk_self, qk_cross, keep0, keep1, full0, full1). Attention
+    keys see the keep masks; queries, InstanceNorm and the attention-mass
+    sums see full0/full1, every real keypoint of the current tensors (the
+    reference keeps discarded keypoints as queries). Then the per-iteration
+    head: final_proj[i], Sinkhorn statistics and matches under the keep masks,
+    and, on pooling iterations, two key-mass launches and the pooling rule.
+    Returns (state, (indices0, mscores0, u, v, keep0, keep1 used))."""
+    cfg = model.config
+    desc, qk_self, qk_cross, keep0, keep1, full0, full1 = state
+    keep = torch.cat([keep0, keep1], dim=0)
+    keep_swap = torch.cat([keep1, keep0], dim=0)
+    full = torch.cat([full0, full1], dim=0)
+    kw = dict(ac_fn=cfg.ac_fn, use_kernels=model.use_kernels)
+    delta, qk_self = model.gnn[2 * i](desc, desc, qk_self, keep, full, **kw)
+    desc = desc + delta
+    delta, qk_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, keep_swap, full, **kw)
+    desc = desc + delta
+
+    dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=i)
+    stats_fn = sinkhorn_fused_stats if model.use_kernels else sinkhorn_stats_reference
+    stats = stats_fn(dist, model.bin_score, cfg.sinkhorn_iterations, keep0, keep1)
+    idx0, _, ms0, _ = matches_from_stats(stats["max0"], stats["idx0"], stats["idx1"], p, keep0, keep1)
+    out = (idx0, ms0, stats["u"], stats["v"], keep0, keep1)
+    if do_pool:
+        masses = model._key_masses(qk_self, qk_cross, keep0, keep1, full0, full1)
+        keep0, keep1 = model._pool_from_masses(stats["rowmass"], stats["colmass"], *masses,
+                                               keep0, keep1, th, cfg.n_min_tokens)
+    return (desc, qk_self, qk_cross, keep0, keep1, full0, full1), out
+
+
+def forward_scan_eimp(model, data: dict[str, Any], p: float = 0.2, mscore_th: float = 0.1,
+                      uncertainty_ratio: float = 1.0, only_last: bool = False,
+                      with_scores: bool = True):
+    """AdaGMN produce_matches with mask-only pooling: the tensors keep every
+    keypoint and pooling shrinks the keep masks (impx/models/fast.py:731).
+    Returns 'scores' (the last iteration's fp32 plan, rebuilt from its u, v
+    and keep masks, or None), 'indices0' and 'mscores0' per iteration (or the
+    last only), and the final 'keep0'/'keep1' [B, N] bool."""
+    cfg = model.config
+    desc, valid0, valid1, b, _ = _encode(model, data)
+    th = mscore_th * uncertainty_ratio
+    state = (desc, None, None, valid0, valid1, valid0, valid1)
+    outs = []
+    for i, do_pool in enumerate(_eimp_do_pool(cfg)):
+        state, out = _eimp_step(model, i, state, b, p, th, do_pool)
+        outs.append(out)
+    desc, keep0, keep1 = state[0], state[3], state[4]
+
+    score = None
+    if with_scores:
+        _, _, u, v, k0, k1 = outs[-1]
+        dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=-1)
+        score = sinkhorn_plan_from_uv(dist, model.bin_score, u, v, k0, k1)
+    picked = outs[-1:] if only_last else outs
+    return {"scores": [score], "indices0": [o[0] for o in picked],
+            "mscores0": [o[1] for o in picked], "keep0": keep0, "keep1": keep1}
+
+
+def _stable_topk_indices(keep: torch.Tensor, k: int) -> torch.Tensor:
+    """The first k slots of each row with kept keypoints first, each class in
+    its original order (impx/models/fast.py:801): every survivor is gathered
+    when there are at most k."""
+    order = torch.sort(keep.to(torch.uint8), dim=1, descending=True, stable=True).indices
+    return order[:, :k]
+
+
+def _compact_gather(desc, qk_self, qk_cross, keep0, keep1, g0, g1, b: int, k: int):
+    """Gather both images into k slots (impx/models/fast.py:813, with one
+    difference). Rows [:B] of the stack are image 0 and rows [B:] image 1, for
+    desc, the self q/k and the cross q. The cross k was projected from the
+    swapped stack, so its rows [:B] hold image 1's keys and take image 1's
+    indices, and rows [B:] take image 0's. impx gathers the cross k with the
+    unswapped indices (fast.py:827-830), which changes the result when the
+    first iteration after a gather shares attention and reuses that k."""
+    i0, i1 = _stable_topk_indices(keep0, k), _stable_topk_indices(keep1, k)
+    idx = torch.cat([i0, i1], dim=0)
+    idx_swap = torch.cat([i1, i0], dim=0)
+
+    def rows(t, i):  # [2B, N, D] -> [2B, k, D]
+        return torch.gather(t, 1, i[:, :, None].expand(-1, -1, t.shape[2]))
+
+    def heads(t, i):  # [2B, H, N, dh] -> [2B, H, k, dh]
+        return torch.gather(t, 2, i[:, None, :, None].expand(-1, t.shape[1], -1, t.shape[3]))
+
+    qs, ks = qk_self
+    qc, kc = qk_cross
+    return (rows(desc, idx), (heads(qs, idx), heads(ks, idx)), (heads(qc, idx), heads(kc, idx_swap)),
+            torch.gather(keep0, 1, i0), torch.gather(keep1, 1, i1),
+            torch.gather(g0, 1, i0), torch.gather(g1, 1, i1))
+
+
+def _scatter_matches(idx_local, ms_local, g0, g1, n_orig: int):
+    """Slot-local matches back to original keypoint indexing
+    (impx/models/fast.py:839)."""
+    k = idx_local.shape[1]
+    tgt = torch.where(idx_local >= 0, torch.gather(g1, 1, idx_local.clamp(0, k - 1)), -1)
+    out_idx = torch.full((idx_local.shape[0], n_orig), -1, dtype=tgt.dtype, device=tgt.device)
+    out_ms = torch.zeros((idx_local.shape[0], n_orig), dtype=ms_local.dtype, device=ms_local.device)
+    return out_idx.scatter(1, g0, tgt), out_ms.scatter(1, g0, ms_local)
+
+
+def forward_scan_eimp_compact(model, data: dict[str, Any], p: float = 0.2, mscore_th: float = 0.1,
+                              uncertainty_ratio: float = 1.0, only_last: bool = False):
+    """AdaGMN produce_matches with bucketed compaction
+    (impx/models/fast.py:851): before each (iteration, bucket) point of
+    config.compaction, the kept keypoints of both images are gathered into
+    `bucket` slots, so attention and Sinkhorn shrink. After a gather the
+    survivors are the whole tensor: InstanceNorm statistics and mass sums no
+    longer see discarded keypoints (the reference's sliced evaluation). While
+    nothing has been discarded before a gather, the result equals
+    forward_scan_eimp's.
+
+    Survivors beyond a bucket (the highest original indices) are dropped and
+    counted: 'overflow0'/'overflow1' [B] hold each pair's total over all
+    points; re-run overflowed pairs mask-only. Matches and the final
+    'keep0'/'keep1' are in original indexing; 'scores' is [None]."""
+    cfg = model.config
+    schedule = sorted((int(it), int(k)) for it, k in cfg.compaction)
+    if not schedule:
+        raise ValueError("forward_scan_eimp_compact needs config.compaction")
+    its = [it for it, _ in schedule]
+    if not all(0 < it < cfg.n_layers for it in its) or len(set(its)) != len(its):
+        raise ValueError(f"compaction iterations must be distinct, in (0, n_layers): {schedule}")
+    desc, valid0, valid1, b, n = _encode(model, data)
+    buckets = [n] + [k for _, k in schedule]
+    if any(buckets[i] < buckets[i + 1] for i in range(len(schedule))):
+        raise ValueError(f"compaction buckets must not grow: {buckets}")
+    starts = dict(schedule)
+
+    th = mscore_th * uncertainty_ratio
+    g0 = torch.arange(n, device=desc.device).expand(b, n)
+    g1 = g0
+    overflow0 = torch.zeros((b,), dtype=torch.int32, device=desc.device)
+    overflow1 = torch.zeros_like(overflow0)
+    state = (desc, None, None, valid0, valid1, valid0, valid1)
+    outs = []
+    for i, do_pool in enumerate(_eimp_do_pool(cfg)):
+        if i in starts:
+            k = starts[i]
+            desc, qk_self, qk_cross, keep0, keep1, _, _ = state
+            overflow0 += (keep0.sum(dim=1) - k).clamp(min=0).to(torch.int32)
+            overflow1 += (keep1.sum(dim=1) - k).clamp(min=0).to(torch.int32)
+            desc, qk_self, qk_cross, keep0, keep1, g0, g1 = _compact_gather(
+                desc, qk_self, qk_cross, keep0, keep1, g0, g1, b, k)
+            state = (desc, qk_self, qk_cross, keep0, keep1, keep0, keep1)
+        state, (idx0, ms0, *_) = _eimp_step(model, i, state, b, p, th, do_pool)
+        if not only_last or i == cfg.n_layers - 1:
+            outs.append(_scatter_matches(idx0, ms0, g0, g1, n))
+
+    keep0, keep1 = state[3], state[4]
+    none = torch.zeros((b, n), dtype=torch.bool, device=desc.device)
+    return {"scores": [None], "indices0": [o[0] for o in outs], "mscores0": [o[1] for o in outs],
+            "keep0": none.scatter(1, g0, keep0), "keep1": none.scatter(1, g1, keep1),
+            "overflow0": overflow0, "overflow1": overflow1}

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels under impx_torch/csrc/.
 
 Each source is compiled by nvcc for sm_90a into a shared library with a plain
-C interface, loaded with ctypes. Builds go to impx_torch/_build/ (listed in
-.gitignore), named by a hash of the source, so an edited source rebuilds and
-an unchanged one loads at once. Nothing is built on import: the first wrapper
+C interface, loaded with ctypes; the sources share device helpers through
+csrc/*.cuh. Builds go to impx_torch/_build/ (listed in .gitignore), named by a
+hash of the source and the headers, so an edited source rebuilds and an
+unchanged one loads at once. Nothing is built on import: the first wrapper
 call on a CUDA tensor builds what it needs.
 """
 from __future__ import annotations
@@ -26,11 +27,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: every pointer and the stream are void*, sizes are int; each
-# function returns the cudaError_t of its launches
+# launching function returns the cudaError_t of its launches
 SIGNATURES = {
     "attention": {
         # q, k, v, mask, out, batch*heads, heads, nq, nk, dh, is_bf16, stream
         "impx_mha_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "attention_mass": {
+        # q, k, key_mask, query_mask, partial, out, batch*heads, heads, nq,
+        # nk, dh, is_bf16, stream
+        "impx_attention_key_mass": [_P] * 6 + [_I] * 6 + [_P],
+        # () -> query rows per block, which size the partial buffer
+        "impx_attention_key_mass_block_q": [],
     },
     "sinkhorn": {
         # dist, bin, r, c, plan, u, v, max0, idx0, idx1, rowmass, colmass,
@@ -54,7 +62,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes()
+    """The library's path, named by a hash of the source, the shared headers
+    and the flags."""
+    sources = [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -2,6 +2,7 @@
 a CUDA device unless told device='cpu', and its kernel wrappers count only
 kernel launches."""
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -11,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from impx_torch.models import DGNNS, MatcherConfig
-from impx_torch.ops.kernels.attention import mha_fused
+from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
+from impx_torch.ops.kernels.attention import attention_key_mass, mha_fused
 from impx_torch.ops.kernels.sinkhorn import sinkhorn_fused_stats
 
 REPO = Path(__file__).resolve().parents[1]
@@ -41,7 +42,7 @@ def test_no_jax_or_impx_import_statically(path):
 
 
 def test_no_jax_or_impx_import_at_run_time():
-    code = ("import sys, impx_torch.models.dgnns, impx_torch.tools.convert; "
+    code = ("import sys, impx_torch.models, impx_torch.tools.convert; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'impx')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -57,17 +58,37 @@ def test_entry_point_needs_cuda_unless_cpu_is_named(monkeypatch):
     assert DGNNS(SMALL, device="cpu").device == torch.device("cpu")
 
 
-def test_cpu_path_counts_no_launch():
+def test_eimp_entry_point_needs_cuda_unless_cpu_is_named(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AdaGMN(SMALL)
+    assert AdaGMN(SMALL, device="cpu").device == torch.device("cpu")
+
+
+def _small_pairs(b=1, n=16):
     rs = np.random.RandomState(0)
-    b, n = 1, 16
     data = {"descriptors0": rs.randn(b, n, 32), "descriptors1": rs.randn(b, n, 32),
             "norm_keypoints0": rs.rand(b, n, 2), "norm_keypoints1": rs.rand(b, n, 2),
             "scores0": rs.rand(b, n), "scores1": rs.rand(b, n)}
-    data = {k: v.astype(np.float32) for k, v in data.items()}
+    return {k: v.astype(np.float32) for k, v in data.items()}
+
+
+def test_cpu_path_counts_no_launch():
+    data = _small_pairs()
     before = (mha_fused.launches, sinkhorn_fused_stats.launches)
     out = DGNNS(SMALL, device="cpu").produce_matches(data, only_last=True)
-    assert out["indices0"][0].shape == (b, n)
+    assert out["indices0"][0].shape == (1, 16)
     assert (mha_fused.launches, sinkhorn_fused_stats.launches) == before
+
+
+@pytest.mark.parametrize("compaction", [(), ((2, 8),)], ids=["mask-only", "compacted"])
+def test_eimp_cpu_path_counts_no_launch(compaction):
+    config = dataclasses.replace(SMALL, n_layers=4, n_min_tokens=4, compaction=compaction)
+    kernels = (mha_fused, sinkhorn_fused_stats, attention_key_mass)
+    before = [fn.launches for fn in kernels]
+    out = AdaGMN(config, device="cpu").produce_matches(_small_pairs(), only_last=True)
+    assert out["indices0"][0].shape == out["keep0"].shape == (1, 16)
+    assert [fn.launches for fn in kernels] == before
 
 
 def test_float64_arrays_run_as_fp32():
@@ -88,5 +109,7 @@ def test_wrappers_refuse_devices_without_a_kernel():
     q = torch.empty((1, 1, 4, 64), device="meta")
     with pytest.raises(ValueError, match="no attention kernel"):
         mha_fused(q, q, q)
+    with pytest.raises(ValueError, match="no attention-mass kernel"):
+        attention_key_mass(q, q)
     with pytest.raises(ValueError, match="no Sinkhorn kernel"):
         sinkhorn_fused_stats(torch.empty((1, 4, 4), device="meta"), 1.0, 20)

@@ -4,13 +4,14 @@ This file imports neither jax nor impx, so it runs where the card is:
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 (--noconftest: tests/conftest.py imports jax). Without a CUDA device every
 test here skips. It also holds the numpy input makers that
-tests/test_torch_ops.py shares."""
+tests/test_torch_ops.py and tests/test_torch_eimp.py share."""
 import numpy as np
 import pytest
 import torch
 
-from impx_torch.models import DGNNS, MatcherConfig
-from impx_torch.ops.kernels.attention import mha_fused, mha_reference
+from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
+from impx_torch.ops.kernels.attention import (
+    attention_key_mass, attention_key_mass_reference, mha_fused, mha_reference)
 from impx_torch.ops.kernels.sinkhorn import sinkhorn_fused_stats, sinkhorn_stats_reference
 
 
@@ -31,6 +32,28 @@ def sinkhorn_case(b, n, m, n0, n1, seed=0):
     valid0 = np.arange(n)[None] < np.asarray(n0)[:, None]
     valid1 = np.arange(m)[None] < np.asarray(n1)[:, None]
     return dist, np.float32(0.7), valid0, valid1
+
+
+def overlap_pairs(rs, b, n, d, valid_share, noise=0.01):
+    """Pairs that overlap in part: half of image 1's slots hold a permuted,
+    noised copy of an image 0 keypoint (with its validity), the rest are
+    fresh keypoints; validity is scattered at valid_share. Some keypoints
+    match, and the rest can be pooled away."""
+    d0, d1 = rs.randn(2, b, n, d).astype(np.float32)
+    k0, k1 = (rs.rand(2, b, n, 2) - 0.5).astype(np.float32)
+    s0, s1 = rs.rand(2, b, n).astype(np.float32)
+    v0, v1 = rs.rand(2, b, n) < valid_share
+    perm = np.stack([rs.permutation(n) for _ in range(b)])
+    take = lambda x: np.take_along_axis(x, perm.reshape(perm.shape + (1,) * (x.ndim - 2)), axis=1)
+    shared = rs.rand(b, n) < 0.5
+    pick = lambda a, c: np.where(shared.reshape(shared.shape + (1,) * (a.ndim - 2)), a, c)
+    return {
+        "descriptors0": d0,
+        "descriptors1": pick(take(d0) + noise * rs.randn(b, n, d).astype(np.float32), d1),
+        "norm_keypoints0": k0, "norm_keypoints1": pick(take(k0), k1),
+        "scores0": s0, "scores1": pick(take(s0), s1),
+        "valid0": v0, "valid1": pick(take(v0), v1),
+    }
 
 
 SINKHORN_CASES = [
@@ -110,3 +133,47 @@ def test_matcher_kernel_path_matches_plain_path(cuda_device, compute_dtype):
     idx, ridx = out["indices0"][0], ref["indices0"][0]
     assert (idx == ridx).float().mean().item() >= (1.0 if compute_dtype == "float32" else 0.97)
     assert ((idx >= 0).sum(dim=1) >= 45).all()  # a quarter of the 180 valid rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,nq,nk,dh", [(4, 128, 192, 64), (2, 100, 77, 32)])
+def test_attention_key_mass_kernel_matches_plain(cuda_device, dtype, h, nq, nk, dh):
+    """Against the plain version on the card: summation order only, so rtol
+    1e-4 and atol 1e-6; a second run on the same inputs gives the same bits
+    (no atomics)."""
+    q, k, _, mask = attention_inputs(h=h, nq=nq, nk=nk, dh=dh)
+    qmask = np.random.RandomState(1).rand(q.shape[0], nq) > 0.3
+    q, k = (torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k))
+    mask, qmask = (torch.from_numpy(x).to(cuda_device) for x in (mask, qmask))
+    before = attention_key_mass.launches
+    out = attention_key_mass(q, k, mask, qmask)
+    again = attention_key_mass(q, k, mask, qmask)
+    torch.cuda.synchronize()
+    assert attention_key_mass.launches == before + 2
+    assert torch.equal(out, again)
+    ref = attention_key_mass_reference(q, k, mask, qmask)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compaction", [(), ((4, 128),)], ids=["mask-only", "compacted"])
+def test_adagmn_kernel_path_matches_plain_path(cuda_device, compaction):
+    """EIMP at fp32 on the card: 12 attention launches, 6 Sinkhorn calls and 4
+    mass launches (2 at each of the pooling iterations 3 and 5) per call."""
+    cfg = MatcherConfig(descriptor_dim=64, keypoint_encoder=(32, 64), n_layers=6, num_heads=4,
+                        norm_fn="in", n_min_tokens=16, compaction=compaction)
+    model = AdaGMN(cfg, device=cuda_device)
+    model.bin_score.data.fill_(6.0)  # unmatched rows' mass to the dustbin: pooling drops them
+    data = overlap_pairs(np.random.RandomState(0), 2, 256, 64, valid_share=0.35)
+    kernels = (mha_fused, sinkhorn_fused_stats, attention_key_mass)
+    before = [fn.launches for fn in kernels]
+    out = model.produce_matches(data, only_last=True, with_scores=False)
+    assert [fn.launches - n for fn, n in zip(kernels, before)] == [12, 6, 4]
+    model.use_kernels = False
+    ref = model.produce_matches(data, only_last=True, with_scores=False)
+    valid0 = torch.from_numpy(data["valid0"]).to(cuda_device)
+    assert bool((out["keep0"].sum(dim=1) < valid0.sum(dim=1)).any())  # pooling dropped some
+    for key in ("keep0", "keep1"):
+        assert torch.equal(out[key], ref[key]), key
+    assert torch.equal(out["indices0"][-1], ref["indices0"][-1])
