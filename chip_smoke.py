@@ -16,15 +16,30 @@ the device's idle share; (7) AdaGMN (EIMP) at the same config, mask-only and
 bucket-compacted, on pairs that overlap in part: launches per call, the keep
 counts after each pool, overflow, and agreement with the plain path;
 (8) pairs_per_s of both EIMP variants, kernel and plain path, and the
-profile of each (device time by kernel, host time by operation). The line
-before the last lists the kernels as JSON; the last line is
+profile of each (device time by kernel, host time by operation); (9) the
+training kernels, the forward that writes the row log-sum-exp (kernel 4) and
+the two attention backwards (kernels 3 and 5), against their plain versions
+at the training shape [32, 4, 1024, 64] bf16 and a small ragged fp32 shape
+(the backwards twice, for the same bits), with their times, bounds, plain
+and library times; (10) one DGNNS training step at the published training
+config (configs/config_train_megadepth.json: 15 layers, D = 256, 1024
+keypoints, 16 pairs, bf16, a loss on every iteration), route A and route B,
+on the kernel path and on the plain path on the same batch and weights:
+launches a step, the plain bodies never called on the kernel path, the
+loss's relative difference and the smallest gradient cosine over the
+parameter leaves; (11) make_train_step over fresh batches, each route: train
+pairs/s, peak device memory and a profile of one step; (12) steps on one
+fixed batch, each route: the loss falls and the NaN guard skips no step.
+The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -51,6 +66,27 @@ MASS_RTOL, MASS_ATOL = 1e-4, 1e-6  # mass kernel vs plain: summation order only
 EIMP_COMPACTION = ((4, 1024), (8, 512), (12, 256))
 EIMP_BIN_SCORE = 9.0
 EIMP_KEEP_AGREE_MIN = 0.99        # final keep masks equal, kernel vs plain path
+# training: configs/config_train_megadepth.json (batch 16, 1024 keypoints)
+TB, TN = 16, 1024
+TRAIN_STEPS = 10                  # timed make_train_step steps a route, fresh batches
+FIXED_STEPS = 10                  # steps on one fixed batch a route: the loss must fall
+FWD_LSE_TOL = 1e-5                # the row log-sum-exp, fp32, elementwise (atol = rtol)
+# the training kernels' dq, dk and dv against their plain versions: the
+# relative L2 error of each batch's [H, N, dh] slice. fp32: sums in another
+# order. bf16: both sides round the outputs once (2^-8 relative), and kernel 5
+# also rounds p and ds, so an fp32 difference flips a rounding now and then.
+# A kernel 5 that dropped delta moves dq by 0.14 and dk by 0.056 (the plain
+# versions at [2, 4, 1024, 64]). Relative to each batch's own norm, the fully
+# masked batch (kernel 5's p = 1 on every key, outputs about Nk times larger)
+# is held to the same limit and printed on its own line.
+TRAIN_REL_L2 = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+# kernel 4's o: the online softmax rounds each tile's exp(s - running max) to
+# bf16 before P.V, the plain version exp(s - row max), so every term carries
+# its own rounding (2^-9 relative rms): about 2e-3 at bf16
+FWD_O_REL_L2 = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+TRAIN_LOSS_RTOL = 1e-2            # loss, kernel path vs plain path (bf16)
+GRAD_COS_MIN = 0.99               # each gradient leaf, kernel path vs plain path (bf16)
+PLAIN_BODIES = ("mha_reference", "mha_lse_reference", "mha_bwd_reference", "mha_bwd_from_lse_reference")
 
 
 def say(*parts):
@@ -290,7 +326,7 @@ def main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
     say(f"main path launches per produce_matches call: {launches}")
-    if launches != {"mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1, "attention_key_mass": 0}:
+    if launches != {**dict.fromkeys(kernels, 0), "mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1}:
         fail(f"main path did not run through the kernels as expected: {launches}")
 
     model.use_kernels = False
@@ -363,7 +399,9 @@ def time_all(dev, model, mods, errs, launches):
 
 
 KERNEL_GROUPS = (  # device kernel name -> the layer that launched it
-    ("mha_fused (csrc/attention.cu)", ("attn_fwd",)),
+    ("mha_fused, mha_fused_lse (csrc/attention.cu)", ("attn_fwd",)),
+    ("mha_bwd (csrc/attention_bwd.cu)", ("bwd_dq_fma", "bwd_dkdv_fma")),
+    ("mha_bwd_from_lse (csrc/attention_bwd.cu)", ("bwd_dq_lse", "bwd_dkdv_lse", "row_dot")),
     ("sinkhorn_fused_stats (csrc/sinkhorn.cu)",
      ("plan_rows", "update_u", "update_v", "row_stats", "col_stats")),
     ("attention_key_mass (csrc/attention_mass.cu)", ("key_mass",)),
@@ -485,7 +523,7 @@ def eimp_path(dev, models, kernels, pool_its):
     valid = (data["valid0"], data["valid1"])
     n_valid = [v.sum(1) for v in valid]
     n_layers = models["mask-only"].config.n_layers
-    want = {"mha_fused": 2 * n_layers, "sinkhorn_fused_stats": n_layers,
+    want = {**dict.fromkeys(kernels, 0), "mha_fused": 2 * n_layers, "sinkhorn_fused_stats": n_layers,
             "attention_key_mass": 2 * len(pool_its)}
     dropped_any = False
     first_launches = None
@@ -578,6 +616,320 @@ def time_eimp(dev, models, mods, err, launches):
             "bound_by": m_by, "library_ms": None}
 
 
+# ---------------------------------------------------------------- training kernels
+def work_pairs(q, mask) -> float:
+    """(query, key) pairs the attention backward needs: every query against
+    each batch's valid keys, or against all Nk keys where none is valid (a
+    fully masked row spreads its weight over every key); a masked key of a
+    batch with valid keys has p = 0 exactly."""
+    b, h, nq, _ = q.shape
+    valid = mask.sum(1).double()
+    keys = torch.where(valid == 0, torch.full_like(valid, mask.shape[1]), valid)
+    return h * nq * keys.sum().item()
+
+
+def training_kernel_bounds(q, mask) -> dict:
+    """Least time of each training kernel at these inputs: (ms, what bounds it).
+    Kernel 4: QK^T and P.V in the input dtype (4 flops a pair and dh) and its
+    bytes (q, o and the valid k, v rows, the lse). Kernel 3: dv, dq and dk
+    take fp32 operands (p and ds are fp32 values; 6 flops a pair and dh) at
+    the fp32 rate; QK^T and dp = do.v^T take input-dtype values, whose
+    products are exact in fp32, at the input dtype's rate (4 flops); against
+    q, k, v, do read and dq, dk, dv written. Kernel 5: five products in the
+    input dtype (10 flops a pair and dh), against q, k, v, o, do, lse read and
+    dq, dk, dv written."""
+    b, h, nq, dh = q.shape
+    pairs = work_pairs(q, mask)
+    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32
+    row = q.element_size() * h * nq * dh                 # one [H, Nq, dh] tensor of one batch
+    nbytes = {"mha_fused_lse": 2 * b * row + 2 * pairs / nq * dh * q.element_size() + 4 * b * h * nq,
+              "mha_bwd": 7 * b * row, "mha_bwd_from_lse": 8 * b * row + 4 * b * h * nq}
+    t_ops = {"mha_fused_lse": 4 * dh * pairs / peak,
+             "mha_bwd": 6 * dh * pairs / PEAK_FP32 + 4 * dh * pairs / peak,
+             "mha_bwd_from_lse": 10 * dh * pairs / peak}
+    out = {}
+    for name, t in t_ops.items():
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S
+        out[name] = (1e3 * max(t, t_bytes), "operations" if t >= t_bytes else "bytes")
+    return out
+
+
+def training_inputs(gen, dev, dtype, b=2 * TB, h=H, n=TN, dh=D // H):
+    """q, k, v, do and a key mask with up to 100 padded keys of 1024 (up to
+    a third at small sizes); the last batch's keys all masked."""
+    q, k, v, do = (torch.randn((b, h, n, dh), generator=gen).to(dev, dtype) for _ in range(4))
+    mask = torch.arange(n)[None] < padded_counts(gen, b, n, max(n - 100, 2 * n // 3))[:, None]
+    mask[-1] = False
+    return q, k, v, mask.to(dev), do
+
+
+def rel_l2_per_batch(a, r) -> torch.Tensor:
+    """||a_b - r_b|| / ||r_b|| for each batch b, in fp32."""
+    diff = (a.float() - r.float()).flatten(1).norm(dim=1)
+    return diff / r.float().flatten(1).norm(dim=1)
+
+
+def check_training_kernels(dev, ka) -> dict:
+    """Kernels 4, 3 and 5 against their plain versions: o, dq, dk and dv by
+    the relative L2 error of each batch, the lse elementwise; the backwards
+    twice, for the same bits. Prints every check before failing on any.
+    Returns each kernel's max_abs_err at the main shape."""
+    gen = torch.Generator().manual_seed(10)
+    errs, failures = {}, []
+    for dtype, shape in ((torch.bfloat16, dict()), (torch.float32, dict(b=3, h=2, n=333, dh=32))):
+        q, k, v, mask, do = training_inputs(gen, dev, dtype, **shape)
+        o, lse = ka.mha_fused_lse(q, k, v, mask)
+        g3, g3b = ka.mha_bwd(q, k, v, mask, do), ka.mha_bwd(q, k, v, mask, do)
+        g5, g5b = (ka.mha_bwd_from_lse(q, k, v, mask, lse, o, do) for _ in range(2))
+        torch.cuda.synchronize()
+        ro, rlse = ka.mha_lse_reference(q, k, v, mask)
+        checks = [("mha_fused_lse", "o", o, ro, True, FWD_O_REL_L2[dtype])]
+        for name, got, again, ref in (
+                ("mha_bwd", g3, g3b, ka.mha_bwd_reference(q, k, v, mask, do)),
+                ("mha_bwd_from_lse", g5, g5b, ka.mha_bwd_from_lse_reference(q, k, v, mask, lse, o, do))):
+            for part, a, a2, r in zip(("dq", "dk", "dv"), got, again, ref):
+                checks.append((name, part, a, r, torch.equal(a, a2), TRAIN_REL_L2[dtype]))
+        where = f"{list(q.shape)} {str(dtype)[6:]}"
+        for name, part, a, r, same, limit in checks:
+            rel = rel_l2_per_batch(a, r)
+            err = (a.float() - r.float()).abs().max().item()
+            finite = bool(torch.isfinite(a.float()).all())
+            say(f"check {name} {part} {where}: relative L2 a batch, largest {rel[:-1].max().item():.3e} "
+                f"over the batches with valid keys, {rel[-1].item():.3e} on the fully masked batch "
+                f"(max {limit:g}); max_abs_err {err:.3e}; finite {finite}"
+                + ("" if name == "mha_fused_lse" else f"; second run bitwise equal {same}"))
+            if not bool((rel <= limit).all()) or not finite or not same:
+                failures.append(f"{name} {part} at {where}")
+            if not shape:
+                errs[name] = max(errs.get(name, 0.0), err)
+        lse_err = (lse - rlse).abs()
+        lse_bad = (lse_err > FWD_LSE_TOL + FWD_LSE_TOL * rlse.abs()).sum().item()
+        masked_lse = bool((lse[-1] == -1e30).all())
+        say(f"check mha_fused_lse lse {where}: max_abs_err {lse_err.max().item():.3e} (tol atol=rtol="
+            f"{FWD_LSE_TOL:g}), out of tolerance {lse_bad}; the fully masked batch's lse is -1e30 "
+            f"exactly: {masked_lse}")
+        if lse_bad or not masked_lse:
+            failures.append(f"mha_fused_lse lse at {where}")
+    if failures:
+        fail(f"training kernels disagree with their plain versions or themselves: {failures}")
+    return errs
+
+
+def time_training_kernels(dev, ka, errs, launches) -> list:
+    gen = torch.Generator().manual_seed(11)
+    ins = [training_inputs(gen, dev, torch.bfloat16) for _ in range(3)]
+    saved = [ka.mha_fused_lse(q, k, v, m) for q, k, v, m, _ in ins]
+    with_lse = [(q, k, v, m, lse, o, do) for (q, k, v, m, do), (o, lse) in zip(ins, saved)]
+    fwd = [x[:4] for x in ins]
+    t = {"mha_fused_lse": (cuda_ms(ka.mha_fused_lse, fwd), cuda_ms(ka.mha_lse_reference, fwd)),
+         "mha_bwd": (cuda_ms(ka.mha_bwd, ins), cuda_ms(ka.mha_bwd_reference, ins)),
+         "mha_bwd_from_lse": (cuda_ms(ka.mha_bwd_from_lse, with_lse),
+                              cuda_ms(ka.mha_bwd_from_lse_reference, with_lse))}
+    # the library yardstick: scaled_dot_product_attention with a bool mask,
+    # its forward for kernel 4 and its backward for kernels 3 and 5
+    sdpa = lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=m[:, None, None, :])
+    lib_fwd = cuda_ms(sdpa, fwd)
+    graphs = []
+    for q, k, v, m, do in ins:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        graphs.append((sdpa(*leaves, m), leaves, do))
+    lib_bwd = cuda_ms(lambda out, leaves, do: torch.autograd.grad(out, leaves, do, retain_graph=True), graphs)
+    library = {"mha_fused_lse": lib_fwd, "mha_bwd": lib_bwd, "mha_bwd_from_lse": lib_bwd}
+    bounds = training_kernel_bounds(ins[0][0], ins[0][3])
+    rows = []
+    line = {"mha_fused_lse": "impx/ops/pallas/attention.py:245", "mha_bwd": "impx/ops/pallas/attention.py:137",
+            "mha_bwd_from_lse": "impx/ops/pallas/attention.py:336"}
+    source = {"mha_fused_lse": "impx_torch/csrc/attention.cu", "mha_bwd": "impx_torch/csrc/attention_bwd.cu",
+              "mha_bwd_from_lse": "impx_torch/csrc/attention_bwd.cu"}
+    for name, (k_ms, p_ms) in t.items():
+        b_ms, b_by = bounds[name]
+        say(f"time {name} {list(ins[0][0].shape)} bf16: ms {k_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
+            f"launches {launches[name]} a training step plain_ms {p_ms:.4f} library_ms {library[name]:.4f} "
+            f"(sdpa {'forward' if name == 'mha_fused_lse' else 'backward'}, bool mask)")
+        rows.append({"name": name, "route": "cuda", "source": source[name], "replaces": line[name],
+                     "launches": launches[name], "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[name]})
+    return rows
+
+
+# ---------------------------------------------------------------- training step
+def train_pairs(gen, dev, b=TB, n=TN, d=D):
+    """A training batch: image 1 holds a permuted, lightly noised copy of half
+    of image 0's valid keypoints and fresh keypoints elsewhere; 0-100 padded
+    keypoints per image; matching_mask [B, N+1, N+1] marks the copies, and
+    every other valid keypoint in the dustbin (padded rows and columns 0)."""
+    nv0, nv1 = padded_counts(gen, b, n, n - 100), padded_counts(gen, b, n, n - 100)
+    d0, d1 = torch.randn((2, b, n, d), generator=gen)
+    k0, k1 = torch.rand((2, b, n, 2), generator=gen) - 0.5
+    s0, s1 = torch.rand((2, b, n), generator=gen)
+    gt = torch.zeros((b, n + 1, n + 1))
+    for i in range(b):
+        m = int(min(nv0[i], nv1[i])) // 2
+        src = torch.randperm(int(nv0[i]), generator=gen)[:m]
+        dst = torch.randperm(int(nv1[i]), generator=gen)[:m]
+        d1[i, dst] = d0[i, src] + 0.01 * torch.randn((m, d), generator=gen)
+        k1[i, dst], s1[i, dst] = k0[i, src], s0[i, src]
+        gt[i, src, dst] = 1
+        rest0 = torch.arange(n) < nv0[i]
+        rest0[src] = False
+        rest1 = torch.arange(n) < nv1[i]
+        rest1[dst] = False
+        gt[i, :n, n][rest0] = 1
+        gt[i, n, :n][rest1] = 1
+    data = {"descriptors0": d0, "descriptors1": d1, "norm_keypoints0": k0, "norm_keypoints1": k1,
+            "scores0": s0, "scores1": s1, "valid0": torch.arange(n)[None] < nv0[:, None],
+            "valid1": torch.arange(n)[None] < nv1[:, None], "matching_mask": gt}
+    return {k: x.to(dev) for k, x in data.items()}
+
+
+@contextlib.contextmanager
+def counting_plain_bodies(module):
+    """Count the calls of the kernels' plain versions that `module` (the one
+    the autograd Functions look them up in) holds."""
+    counts = {name: 0 for name in PLAIN_BODIES}
+    originals = {name: getattr(module, name) for name in PLAIN_BODIES}
+
+    def counted(name):
+        def fn(*args, **kw):
+            counts[name] += 1
+            return originals[name](*args, **kw)
+        return fn
+
+    for name in PLAIN_BODIES:
+        setattr(module, name, counted(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def training_models(dev, DGNNS, MatcherConfig) -> dict:
+    """Both routes at the published training config, with the same random
+    weights from a seed."""
+    base = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="bfloat16")
+    models = {"A": DGNNS(base, device=dev, seed=0),
+              "B": DGNNS(dataclasses.replace(base, train_fused=True), device=dev, seed=0)}
+    say(f"training: eval_config('spp', 15) (the training config's widths: configs/config_train_megadepth.json) "
+        f"bf16, train_supervision '{base.train_supervision}', B={TB} N={TN} D={D}")
+    return models
+
+
+def zero_grad_leaves(model) -> re.Pattern:
+    """Leaves whose exact gradient is 0: a bias that shifts every valid token
+    of a channel alike before a masked InstanceNorm (every keypoint-encoder
+    block but the last, which no norm follows), and k's bias (a constant per
+    softmax row). In bf16 they hold rounding noise: their cosine is printed,
+    not held."""
+    last = len(model.kenc.blocks) - 1
+    return re.compile(rf"(kenc\.blocks\.[0-{last - 1}]\.bias|attn\.[kv]\.bias|merge\.bias|proj\.bias"
+                      r"|mlp\.blocks\.0\.bias)$")
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().float().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def training_step_check(dev, models, kernels, ka) -> dict:
+    """One forward_train + backward a route on the kernel path (launches
+    counted from 0, the plain bodies counted) and on the plain path, on the
+    same batch and weights. Returns the kernel launches of one step."""
+    gen = torch.Generator().manual_seed(12)
+    batch = train_pairs(gen, dev)
+    want = {"A": {"mha_fused": 30, "mha_bwd": 30}, "B": {"mha_fused_lse": 30, "mha_bwd_from_lse": 30}}
+    step_launches = {}
+    for route, model in models.items():
+        results = {}
+        for use_kernels in (True, False):
+            model.use_kernels = use_kernels
+            model.zero_grad(set_to_none=True)
+            for fn in kernels.values():
+                fn.launches = 0
+            with counting_plain_bodies(ka) as plain_calls:
+                out = model.forward_train(batch)
+                out["loss"].backward()
+                torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            results[use_kernels] = (out, grads_of(model), launches, dict(plain_calls))
+        model.use_kernels = True
+        (out, gk, launches, plain_calls), (ref, gp, plain_launches, _) = results[True], results[False]
+        expected = {k: want[route].get(k, 0) for k in kernels}
+        say(f"train route {route}: launches per training step {launches}; plain bodies called on the "
+            f"kernel path {plain_calls}; plain path launches {sum(plain_launches.values())}")
+        if launches != expected or any(plain_calls.values()) or any(plain_launches.values()):
+            fail(f"route {route} did not run through its kernels as expected: {launches}, {plain_calls}")
+        step_launches.update({k: v for k, v in launches.items() if v})
+        lk, lp = out["loss"].item(), ref["loss"].item()
+        rel = abs(lk - lp) / abs(lp)
+        cos = {n: torch.nn.functional.cosine_similarity(gk[n].flatten(), gp[n].flatten(), dim=0).item()
+               for n in gp}
+        zero = zero_grad_leaves(model)
+        held = {n: c for n, c in cos.items() if not zero.search(n)}
+        worst = min(held, key=held.get)
+        worst_zero = min((c for n, c in cos.items() if zero.search(n)), default=float("nan"))
+        finite = all(bool(torch.isfinite(g).all()) for g in gk.values()) and bool(torch.isfinite(out["loss"]))
+        n_match = (out["matches0"] >= 0).sum(1).tolist()
+        say(f"train route {route}: loss {lk:.6f} plain {lp:.6f} relative difference {rel:.3e} "
+            f"(max {TRAIN_LOSS_RTOL:g}); smallest gradient cosine {held[worst]:.6f} at {worst} over "
+            f"{len(held)} leaves (min {GRAD_COS_MIN}); over the {len(cos) - len(held)} leaves whose exact "
+            f"gradient is 0 {worst_zero:.3f} (rounding noise, not held); matches0 {n_match}; "
+            f"acc_corr {out['acc_corr'].item():.2f} of {out['total_acc_corr'].item():.2f}; finite {finite}")
+        if not finite or gk.keys() != gp.keys() or out["matches0"].shape != batch["valid0"].shape:
+            fail(f"route {route}: non-finite or misshapen training output")
+        if rel > TRAIN_LOSS_RTOL or held[worst] < GRAD_COS_MIN:
+            fail(f"route {route}: the kernel path's loss or gradients disagree with the plain path")
+    return step_launches
+
+
+def training_runs(dev, models, TrainHyperParams, make_train_step, init_opt_state, init_stats):
+    """Phases 11 and 12 for each route: TRAIN_STEPS timed steps on fresh
+    batches (train pairs/s, peak memory, one step profiled), then FIXED_STEPS
+    on one batch (the loss must fall). Any skipped step fails."""
+    gen = torch.Generator().manual_seed(13)
+    fresh = [train_pairs(gen, dev) for _ in range(TRAIN_STEPS + 2)]
+    fixed = train_pairs(gen, dev)
+    hp = TrainHyperParams()  # the published lr 1e-4 and decay schedule
+    for route, model in models.items():
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        opt, stats = init_opt_state(model), init_stats(dev)
+        step = make_train_step(model, hp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, bad = [], []
+        for it, batch in enumerate(fresh):
+            t0 = time.perf_counter()
+            metrics, stats = step(opt, it, batch, stats)
+            torch.cuda.synchronize()
+            if it >= 2:  # two warm-up steps
+                times.append(time.perf_counter() - t0)
+            bad.append(metrics["bad_loss"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        skipped = int(torch.stack(bad).sum().item())
+        med = statistics.median(times)
+        say(f"train route {route}: {len(times)} make_train_step steps on fresh batches, median "
+            f"{1e3 * med:.1f} ms a step = train_pairs_per_s {TB / med:.2f} (steps ms "
+            f"{[round(1e3 * t, 1) for t in times]}); peak device memory {peak:.2f} GiB; skipped steps {skipped}")
+        if skipped:
+            fail(f"route {route}: the NaN guard skipped {skipped} steps")
+        profile_calls(f"training step route {route} B={TB} N={TN}",
+                      lambda d: step(opt, TRAIN_STEPS + 2, d, stats), [fresh[0]])
+
+        model.load_state_dict(state)
+        opt, stats = init_opt_state(model), init_stats(dev)
+        losses, bad = [], []
+        for it in range(FIXED_STEPS):
+            metrics, stats = step(opt, it, fixed, stats)
+            losses.append(metrics["loss"])
+            bad.append(metrics["bad_loss"])
+        losses = [x.item() for x in losses]
+        skipped = int(torch.stack(bad).sum().item())
+        say(f"train route {route}: {FIXED_STEPS} steps on one batch, loss {[round(x, 5) for x in losses]}, "
+            f"skipped steps {skipped}")
+        if skipped or not losses[-1] < losses[0]:
+            fail(f"route {route}: the loss did not fall over {FIXED_STEPS} steps on one batch, or a step was skipped")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -585,11 +937,13 @@ def main() -> int:
     from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
     from impx_torch.models.fast import _eimp_do_pool
     from impx_torch.ops.kernels import _build
+    from impx_torch.ops.kernels import attention as ka
     from impx_torch.ops.kernels.attention import (
         attention_key_mass, attention_key_mass_reference, mha_fused, mha_reference)
     from impx_torch.ops.kernels.sinkhorn import (
         plan_dtype, sinkhorn_fused_stats, sinkhorn_stats_reference)
     from impx_torch.tools.convert import load_reference_state_dict
+    from impx_torch.train.step import TrainHyperParams, init_opt_state, init_stats, make_train_step
 
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -611,7 +965,8 @@ def main() -> int:
                                                    sinkhorn_stats_reference, plan_dtype)}
     errs["attention_key_mass"] = check_mass(dev, attention_key_mass, attention_key_mass_reference)
     kernels = {"mha_fused": mha_fused, "sinkhorn_fused_stats": sinkhorn_fused_stats,
-               "attention_key_mass": attention_key_mass}
+               "attention_key_mass": attention_key_mass, "mha_fused_lse": ka.mha_fused_lse,
+               "mha_bwd": ka.mha_bwd, "mha_bwd_from_lse": ka.mha_bwd_from_lse}
     model, launches = main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels)
     rows = time_all(dev, model, (mha_fused, mha_reference, sinkhorn_fused_stats,
                                  sinkhorn_stats_reference, plan_dtype), errs, launches)
@@ -629,8 +984,15 @@ def main() -> int:
         profile_calls(f"eimp {name} produce_matches B={B} N={N}",
                       lambda d, m=models[name]: m.produce_matches(d, only_last=True, with_scores=False),
                       pairs)
-    say(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+    say(f"peak device memory of the inference phases {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del models
+
+    errs.update(check_training_kernels(dev, ka))
+    train_models = training_models(dev, DGNNS, MatcherConfig)
+    train_launches = training_step_check(dev, train_models, kernels, ka)
+    rows += time_training_kernels(dev, ka, errs, train_launches)
+    training_runs(dev, train_models, TrainHyperParams, make_train_step, init_opt_state, init_stats)
+    say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

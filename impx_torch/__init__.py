@@ -2,10 +2,12 @@
 
 A port of `impx` (JAX/Pallas) that mirrors its module layout:
 
-  models/   config, gnn, gm, dgnns, fast   (the matcher as nn.Modules)
+  models/   config, gnn, gm, dgnns, adgm, fast, loss (the matcher as nn.Modules,
+            its forwards and its training loss)
   ops/      norms, mlp, attention, sinkhorn, matching (plain tensor functions)
   ops/kernels/  the CUDA kernels' wrappers, each beside its plain version
   geometry/ keypoints
+  train/    step (Adam, LR schedule, NaN guard), trainer
   tools/    convert (weights from the JAX pytree or the reference state_dict)
   csrc/     the CUDA C++ sources, built at first use by ops/kernels/_build.py
 

@@ -7,6 +7,14 @@
 // online softmax (running max and sum in fp32, P.V accumulated in fp32,
 // divided by the row sum at the end).
 //
+// The same kernels, given an lse buffer, replace the TPU kernel
+// impx/ops/pallas/attention.py:mha_fused_lse (:245, kernel _attn_kernel_lse
+// :221) too: the online softmax ends with each row's max m and sum l, and the
+// kernel writes lse = m + log(l) in fp32, the residual of the training
+// backward csrc/attention_bwd.cu (impx_mha_bwd_lse). For a fully masked row
+// m = -1e30 and l = Nk, and the log term is absorbed: lse == -1e30 exactly,
+// as in the TPU kernel.
+//
 // Bound on the H100: the two products, 4 * Nq * Nk * dh flops per
 // (batch, head), against the bf16 tensor-core rate; the exponentials take
 // about as long and the bytes of q, k, v, o a third of that. Scores and
@@ -35,23 +43,12 @@ constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 
 // ----------------------------------------------------------------- bf16, mma
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// two bf16 from consecutive rows of a row-major tile, packed low = first
-__device__ __forceinline__ uint32_t ld_pair_rows(const __nv_bfloat16* p, int ld) {
-  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
-  return lo | (hi << 16);
-}
-
 template <int DH>
 __global__ void __launch_bounds__(128)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
-              __nv_bfloat16* __restrict__ out, int heads, int nq, int nk, float scale) {
+              __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int heads, int nq, int nk,
+              float scale) {
   constexpr int LD = DH + 8;        // bf16 row stride: 16-byte rows, conflict-free fragments
   constexpr int KSTEPS = DH / 16;   // k-steps of QK^T
   constexpr int NT = DH / 8;        // n-tiles of P.V
@@ -172,6 +169,10 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     l_run[0] += __shfl_xor_sync(0xffffffffu, l_run[0], off);
     l_run[1] += __shfl_xor_sync(0xffffffffu, l_run[1], off);
   }
+  if (lse != nullptr && t == 0) {  // m + log(l): a fully masked row keeps -1e30 exactly
+    if (r0 < nq) lse[(size_t)bh * nq + r0] = m_run[0] + logf(l_run[0]);
+    if (r1 < nq) lse[(size_t)bh * nq + r1] = m_run[1] + logf(l_run[1]);
+  }
   __nv_bfloat16* ob = out + (size_t)bh * nq * DH;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
@@ -190,7 +191,8 @@ template <int DH>
 __global__ void __launch_bounds__(256)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ mask,
-             float* __restrict__ out, int heads, int nq, int nk, float scale) {
+             float* __restrict__ out, float* __restrict__ lse, int heads, int nq, int nk,
+             float scale) {
   constexpr int KLD = DH + 1;            // padded K row
   constexpr int PLD = kBlockK + 1;       // padded P row
   constexpr int PER = kBlockK / 4;       // keys per thread
@@ -264,6 +266,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
+  if (lse != nullptr && sub == 0 && r < nq) lse[(size_t)bh * nq + r] = m_run + logf(l_run);
   if (r < nq) {
 #pragma unroll
     for (int i = 0; i < DPER; ++i) out[((size_t)bh * nq + r) * DH + sub + 4 * i] = o[i] / l_run;
@@ -272,20 +275,35 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* mask, void* out,
-                   int bh, int heads, int nq, int nk, int is_bf16, cudaStream_t stream) {
+                   float* lse, int bh, int heads, int nq, int nk, int is_bf16,
+                   cudaStream_t stream) {
   const float scale = (float)(1.0 / sqrt((double)DH));
   const dim3 grid((nq + kBlockQ - 1) / kBlockQ, bh);
   if (is_bf16) {
     attn_fwd_bf16<DH><<<grid, 128, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), heads, nq,
-        nk, scale);
+        static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), lse, heads,
+        nq, nk, scale);
   } else {
     attn_fwd_f32<DH><<<grid, 256, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        mask, static_cast<float*>(out), heads, nq, nk, scale);
+        mask, static_cast<float*>(out), lse, heads, nq, nk, scale);
   }
   return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* mask, void* out,
+                     float* lse, int bh, int heads, int nq, int nk, int dh, int is_bf16,
+                     void* stream) {
+  const float* m = static_cast<const float*>(mask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nq < 1 || nk < 1 || bh < 1 || bh > 65535) return cudaErrorInvalidValue;
+  switch (dh) {
+    case 16: return launch<16>(q, k, v, m, out, lse, bh, heads, nq, nk, is_bf16, st);
+    case 32: return launch<32>(q, k, v, m, out, lse, bh, heads, nq, nk, is_bf16, st);
+    case 64: return launch<64>(q, k, v, m, out, lse, bh, heads, nq, nk, is_bf16, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -293,13 +311,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* mas
 extern "C" int impx_mha_fwd(const void* q, const void* k, const void* v, const void* mask,
                             void* out, int bh, int heads, int nq, int nk, int dh, int is_bf16,
                             void* stream) {
-  const float* m = static_cast<const float*>(mask);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nq < 1 || nk < 1 || bh < 1 || bh > 65535) return (int)cudaErrorInvalidValue;
-  switch (dh) {
-    case 16: return (int)launch<16>(q, k, v, m, out, bh, heads, nq, nk, is_bf16, st);
-    case 32: return (int)launch<32>(q, k, v, m, out, bh, heads, nq, nk, is_bf16, st);
-    case 64: return (int)launch<64>(q, k, v, m, out, bh, heads, nq, nk, is_bf16, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch(q, k, v, mask, out, nullptr, bh, heads, nq, nk, dh, is_bf16, stream);
+}
+
+// Kernel 4: the forward that also writes each row's log-sum-exp, lse [BH, Nq]
+// fp32 (impx/ops/pallas/attention.py:mha_fused_lse :245, _attn_kernel_lse :221)
+extern "C" int impx_mha_fwd_lse(const void* q, const void* k, const void* v, const void* mask,
+                                void* out, void* lse, int bh, int heads, int nq, int nk, int dh,
+                                int is_bf16, void* stream) {
+  return (int)dispatch(q, k, v, mask, out, static_cast<float*>(lse), bh, heads, nq, nk, dh,
+                       is_bf16, stream);
 }

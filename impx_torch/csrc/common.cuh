@@ -1,5 +1,6 @@
 // Device helpers shared by the attention kernels (attention.cu,
-// attention_mass.cu): the TPU kernels' masking and the bf16 mma.sync.
+// attention_mass.cu, attention_bwd.cu): the TPU kernels' masking and the bf16
+// mma.sync with its fragment loads.
 #pragma once
 #include <cuda_bf16.h>
 #include <math.h>
@@ -31,6 +32,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// two bf16 from consecutive rows of a row-major tile, packed low = first
+__device__ __forceinline__ uint32_t ld_pair_rows(const __nv_bfloat16* p, int ld) {
+  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
+  return lo | (hi << 16);
 }
 
 }  // namespace

@@ -7,14 +7,20 @@ Left out of the copy:
   * `attn_impl` and `attn_block_q`: the port picks the attention by device (the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors), and the
     kernel chooses its own tiles;
-  * the log-domain head (`log_ot`), the dual-softmax switch (`with_sinkhorn`)
-    and the training fields (`train_*`, `with_geo`, `geo_*`): they arrive with
-    the slices that port those paths.
+  * `train_remat`: it chooses only what XLA stores for the backward (its
+    values are identical under every policy, tests/test_fast_train.py:44);
+    eager autograd stores every activation;
+  * the log-domain head (`log_ot`), the dual-softmax switch (`with_sinkhorn`),
+    `with_geo`, `geo_*` and `train_compaction`: they arrive with the slices
+    that port those paths. Until then a config that names one is refused
+    with a TypeError, as for any unknown field.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
+
+TRAIN_SUPERVISION = ("all", "last")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,8 +32,8 @@ class MatcherConfig:
     sinkhorn_iterations: int = 20
     match_threshold: float = 0.2
     ac_fn: str = "relu"
-    # only 'in' (masked InstanceNorm, the published eval config) is ported;
-    # batch norm arrives with training
+    # only 'in' (masked InstanceNorm, the published eval and training
+    # configs) is ported
     norm_fn: str = "bn"
     # EIMP (AdaGMN): pooling never shrinks an image below n_min_tokens kept
     # keypoints, and starts at iteration first_it_to_update
@@ -40,6 +46,19 @@ class MatcherConfig:
     # activation stream dtype ('float32' | 'bfloat16'); InstanceNorm
     # statistics, the final projection and the Sinkhorn head stay fp32
     compute_dtype: str = "float32"
+    # training (models/fast.py:forward_train_scan). train_fused: route B, the
+    # attention core whose forward saves the row log-sum-exp and whose
+    # backward runs from it (impx/models/fast.py:_make_fused_layer); False is
+    # route A, the forward kernel and the backward that recomputes the
+    # softmax. train_supervision: 'all' puts a Sinkhorn head and a loss on
+    # every iteration (the reference objective), 'last' on the last only.
+    train_fused: bool = False
+    train_supervision: str = "all"
+
+    def __post_init__(self):
+        if self.train_supervision not in TRAIN_SUPERVISION:
+            raise ValueError(f"unknown train_supervision {self.train_supervision!r} "
+                             f"(expected one of {TRAIN_SUPERVISION})")
 
     def sharing_layers(self, share: bool) -> list[bool]:
         """DGNNS attention-sharing pattern: the first two iterations fully

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from impx_torch.models.fast import forward_scan
+from impx_torch.models.fast import forward_scan, forward_train_scan
 from impx_torch.models.gm import GM
 
 
@@ -28,6 +28,16 @@ class DGNNS(GM):
         (-1 = unmatched) and 'mscores0'."""
         return forward_scan(self, self._on_device(data), p=p, only_last=only_last,
                             with_scores=with_scores)
+
+    def forward_train(self, data):
+        """Training forward (impx/models/dgnns.py:37): `produce_matches`'s
+        data plus matching_mask [B, N+1, M+1], on the model's device or moved
+        there. Differentiable; returns the dict of
+        impx_torch/models/fast.py:forward_train_scan (loss, its terms,
+        matches0, matching_scores0, accuracy counters). config.train_fused
+        picks route B's attention core, config.train_supervision the
+        supervised iterations."""
+        return forward_train_scan(self, self._on_device(data))
 
     def run(self, data):
         """Eval API (impx/models/dgnns.py:52): desc1/desc2, x1/x2 = (x, y,

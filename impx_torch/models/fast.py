@@ -15,6 +15,15 @@ The dtype contract (compute_dtype='bfloat16'): descriptors go to bf16 after
 the keypoint encoding; projections, merges, bias adds and the residual add
 run in bf16; the InstanceNorm inside each layer runs in fp32 and casts back;
 the final projection, the distance and the Sinkhorn head run in fp32.
+
+Training (`forward_train_scan`, impx/models/fast.py:432) runs the same
+stacked forward under autograd with a Sinkhorn head and a GraphLoss on every
+iteration ('all') or on the last ('last'), the plan kept in bf16 inside the
+u/v loop under the bf16 stream. impx's route B wraps a whole layer in one
+custom VJP (`_make_fused_layer` :165) only to control what its rematerialised
+scan stores; the layer's tail and head backward there are plain VJPs, which
+autograd computes the same way, so the port writes only the attention core
+of route B by hand (impx_torch/ops/kernels/attention.py:MhaLseFunction).
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 
 from impx_torch.ops.kernels.sinkhorn import (
     sinkhorn_fused_stats, sinkhorn_plan_from_uv, sinkhorn_stats_reference)
+from impx_torch.models.loss import graph_loss, matching_accuracy
 from impx_torch.ops.matching import matches_from_stats
 
 
@@ -100,6 +110,50 @@ def forward_scan(model, data: dict[str, Any], p: float = 0.2, only_last: bool = 
         out_idx0.append(idx0)
         out_ms0.append(ms0)
     return {"scores": out_scores, "indices0": out_idx0, "mscores0": out_ms0}
+
+
+def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
+    """DGNNS training forward on tensors already on the model's device
+    (impx/models/fast.py:432): data as `forward_scan`'s plus matching_mask
+    [B, N+1, M+1]. Returns the dict of impx's forward_train: loss (the mean
+    over supervised iterations of the corr + incorr + neg terms), its terms,
+    geo_loss (0), matching_scores0 and matches0 of the last plan, and the
+    accuracy counters."""
+    cfg = model.config
+    gt = data["matching_mask"]
+    desc, valid0, valid1, b, _ = _encode(model, data)
+    mask = torch.cat([valid0, valid1], dim=0)
+    mask_swap = torch.cat([valid1, valid0], dim=0)
+    kw = dict(ac_fn=cfg.ac_fn, use_kernels=model.use_kernels, lse_core=cfg.train_fused)
+
+    def head(desc, layer_id):
+        dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=layer_id)
+        score = model.compute_score(dist, valid0, valid1)
+        return graph_loss(score, gt), score
+
+    zero = torch.zeros((), dtype=torch.float32, device=desc.device)
+    terms = {"corr": zero, "incorr": zero, "neg": zero}
+    sup_all = cfg.train_supervision == "all"
+    qk_self = qk_cross = score = None
+    for i in range(cfg.n_layers):
+        delta, qk_self = model.gnn[2 * i](desc, desc, qk_self, mask, mask, **kw)
+        desc = desc + delta
+        delta, qk_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, mask_swap, mask, **kw)
+        desc = desc + delta
+        if sup_all:
+            t, score = head(desc, i)
+            terms = {k: terms[k] + t[k] for k in terms}
+    if sup_all:
+        terms = {k: x / cfg.n_layers for k, x in terms.items()}
+    else:
+        terms, score = head(desc, -1)
+    loss = terms["corr"] + terms["incorr"] + terms["neg"]
+    with torch.no_grad():
+        idx0, _, ms0, _ = model.compute_matches(score, p=cfg.match_threshold, valid0=valid0, valid1=valid1)
+        acc = matching_accuracy(idx0, gt)
+    return {"loss": loss, "matching_loss": loss, "matching_loss_corr": terms["corr"],
+            "matching_loss_incorr": terms["incorr"], "matching_loss_neg": terms["neg"],
+            "geo_loss": zero, "matching_scores0": ms0, "matches0": idx0, **acc}
 
 
 # --------------------------------------------------------------------- EIMP

@@ -7,6 +7,13 @@ caller adds the residual. A full layer owns q/k/v/merge. A shared layer (IMP
 attention sharing) owns only proj (the value projection) and merge, and
 attends with the q/k that the previous layer of its kind projected, which
 gives the same probabilities as reusing that layer's softmax.
+
+The layer is differentiable. The attention core is route A's (`mha_fused`,
+whose backward is the kernel that recomputes the softmax) or, with
+lse_core=True, route B's (`MhaLseFunction`, impx/models/fast.py:
+_make_fused_layer). The carried q/k of a shared layer gets gradient from both
+layers that use it, and autograd sums the two in the stream dtype, as
+impx/models/fast.py:242-249 does by hand.
 """
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ import torch
 from torch import nn
 
 from impx_torch.ops.attention import merge_heads, project_heads
-from impx_torch.ops.kernels.attention import mha_fused, mha_reference
+from impx_torch.ops.kernels.attention import MhaFunction, MhaLseFunction, mha_fused
 from impx_torch.ops.mlp import dense_apply, mlp_apply
 
 
@@ -75,10 +82,12 @@ class AttentionalPropagation(nn.Module):
             m.reset_parameters(generator)
         self.mlp.reset_parameters(generator)
 
-    def forward(self, x, source, qk, key_mask, query_mask, *, ac_fn: str, use_kernels: bool = True):
+    def forward(self, x, source, qk, key_mask, query_mask, *, ac_fn: str, use_kernels: bool = True,
+                lse_core: bool = False):
         """x, source [B, N, D] in the stream dtype; `qk` the (q, k) carried from
         the previous layer of this kind (used only by shared layers). Returns
-        (delta, (q, k)) with q/k [B, H, N, dh]."""
+        (delta, (q, k)) with q/k [B, H, N, dh]. use_kernels=False runs the
+        plain versions of the kernels; lse_core picks route B's attention."""
         h = self.num_heads
         if self.shared:
             q, k = qk
@@ -90,7 +99,10 @@ class AttentionalPropagation(nn.Module):
             k = project_heads(a["k"].weight, a["k"].bias, source, h)
             v = project_heads(a["v"].weight, a["v"].bias, source, h)
             merge = a["merge"]
-        out = (mha_fused if use_kernels else mha_reference)(q, k, v, key_mask)
+        if use_kernels and not lse_core:
+            out = mha_fused(q, k, v, key_mask)
+        else:  # the plain versions keep the kernels' residuals: q, k, v (and o, lse)
+            out = (MhaLseFunction if lse_core else MhaFunction).apply(q, k, v, key_mask, not use_kernels)
         return self.tail(x, out, merge, query_mask, ac_fn), (q, k)
 
     def tail(self, x, out, merge: Dense, query_mask, ac_fn: str):

@@ -32,6 +32,16 @@ SIGNATURES = {
     "attention": {
         # q, k, v, mask, out, batch*heads, heads, nq, nk, dh, is_bf16, stream
         "impx_mha_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # q, k, v, mask, out, lse, batch*heads, heads, nq, nk, dh, is_bf16, stream
+        "impx_mha_fwd_lse": [_P] * 6 + [_I] * 6 + [_P],
+    },
+    "attention_bwd": {
+        # q, k, v, mask, dout, scratch, dq, dk, dv, batch*heads, heads, nq, nk,
+        # dh, is_bf16, stream
+        "impx_mha_bwd": [_P] * 9 + [_I] * 6 + [_P],
+        # q, k, v, mask, lse, o, dout, scratch, dq, dk, dv, batch*heads, heads,
+        # nq, nk, dh, is_bf16, stream
+        "impx_mha_bwd_lse": [_P] * 11 + [_I] * 6 + [_P],
     },
     "attention_mass": {
         # q, k, key_mask, query_mask, partial, out, batch*heads, heads, nq,

@@ -1,5 +1,6 @@
-"""Masked multi-head attention forward and the per-key attention mass of
-EIMP pooling: the CUDA kernels' wrappers and their plain PyTorch versions.
+"""Masked multi-head attention, forward and backward, and the per-key
+attention mass of EIMP pooling: the CUDA kernels' wrappers, their plain
+PyTorch versions, and the two autograd Functions that pair them for training.
 
 Replaces the TPU kernel impx/ops/pallas/attention.py:mha_fused (:203, kernel
 `_attn_kernel` :49), which holds all of K and V of one (batch, head) on chip
@@ -20,6 +21,17 @@ invalid keys get the finite -1e30 (a fully masked row gives uniform weights,
 never NaN); fp32 softmax; P cast to the input dtype for P.V with fp32
 accumulation; the division by the row sum comes after P.V.
 
+Training (impx/models/fast.py:forward_train_scan) has two routes:
+  * route A, `MhaFunction`: the forward `mha_fused` (kernel 1) and its VJP
+    `mha_bwd` (kernel 3, `_mha_bwd_call` :137), which recomputes the softmax
+    and takes fp32 operands for every product but QK^T; `mha_fused` itself is
+    this Function whenever an input requires grad, as the TPU kernel's
+    custom VJP (:183-199);
+  * route B, `MhaLseFunction`: `mha_fused_lse` (kernel 4, :245), which also
+    writes each row's log-sum-exp, and `mha_bwd_from_lse` (kernel 5, :336),
+    which rebuilds p = exp(s - lse) and takes stream-dtype operands.
+Both backward kernels live in impx_torch/csrc/attention_bwd.cu.
+
 `attention_key_mass` replaces impx/ops/pallas/attention.py:attention_key_mass
 (:422, kernel `_mass_kernel` :395), which carries one [Nk] sum across a
 sequential (head, query-block) grid. Blocks on the H100 run in parallel and
@@ -37,18 +49,74 @@ DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64)
 
 
-def mha_reference(q, k, v, key_mask=None):
-    """Plain version: q [B,H,Nq,dh], k/v [B,H,Nk,dh], key_mask [B,Nk] ->
-    [B,H,Nq,dh] in q's dtype. Products of bf16 inputs are exact in fp32, so
-    upcasting before the matmul is the TPU kernel's fp32 accumulation."""
+def _scores(q, k, key_mask):
+    """fp32 scaled scores [B, H, Nq, Nk], masked keys at -1e30. Products of
+    bf16 inputs are exact in fp32, so upcasting before the matmul is the TPU
+    kernel's fp32 accumulation."""
     dh = q.shape[-1]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / dh ** 0.5)
     if key_mask is not None:
         s = torch.where(key_mask[:, None, None, :].bool(), s, NEG)
+    return s
+
+
+def mha_reference(q, k, v, key_mask=None):
+    """Plain version of kernel 1: q [B,H,Nq,dh], k/v [B,H,Nk,dh], key_mask
+    [B,Nk] -> [B,H,Nq,dh] in q's dtype."""
+    s = _scores(q, k, key_mask)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = e.sum(dim=-1, keepdim=True)
     o = torch.matmul(e.to(v.dtype).float(), v.float())
     return (o / l).to(q.dtype)
+
+
+def mha_lse_reference(q, k, v, key_mask=None):
+    """Plain version of kernel 4: (out as `mha_reference`, lse [B,H,Nq] fp32
+    = row max + log(row sum); -1e30 on a fully masked row)."""
+    s = _scores(q, k, key_mask)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    o = torch.matmul(e.to(v.dtype).float(), v.float())
+    return (o / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def mha_bwd_reference(q, k, v, key_mask, do):
+    """Plain version of kernel 3 (impx/ops/pallas/attention.py:_attn_bwd_kernel
+    :96): p recomputed as exp(s - max) / sum, dp = do v^T, delta =
+    rowsum(dp * p), ds = p (dp - delta) scale; dq = ds k, dk = ds^T q,
+    dv = p^T do with fp32 operands. Returns (dq, dk, dv) in the inputs' dtype."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = _scores(q, k, key_mask)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    do32 = do.float()
+    dp = torch.matmul(do32, v.float().transpose(-1, -2))
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def mha_bwd_from_lse_reference(q, k, v, key_mask, lse, o, do):
+    """Plain version of kernel 5 (impx/ops/pallas/attention.py:
+    _attn_bwd_lse_kernel :290): p = exp(s - lse), delta = rowsum(do * o),
+    dp = do v^T, ds = p (dp - delta) scale rounded to the stream dtype, p
+    rounded to it before p^T do; the products of stream-dtype values are
+    exact in fp32. On a fully masked row lse = -1e30, so p = 1 there."""
+    dt = q.dtype
+    scale = 1.0 / q.shape[-1] ** 0.5
+    do = do.to(dt).float()
+    p = torch.exp(_scores(q, k, key_mask) - lse[..., None])
+    delta = (do * o.to(dt).float()).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(dt).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def _check(q, k, v=None, key_mask=None, query_mask=None):
@@ -77,31 +145,178 @@ def _check(q, k, v=None, key_mask=None, query_mask=None):
                              f"got {tuple(m.shape)} on {m.device}")
 
 
-def mha_fused(q, k, v, key_mask=None):
-    """Masked attention. CPU tensors run `mha_reference`; CUDA tensors launch
-    the kernel in impx_torch/csrc/attention.cu or raise."""
-    if q.device.type == "cpu":
-        return mha_reference(q, k, v, key_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
+def _check_like(name, t, like, dtype=None):
+    """t must be a contiguous, 16-byte aligned tensor of like's shape, on its
+    device, in `dtype` (like's dtype by default)."""
+    dtype = like.dtype if dtype is None else dtype
+    if (t.shape != like.shape or t.device != like.device or t.dtype != dtype
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"{name}: want a contiguous aligned {tuple(like.shape)} {dtype} tensor "
+                         f"on {like.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def _device_kind(q, what: str) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for device {q.device}")
+    return q.device.type
+
+
+def _mask_f32(key_mask):
+    return None if key_mask is None else key_mask.to(torch.float32).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(q, k, v, key_mask, with_lse: bool):
+    """Kernel 1, or kernel 4 with_lse, on CUDA tensors: (out, lse or None)."""
     _check(q, k, v, key_mask)
     b, h, nq, dh = q.shape
-    nk = k.shape[2]
-    mask = None if key_mask is None else key_mask.to(torch.float32).contiguous()
+    mask = _mask_f32(key_mask)
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _build.load("attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        mha_fused.launches += 1
-        err = lib.impx_mha_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               None if mask is None else mask.data_ptr(),
-                               out.data_ptr(), b * h, h, nq, nk, dh,
-                               int(q.dtype == torch.bfloat16), stream)
-    _build.check(err, "impx_mha_fwd")
-    return out
+        if with_lse:
+            mha_fused_lse.launches += 1
+            err = lib.impx_mha_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+                                       out.data_ptr(), lse.data_ptr(), b * h, h, nq, k.shape[2],
+                                       dh, int(q.dtype == torch.bfloat16), stream)
+        else:
+            mha_fused.launches += 1
+            err = lib.impx_mha_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+                                   out.data_ptr(), b * h, h, nq, k.shape[2], dh,
+                                   int(q.dtype == torch.bfloat16), stream)
+    _build.check(err, "impx_mha_fwd_lse" if with_lse else "impx_mha_fwd")
+    return out, lse
+
+
+def _mha_forward(q, k, v, key_mask=None):
+    if _device_kind(q, "attention") == "cpu":
+        return mha_reference(q, k, v, key_mask)
+    return _forward(q, k, v, key_mask, with_lse=False)[0]
+
+
+def mha_fused(q, k, v, key_mask=None):
+    """Masked attention (kernel 1). CPU tensors run `mha_reference`; CUDA
+    tensors launch the kernel in impx_torch/csrc/attention.cu or raise. When
+    grad is enabled and q, k or v requires it, this is `MhaFunction`, whose
+    backward is `mha_bwd` (kernel 3)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return MhaFunction.apply(q, k, v, key_mask, False)
+    return _mha_forward(q, k, v, key_mask)
 
 
 mha_fused.launches = 0
+
+
+def mha_fused_lse(q, k, v, key_mask=None):
+    """Kernel 4: (out as `mha_fused`, lse [B,H,Nq] fp32). CPU tensors run
+    `mha_lse_reference`; CUDA tensors launch impx_torch/csrc/attention.cu or
+    raise. Not differentiable by itself: `MhaLseFunction` pairs it with
+    `mha_bwd_from_lse`."""
+    if _device_kind(q, "attention") == "cpu":
+        return mha_lse_reference(q, k, v, key_mask)
+    return _forward(q, k, v, key_mask, with_lse=True)
+
+
+mha_fused_lse.launches = 0
+
+
+def _backward(q, k, v, key_mask, do, lse=None, o=None):
+    """Kernel 3 (lse is None) or kernel 5 on CUDA tensors: (dq, dk, dv)."""
+    _check(q, k, v, key_mask)
+    _check_like("do", do, q)
+    b, h, nq, dh = q.shape
+    rows = b * h * nq
+    if lse is not None:
+        _check_like("o", o, q)
+        _check_like("lse", lse, q[..., 0], torch.float32)
+    mask = _mask_f32(key_mask)
+    scratch = torch.empty((rows if lse is not None else 3 * rows,), dtype=torch.float32,
+                          device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load("attention_bwd")
+    sizes = (b * h, h, nq, k.shape[2], dh, int(q.dtype == torch.bfloat16))
+    outs = (scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if lse is None:
+            mha_bwd.launches += 1
+            err = lib.impx_mha_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+                                   do.data_ptr(), *outs, *sizes, stream)
+        else:
+            mha_bwd_from_lse.launches += 1
+            err = lib.impx_mha_bwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+                                       lse.data_ptr(), o.data_ptr(), do.data_ptr(), *outs,
+                                       *sizes, stream)
+    _build.check(err, "impx_mha_bwd" if lse is None else "impx_mha_bwd_lse")
+    return dq, dk, dv
+
+
+def mha_bwd(q, k, v, key_mask, do):
+    """Kernel 3, the VJP of `mha_fused`: (dq, dk, dv) in the inputs' dtype.
+    CPU tensors run `mha_bwd_reference`; CUDA tensors launch
+    impx_torch/csrc/attention_bwd.cu (two launches, no atomics) or raise."""
+    if _device_kind(q, "attention backward") == "cpu":
+        return mha_bwd_reference(q, k, v, key_mask, do)
+    return _backward(q, k, v, key_mask, do)
+
+
+mha_bwd.launches = 0
+
+
+def mha_bwd_from_lse(q, k, v, key_mask, lse, o, do):
+    """Kernel 5, the VJP of `mha_fused_lse` from its saved o and lse [B,H,Nq]:
+    (dq, dk, dv) in the inputs' dtype. CPU tensors run
+    `mha_bwd_from_lse_reference`; CUDA tensors launch
+    impx_torch/csrc/attention_bwd.cu (three launches, no atomics) or raise."""
+    if _device_kind(q, "attention backward") == "cpu":
+        return mha_bwd_from_lse_reference(q, k, v, key_mask, lse, o, do)
+    return _backward(q, k, v, key_mask, do, lse=lse, o=o)
+
+
+mha_bwd_from_lse.launches = 0
+
+
+class MhaFunction(torch.autograd.Function):
+    """Route A's attention core: forward kernel 1, backward kernel 3 from the
+    saved q, k, v (impx/ops/pallas/attention.py:_mha, the custom VJP at
+    :183-199). plain=True runs their plain versions instead."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, plain: bool):
+        ctx.plain = plain
+        ctx.save_for_backward(q, k, v, key_mask)
+        return (mha_reference if plain else _mha_forward)(q, k, v, key_mask)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask = ctx.saved_tensors
+        bwd = mha_bwd_reference if ctx.plain else mha_bwd
+        return (*bwd(q, k, v, key_mask, do.contiguous()), None, None)
+
+
+class MhaLseFunction(torch.autograd.Function):
+    """Route B's attention core (impx/models/fast.py:_make_fused_layer): the
+    forward kernel 4 saves o and lse, the backward is kernel 5 from them. It
+    never falls back to route A. plain=True runs their plain versions
+    instead."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, plain: bool):
+        ctx.plain = plain
+        o, lse = (mha_lse_reference if plain else mha_fused_lse)(q, k, v, key_mask)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
+        bwd = mha_bwd_from_lse_reference if ctx.plain else mha_bwd_from_lse
+        return (*bwd(q, k, v, key_mask, lse, o, do.contiguous()), None, None)
 
 
 # ------------------------------------------------------------ attention key mass

@@ -3,8 +3,9 @@
 Padded rows and columns get zero marginals and -1e30 scores, which makes the
 padded iteration identical to running on the unpadded keypoint sets. These
 functions are the plain oracles of the Sinkhorn kernel
-(impx_torch/ops/kernels/sinkhorn.py). The log-domain head and dual softmax
-are not on the eval path and wait for their slices.
+(impx_torch/ops/kernels/sinkhorn.py) and the training head, whose gradient
+is `SinkhornUV`'s. The log-domain head and dual softmax wait for their
+slices.
 """
 from __future__ import annotations
 
@@ -58,17 +59,80 @@ def sink_algorithm(
     scores = _pad_with_dustbin(dist, dustbin)
     scores = torch.where(v0p[:, :, None] & v1p[:, None, :], scores, NEG)
     p = torch.softmax(scores, dim=-1)
-    u, v = _uv_iterate(p, r, c, iterations, plan_dtype)
-    return p * u[:, :, None] * v[:, None, :]
+    return SinkhornUV.apply(p, r, c, iterations, plan_dtype)
 
 
-def _uv_iterate(p, r, c, iterations: int, plan_dtype: torch.dtype | None):
+def _mv(p_loop, x, pd):
+    """p @ x over the columns, x rounded to the plan's storage dtype, fp32 sums."""
+    return torch.matmul(p_loop, x.to(pd).float()[:, :, None])[:, :, 0]
+
+
+def _mtv(p_loop, x, pd):
+    """x @ p over the rows, as `_mv`."""
+    return torch.matmul(x.to(pd).float()[:, None, :], p_loop)[:, 0, :]
+
+
+def _uv_sweeps(p, r, c, iterations: int, plan_dtype: torch.dtype | None):
     """`iterations` u/v marginal updates against the fixed plan p stored in
-    `plan_dtype` (impx/ops/sinkhorn.py:92)."""
+    `plan_dtype` (impx/ops/sinkhorn.py:92). Returns each sweep's (su, sv, u,
+    v), u = r / su and v = c / sv, stacked [T, B, N+1] / [T, B, M+1]."""
     pd = plan_dtype or p.dtype
     p_loop = p.to(pd).float()
     u, v = torch.ones_like(r), torch.ones_like(c)
+    hist = []
     for _ in range(iterations):
-        u = r / (torch.matmul(p_loop, v.to(pd).float()[:, :, None])[:, :, 0] + EPS)
-        v = c / (torch.matmul(u.to(pd).float()[:, None, :], p_loop)[:, 0, :] + EPS)
-    return u, v
+        su = _mv(p_loop, v, pd) + EPS
+        u = r / su
+        sv = _mtv(p_loop, u, pd) + EPS
+        v = c / sv
+        hist.append((su, sv, u, v))
+    return tuple(torch.stack(x) for x in zip(*hist))
+
+
+def _uv_iterate(p, r, c, iterations: int, plan_dtype: torch.dtype | None):
+    """The last sweep's u, v of `_uv_sweeps`."""
+    _, _, us, vs = _uv_sweeps(p, r, c, iterations, plan_dtype)
+    return us[-1], vs[-1]
+
+
+class SinkhornUV(torch.autograd.Function):
+    """The u/v marginal iteration and the scaling P = p u v^T, with the
+    restructured reverse pass of impx/ops/sinkhorn.py:_sinkhorn_uv_bwd (:143).
+    The forward keeps the per-sweep u, v and their denominators; the reverse
+    recurrence runs on vectors (two products with the plan a sweep) and all
+    2T rank-1 terms of the plan's gradient come from one [N+1, 2T] x
+    [2T, M+1] product, instead of a plan-sized accumulation a sweep under
+    plain autograd. The plan stays in `plan_dtype` inside the loop, forward
+    and reverse. The marginals r, c come from the validity masks and get no
+    gradient. Plain PyTorch: impx computes it outside any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, p, r, c, iterations: int, plan_dtype: torch.dtype | None):
+        sus, svs, us, vs = _uv_sweeps(p, r, c, iterations, plan_dtype)
+        ctx.save_for_backward(p, r, c, sus, svs, us, vs)
+        ctx.pd = plan_dtype or p.dtype
+        return p * us[-1][:, :, None] * vs[-1][:, None, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        p, r, c, sus, svs, us, vs = ctx.saved_tensors
+        pd = ctx.pd
+        p_loop = p.to(pd).float()
+        u_t, v_t = us[-1], vs[-1]
+        gp = g * p
+        u_bar = torch.einsum("bnm,bm->bn", gp, v_t)   # output -> u_T
+        v_bar = torch.einsum("bnm,bn->bm", gp, u_t)   # output -> v_T
+        v_prevs = torch.cat([torch.ones_like(vs[:1]), vs[:-1]], dim=0)
+        sv_bars, su_bars = [], []
+        for t in reversed(range(us.shape[0])):
+            su, sv = sus[t], svs[t]
+            sv_bar = -(v_bar * c) / (sv * sv)              # v_t = c / sv
+            u_tot = u_bar + _mv(p_loop, sv_bar, pd)        # u_t is used in sv
+            su_bar = -(u_tot * r) / (su * su)              # u_t = r / su
+            sv_bars.insert(0, sv_bar)
+            su_bars.insert(0, su_bar)
+            u_bar, v_bar = torch.zeros_like(u_bar), _mtv(p_loop, su_bar, pd)  # v_{t-1} in su
+        a = torch.cat([us, torch.stack(su_bars)])               # [2T, B, N+1]
+        bm = torch.cat([torch.stack(sv_bars), v_prevs])         # [2T, B, M+1]
+        p_bar = g * (u_t[:, :, None] * v_t[:, None, :]) + torch.einsum("tbn,tbm->bnm", a, bm)
+        return p_bar, None, None, None, None

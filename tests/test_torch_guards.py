@@ -42,7 +42,7 @@ def test_no_jax_or_impx_import_statically(path):
 
 
 def test_no_jax_or_impx_import_at_run_time():
-    code = ("import sys, impx_torch.models, impx_torch.tools.convert; "
+    code = ("import sys, impx_torch.models, impx_torch.tools.convert, impx_torch.train.trainer; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'impx')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -113,3 +113,56 @@ def test_wrappers_refuse_devices_without_a_kernel():
         attention_key_mass(q, q)
     with pytest.raises(ValueError, match="no Sinkhorn kernel"):
         sinkhorn_fused_stats(torch.empty((1, 4, 4), device="meta"), 1.0, 20)
+
+
+@pytest.mark.parametrize("field,value", [("log_ot", True), ("with_geo", True),
+                                         ("train_compaction", ((2, 8),)), ("train_remat", "attn")])
+def test_unported_options_raise(field, value):
+    """A config that names a field the port does not carry is refused, not run
+    without it (log_ot, with_geo and train_compaction change the objective;
+    the fields arrive with the slices that port them)."""
+    with pytest.raises(TypeError, match=field):
+        dataclasses.replace(SMALL, **{field: value})
+
+
+def test_training_fields_are_validated():
+    with pytest.raises(ValueError, match="train_supervision"):
+        dataclasses.replace(SMALL, train_supervision="bogus")
+
+
+def test_route_b_model_needs_cuda_unless_cpu_is_named(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = dataclasses.replace(SMALL, train_fused=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DGNNS(config)
+    assert DGNNS(config, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["route-A", "route-B"])
+def test_cpu_training_path_counts_no_launch(fused):
+    from impx_torch.ops.kernels.attention import (
+        mha_bwd, mha_bwd_from_lse, mha_fused_lse)
+
+    data = _small_pairs(b=2)
+    gt = np.zeros((2, 17, 17), np.float32)
+    gt[:, np.arange(16), np.arange(16)] = 1
+    data["matching_mask"] = gt
+    kernels = (mha_fused, mha_fused_lse, mha_bwd, mha_bwd_from_lse)
+    before = [fn.launches for fn in kernels]
+    out = DGNNS(dataclasses.replace(SMALL, train_fused=fused), device="cpu").forward_train(data)
+    out["loss"].backward()
+    assert bool(torch.isfinite(out["loss"]))
+    assert [fn.launches for fn in kernels] == before
+
+
+def test_backward_wrappers_refuse_devices_without_a_kernel():
+    from impx_torch.ops.kernels.attention import mha_bwd, mha_bwd_from_lse, mha_fused_lse
+
+    q = torch.empty((1, 1, 4, 64), device="meta")
+    lse = torch.empty((1, 1, 4), device="meta")
+    with pytest.raises(ValueError, match="no attention kernel"):
+        mha_fused_lse(q, q, q)
+    with pytest.raises(ValueError, match="no attention backward kernel"):
+        mha_bwd(q, q, q, None, q)
+    with pytest.raises(ValueError, match="no attention backward kernel"):
+        mha_bwd_from_lse(q, q, q, None, lse, q, q)

@@ -5,13 +5,17 @@ This file imports neither jax nor impx, so it runs where the card is:
 (--noconftest: tests/conftest.py imports jax). Without a CUDA device every
 test here skips. It also holds the numpy input makers that
 tests/test_torch_ops.py and tests/test_torch_eimp.py share."""
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
 from impx_torch.ops.kernels.attention import (
-    attention_key_mass, attention_key_mass_reference, mha_fused, mha_reference)
+    attention_key_mass, attention_key_mass_reference, mha_bwd, mha_bwd_from_lse,
+    mha_bwd_from_lse_reference, mha_bwd_reference, mha_fused, mha_fused_lse, mha_lse_reference,
+    mha_reference)
 from impx_torch.ops.kernels.sinkhorn import sinkhorn_fused_stats, sinkhorn_stats_reference
 
 
@@ -177,3 +181,112 @@ def test_adagmn_kernel_path_matches_plain_path(cuda_device, compaction):
     for key in ("keep0", "keep1"):
         assert torch.equal(out[key], ref[key]), key
     assert torch.equal(out["indices0"][-1], ref["indices0"][-1])
+
+
+# the training kernels' dq, dk and dv against their plain versions on the
+# card, by the relative L2 error of each batch (the fully masked one
+# included: kernel 5's p = 1 there makes its outputs about Nk times larger,
+# which an elementwise atol would not scale with). fp32: the sums run in
+# another order. bf16: both sides round the outputs once (2^-8 relative), and
+# kernel 5 also rounds p and ds to bf16, so an fp32 difference flips a
+# rounding now and then; a kernel 5 that dropped delta would move dq by about
+# 0.14 and dk by about 0.06
+BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def _rel_l2_per_batch(a, r):
+    diff = (a.float() - r.float()).flatten(1).norm(dim=1)
+    return diff / r.float().flatten(1).norm(dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nk,dh", [(128, 192, 64), (100, 77, 32)])
+def test_attention_training_kernels_match_plain(cuda_device, dtype, nq, nk, dh):
+    """Kernel 4 (forward with lse), kernel 3 and kernel 5 against their plain
+    versions, with padded keys, random masks and a fully masked batch; the
+    backward kernels give the same bits on a second run (no atomics)."""
+    q, k, v, mask = attention_inputs(nq=nq, nk=nk, dh=dh)
+    do = np.random.RandomState(2).randn(*q.shape).astype(np.float32)
+    q, k, v, do = (torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v, do))
+    mask = torch.from_numpy(mask).to(cuda_device)
+    before = (mha_fused_lse.launches, mha_bwd.launches, mha_bwd_from_lse.launches)
+    o, lse = mha_fused_lse(q, k, v, mask)
+    g3, g3_again = mha_bwd(q, k, v, mask, do), mha_bwd(q, k, v, mask, do)
+    g5, g5_again = (mha_bwd_from_lse(q, k, v, mask, lse, o, do) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (mha_fused_lse.launches, mha_bwd.launches, mha_bwd_from_lse.launches) == tuple(
+        n + d for n, d in zip(before, (1, 2, 2)))
+    ro, rlse = mha_lse_reference(q, k, v, mask)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    assert bool((lse[2] == -1e30).all())
+    for kernel, got, again, ref in (
+            ("kernel 3", g3, g3_again, mha_bwd_reference(q, k, v, mask, do)),
+            ("kernel 5", g5, g5_again, mha_bwd_from_lse_reference(q, k, v, mask, lse, o, do))):
+        for name, a, b, r in zip(("dq", "dk", "dv"), got, again, ref):
+            assert a.dtype == dtype and torch.equal(a, b), (kernel, name)
+            assert torch.isfinite(a.float()).all(), (kernel, name)
+            rel = _rel_l2_per_batch(a, r)
+            assert bool((rel <= BWD_REL_L2[dtype]).all()), (kernel, name, rel.tolist())
+
+
+def _zero_grad_leaves(model):
+    """Leaves whose exact gradient is 0 (a bias that shifts every valid token
+    of a channel alike before a masked InstanceNorm, k's bias); the keypoint
+    encoder's last block has no norm after it."""
+    last = len(model.kenc.blocks) - 1
+    return re.compile(rf"(kenc\.blocks\.[0-{last - 1}]\.bias|attn\.[kv]\.bias|merge\.bias|proj\.bias"
+                      r"|mlp\.blocks\.0\.bias)$")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fused", [False, True], ids=["route-A", "route-B"])
+def test_forward_train_kernel_path_matches_plain_path(cuda_device, fused, compute_dtype):
+    """DGNNS.forward_train on the card: each route launches its forward and
+    backward kernel once per layer, and the loss and the gradients agree with
+    the plain path. fp32: rtol 1e-4, atol 1e-6. bf16 (the training stream):
+    loss rtol 1e-2 and a cosine of at least 0.99 on every leaf whose exact
+    gradient is not 0, as chip_smoke.py holds the published config."""
+    cfg = MatcherConfig(descriptor_dim=64, keypoint_encoder=(32, 64), n_layers=4, num_heads=4,
+                        norm_fn="in", train_fused=fused, compute_dtype=compute_dtype)
+    model = DGNNS(cfg, device=cuda_device)
+    rs = np.random.RandomState(3)
+    b, n = 2, 130
+    data = {"descriptors0": rs.randn(b, n, 64), "descriptors1": rs.randn(b, n, 64),
+            "norm_keypoints0": rs.rand(b, n, 2) - 0.5, "norm_keypoints1": rs.rand(b, n, 2) - 0.5,
+            "scores0": rs.rand(b, n), "scores1": rs.rand(b, n),
+            "valid0": np.arange(n)[None].repeat(b, 0) < 120,
+            "valid1": np.arange(n)[None].repeat(b, 0) < 111}
+    gt = np.zeros((b, n + 1, n + 1))
+    gt[:, np.arange(100), np.arange(100)] = 1
+    gt[:, np.arange(100, 120), n] = 1
+    gt[:, n, np.arange(100, 111)] = 1
+    data["matching_mask"] = gt
+    fwd, bwd = (mha_fused_lse, mha_bwd_from_lse) if fused else (mha_fused, mha_bwd)
+    grads = []
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        model.zero_grad()
+        before = (fwd.launches, bwd.launches)
+        out = model.forward_train(data)
+        out["loss"].backward()
+        torch.cuda.synchronize()
+        assert (fwd.launches - before[0], bwd.launches - before[1]) == ((8, 8) if use_kernels else (0, 0))
+        grads.append((out["loss"].item(), {n_: p.grad.float().clone() for n_, p in model.named_parameters()
+                                           if p.grad is not None}))
+    (lk, gk), (lp, gp) = grads
+    assert gk.keys() == gp.keys()
+    if compute_dtype == "float32":
+        assert lk == pytest.approx(lp, rel=1e-4)
+        for name, g in gk.items():
+            torch.testing.assert_close(g, gp[name], rtol=1e-4, atol=1e-6, msg=name)
+        return
+    assert lk == pytest.approx(lp, rel=1e-2)
+    zero = _zero_grad_leaves(model)
+    for name, g in gk.items():
+        assert torch.isfinite(g).all(), name
+        if not zero.search(name):
+            cos = torch.nn.functional.cosine_similarity(g.flatten(), gp[name].flatten(), dim=0).item()
+            assert cos >= 0.99, (name, cos)
