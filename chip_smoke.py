@@ -29,10 +29,18 @@ launches a step, the plain bodies never called on the kernel path, the
 loss's relative difference and the smallest gradient cosine over the
 parameter leaves; (11) make_train_step over fresh batches, each route: train
 pairs/s, peak device memory and a profile of one step; (12) steps on one
-fixed batch, each route: the loss falls and the NaN guard skips no step.
-The line before the last lists the kernels as JSON; the last line is
-{"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
-device; exits nonzero without one.
+fixed batch, each route: the loss falls and the NaN guard skips no step;
+(13) the log-Sinkhorn kernel (kernel 7) against its plain version at dist
+[4, 2048, 2048] (bf16 Z) at 20 and 100 iterations and at a ragged fp32-Z
+shape, twice for the same bits, with its times, bound and plain time;
+(14) DGNNS under the log-domain head (eval_config('spp', 15), log_ot, bf16,
+4 pairs of 2048 keypoints): launches per call, agreement with the plain
+path, pairs_per_s and a profile; (15) SuperGlue at its published
+configuration (9 layers, D = 256, 100 Sinkhorn iterations, batch norm from
+random running statistics, weights carried through the reference SuperGlue
+layout), the same checks. The line before the last lists the kernels as
+JSON; the last line is {"ok": true, "device": {...}}. Any failure exits
+nonzero. Needs one CUDA device; exits nonzero without one.
 """
 from __future__ import annotations
 
@@ -86,6 +94,18 @@ TRAIN_REL_L2 = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 FWD_O_REL_L2 = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 TRAIN_LOSS_RTOL = 1e-2            # loss, kernel path vs plain path (bf16)
 GRAD_COS_MIN = 0.99               # each gradient leaf, kernel path vs plain path (bf16)
+# the log-Sinkhorn kernel vs its plain version: both round Z alike, so the
+# summation order only; u and v at invalid entries hold about 2.56e26 under
+# the bf16 Z rule, where one fp32 ulp is 7.6e22
+LOG_ITERS = (20, 100)             # DGNNS log_ot (the eval config's) and SuperGlue's published count
+LOG_RTOL, LOG_ATOL, LOG_INVALID_ATOL = 1e-4, 1e-5, 1e23
+# SuperGlue's published configuration (magicleap/SuperGluePretrainedNetwork,
+# models/superglue.py default_config): descriptor 256, encoder (32, 64, 128,
+# 256), 4 heads, 9 x (self, cross), 100 Sinkhorn iterations, threshold 0.2
+SG_LAYERS, SG_ITERS = 9, 100
+# descriptors twice the unit-variance scale: at 1x random SuperGlue weights
+# leave most true matches under the 0.2 threshold (tests/test_torch_logot.py)
+SG_DESC_SCALE = 2.0
 PLAIN_BODIES = ("mha_reference", "mha_lse_reference", "mha_bwd_reference", "mha_bwd_from_lse_reference")
 
 
@@ -220,10 +240,13 @@ def check_mass(dev, attention_key_mass, attention_key_mass_reference):
 
 
 # ---------------------------------------------------------------- Sinkhorn
-def sinkhorn_inputs(gen, dev, b=B, n=N, m=N):
+def sinkhorn_inputs(gen, dev, b=B, n=N, m=N, pad=300):
+    """dist [B, N, M] and validity with up to `pad` padded keypoints an image
+    (an image with none valid, possible at small sizes, has log-marginal
+    -inf under the log-domain head)."""
     dist = (torch.randn((b, n, m), generator=gen) * 2).to(dev)
-    v0 = torch.arange(n)[None] < padded_counts(gen, b, n, n - 300)[:, None]
-    v1 = torch.arange(m)[None] < padded_counts(gen, b, m, m - 300)[:, None]
+    v0 = torch.arange(n)[None] < padded_counts(gen, b, n, n - pad)[:, None]
+    v1 = torch.arange(m)[None] < padded_counts(gen, b, m, m - pad)[:, None]
     return dist, torch.tensor(0.7, device=dev), v0.to(dev), v1.to(dev)
 
 
@@ -279,21 +302,28 @@ def permuted_pairs(gen, dev, b=B, n=N, d=D):
     return {k: x.to(dev) for k, x in data.items()}
 
 
-def reference_layout(model) -> dict:
+def reference_layout(model, single_final_proj: bool = False) -> dict:
     """The model's weights in the reference checkpoint layout (Conv1d
-    [out, in, 1]; MLP convs at indices 0, 3, 6, ...), as imp_spp.pth holds them."""
+    [out, in, 1]; MLP convs at indices 0, 3, 6, ..., a BatchNorm1d one index
+    after its conv), as imp_spp.pth holds them; SuperGlue's one projection is
+    `final_proj` (single_final_proj)."""
     sd = {}
 
     def conv(dst, blk):
         sd[f"{dst}.weight"] = blk.weight.detach().T[:, :, None].cpu()
         sd[f"{dst}.bias"] = blk.bias.detach().cpu()
 
-    for i, blk in enumerate(model.kenc.blocks):
-        conv(f"kenc.encoder.{3 * i}", blk)
+    def mlp(dst, module):
+        for i, blk in enumerate(module.blocks):
+            conv(f"{dst}.{3 * i}", blk)
+        for i, norm in enumerate(module.norms or ()):
+            for name, t in zip(("weight", "bias", "running_mean", "running_var"), norm.stats()):
+                sd[f"{dst}.{3 * i + 1}.{name}"] = t.detach().cpu()
+
+    mlp("kenc.encoder", model.kenc)
     for i, layer in enumerate(model.gnn):
         src = f"gnn.layers.{i}"
-        for j, blk in enumerate(layer.mlp.blocks):
-            conv(f"{src}.mlp.{3 * j}", blk)
+        mlp(f"{src}.mlp", layer.mlp)
         if layer.shared:
             conv(f"{src}.proj", layer.proj)
             conv(f"{src}.merge", layer.merge)
@@ -301,51 +331,94 @@ def reference_layout(model) -> dict:
             for j, name in enumerate(("q", "k", "v")):
                 conv(f"{src}.attn.proj.{j}", layer.attn[name])
             conv(f"{src}.attn.merge", layer.attn["merge"])
-    for i, blk in enumerate(model.final_proj):
-        conv(f"final_proj.{i}", blk)
+    if single_final_proj:
+        conv("final_proj", model.final_proj[0])
+    else:
+        for i, blk in enumerate(model.final_proj):
+            conv(f"final_proj.{i}", blk)
     sd["bin_score"] = model.bin_score.detach().cpu()
     return sd
 
 
-def main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels):
-    cfg = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="bfloat16")
-    source = DGNNS(cfg, device=dev, seed=0)
-    model = DGNNS(cfg, device=dev, seed=1)
-    model.load_state_dict(load_reference_state_dict(reference_layout(source), cfg))
+def carried_model(cls, cfg, dev, to_reference, from_reference, randomize=None):
+    """A model with random weights from seed 0 (`randomize` may change them
+    further), carried through the reference layout into a model built from
+    seed 1; fails unless every weight and buffer comes back equal."""
+    source = cls(cfg, device=dev, seed=0)
+    if randomize is not None:
+        randomize(source)
+    model = cls(cfg, device=dev, seed=1)
+    model.load_state_dict(from_reference(to_reference(source), cfg))
     for k, t in source.state_dict().items():
         if not torch.equal(t, model.state_dict()[k]):
-            fail(f"weights carried through the reference layout differ at {k}")
-    say(f"main path: eval_config('spp', 15) bf16, {sum(l.shared for l in model.gnn)} of "
-        f"{len(model.gnn)} layers share attention, B={B} N={N} D={D}")
+            fail(f"{cls.__name__} weights carried through the reference layout differ at {k}")
+    return model
 
-    gen = torch.Generator().manual_seed(3)
-    data = permuted_pairs(gen, dev)
+
+def drive_path(label, model, data, call, want, kernels):
+    """One call through the kernels (every launch count set to 0 just
+    before, read just after) and one through the plain path on the same
+    inputs. Fails on launch counts other than `want` (every other kernel 0),
+    on a misshapen or non-finite output, on indices0 agreement under
+    E2E_AGREE_MIN over valid rows, or on fewer matches than a quarter of the
+    valid keypoints. Returns the launches."""
     for fn in kernels.values():
         fn.launches = 0
-    out = model.produce_matches(data, only_last=True, with_scores=False)
+    out = call(data)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
-    say(f"main path launches per produce_matches call: {launches}")
-    if launches != {**dict.fromkeys(kernels, 0), "mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1}:
-        fail(f"main path did not run through the kernels as expected: {launches}")
+    say(f"{label} launches per produce_matches call: {launches}")
+    if launches != {**dict.fromkeys(kernels, 0), **want}:
+        fail(f"{label} did not run through the kernels as expected: {launches}")
 
     model.use_kernels = False
-    ref = model.produce_matches(data, only_last=True, with_scores=False)
+    ref = call(data)
     model.use_kernels = True
-    idx, ridx = out["indices0"][0], ref["indices0"][0]
+    idx, ridx = out["indices0"][-1], ref["indices0"][-1]
     valid = data["valid0"]
     agree = (idx == ridx)[valid].float().mean().item()
     n_match, n_valid = (idx >= 0).sum(1).tolist(), valid.sum(1).tolist()
-    ms_err = (out["mscores0"][0] - ref["mscores0"][0]).abs().max().item()
-    say(f"main path: indices0 agreement with the plain path {agree:.4f} (min {E2E_AGREE_MIN}) "
+    ms_err = (out["mscores0"][-1] - ref["mscores0"][-1]).abs().max().item()
+    say(f"{label}: indices0 agreement with the plain path {agree:.4f} (min {E2E_AGREE_MIN}) "
         f"over valid rows; matches {n_match} of valid {n_valid} (plain {(ridx >= 0).sum(1).tolist()});"
         f" mscores0 max_abs_err {ms_err:.3e}")
-    if idx.shape != valid.shape or not bool(torch.isfinite(out["mscores0"][0]).all()):
-        fail("main path output has the wrong shape or non-finite scores")
+    if idx.shape != valid.shape or not bool(torch.isfinite(out["mscores0"][-1]).all()):
+        fail(f"{label} output has the wrong shape or non-finite scores")
+    score = out["scores"][-1]
+    if score is not None:
+        b, n = valid.shape
+        ok = torch.nn.functional.pad(valid[:, :, None] & data["valid1"][:, None, :], (0, 1, 0, 1), value=True)
+        say(f"{label}: log plan {list(score.shape)}, finite at every valid cell "
+            f"{bool(torch.isfinite(score[ok]).all())}")
+        if score.shape != (b, n + 1, n + 1) or not bool(torch.isfinite(score[ok]).all()):
+            fail(f"{label}: the log plan is misshapen or not finite at valid cells")
     if agree < E2E_AGREE_MIN:
-        fail("kernel path disagrees with the plain path")
+        fail(f"{label}: the kernel path disagrees with the plain path")
     if any(m < v / 4 for m, v in zip(n_match, n_valid)):
-        fail("fewer matches than a quarter of the valid keypoints")
+        fail(f"{label}: fewer matches than a quarter of the valid keypoints")
+    return launches
+
+
+def time_path(label, model, call, pairs):
+    """pairs_per_s of the kernel path and of the plain path: the median of
+    TIMED_RUNS CUDA-event timed calls over fresh inputs."""
+    k_ms = cuda_ms(call, pairs)
+    model.use_kernels = False
+    p_ms = cuda_ms(call, pairs)
+    model.use_kernels = True
+    say(f"time {label}: kernel path {k_ms:.3f} ms = pairs_per_s {1e3 * B / k_ms:.2f}; "
+        f"plain path {p_ms:.3f} ms = pairs_per_s {1e3 * B / p_ms:.2f}")
+
+
+def main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels):
+    cfg = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="bfloat16")
+    model = carried_model(DGNNS, cfg, dev, reference_layout, load_reference_state_dict)
+    say(f"main path: eval_config('spp', 15) bf16, {sum(l.shared for l in model.gnn)} of "
+        f"{len(model.gnn)} layers share attention, B={B} N={N} D={D}")
+    data = permuted_pairs(torch.Generator().manual_seed(3), dev)
+    launches = drive_path("main path", model, data,
+                          lambda d: model.produce_matches(d, only_last=True, with_scores=False),
+                          {"mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1}, kernels)
     return model, launches
 
 
@@ -398,8 +471,10 @@ def time_all(dev, model, mods, errs, launches):
     ]
 
 
-KERNEL_GROUPS = (  # device kernel name -> the layer that launched it
+KERNEL_GROUPS = (  # device kernel name -> the layer that launched it (first match)
     ("mha_fused, mha_fused_lse (csrc/attention.cu)", ("attn_fwd",)),
+    ("log_sinkhorn_fused_stats (csrc/log_sinkhorn.cu)",
+     ("log_build_z", "log_update_u", "log_update_v", "log_row_stats", "log_col_stats")),
     ("mha_bwd (csrc/attention_bwd.cu)", ("bwd_dq_fma", "bwd_dkdv_fma")),
     ("mha_bwd_from_lse (csrc/attention_bwd.cu)", ("bwd_dq_lse", "bwd_dkdv_lse", "row_dot")),
     ("sinkhorn_fused_stats (csrc/sinkhorn.cu)",
@@ -930,19 +1005,160 @@ def training_runs(dev, models, TrainHyperParams, make_train_step, init_opt_state
             fail(f"route {route}: the loss did not fall over {FIXED_STEPS} steps on one batch, or a step was skipped")
 
 
+# ---------------------------------------------------------------- log-domain head
+def log_sinkhorn_bound(dist, valid0, valid1, iterations: int) -> tuple[float, str, float]:
+    """Least time: one exponential per cell of each pair's valid (n0+1) x
+    (n1+1) block in each of the 2 * iterations sweeps at the special-function
+    rate, versus reading the valid cells of dist once and writing u, v, max0,
+    idx0 and idx1."""
+    b, n, m = dist.shape
+    n0, n1 = valid0.sum(1).double(), valid1.sum(1).double()
+    exps = 2 * iterations * ((n0 + 1) * (n1 + 1)).sum().item()
+    nbytes = 4 * (n0 * n1).sum().item() + 4 * b * (n + 1 + m + 1 + 2 * n + m)
+    t_ops, t_bytes = exps / SFU_EXP_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), 1e3 * t_bytes
+
+
+def check_log_sinkhorn(dev, log_sinkhorn_fused_stats, log_sinkhorn_stats_reference, plan_dtype):
+    """Kernel 7 against its plain version: u and v at valid entries and the
+    dustbin and max0 by LOG_RTOL/LOG_ATOL, u and v at invalid entries by
+    LOG_INVALID_ATOL, the argmax indices by their share of flips, and a second
+    run for the same bits. Prints every check before failing on any. Returns
+    the largest error at the main shape and 20 iterations."""
+    gen = torch.Generator().manual_seed(14)
+    worst, failures = 0.0, []
+    for shape, iters in ((dict(), LOG_ITERS[0]), (dict(), LOG_ITERS[1]), (dict(b=2, n=256, m=200, pad=100), LOG_ITERS[0])):
+        dist, bin_, v0, v1 = sinkhorn_inputs(gen, dev, **shape)
+        out = log_sinkhorn_fused_stats(dist, bin_, iters, v0, v1)
+        again = log_sinkhorn_fused_stats(dist, bin_, iters, v0, v1)
+        torch.cuda.synchronize()
+        ref = log_sinkhorn_stats_reference(dist, bin_, iters, v0, v1)
+        b, n, m = dist.shape
+        where = f"{[b, n, m]} Z {str(plan_dtype(n, m))[6:]} {iters} iterations"
+        same = all(torch.equal(out[k], again[k]) for k in out)
+        one = torch.ones((b, 1), dtype=torch.bool, device=dev)
+        for key, ok in (("u", torch.cat([v0, one], 1)), ("v", torch.cat([v1, one], 1)),
+                        ("max0", torch.ones_like(v0))):
+            err = (out[key] - ref[key]).abs()
+            bad = (err[ok] > LOG_ATOL + LOG_RTOL * ref[key][ok].abs()).sum().item()
+            inv = err[~ok].max().item() if bool((~ok).any()) else 0.0
+            finite = bool(torch.isfinite(out[key]).all())
+            say(f"check log_sinkhorn {where} {key}: max_abs_err {err[ok].max().item():.3e} over valid "
+                f"entries (tol rtol={LOG_RTOL:g} atol={LOG_ATOL:g}), out of tolerance {bad}; invalid "
+                f"entries max_abs_err {inv:.3e} (max {LOG_INVALID_ATOL:g}); finite {finite}")
+            if bad or inv > LOG_INVALID_ATOL or not finite:
+                failures.append(f"{key} at {where}")
+            if not shape and iters == LOG_ITERS[0]:
+                worst = max(worst, err[ok].max().item())
+        for key in ("idx0", "idx1"):
+            flips = (out[key] != ref[key]).float().mean().item()
+            say(f"check log_sinkhorn {where} {key}: share differing {flips:.2e} (max {IDX_FLIP_MAX:g})")
+            if flips > IDX_FLIP_MAX:
+                failures.append(f"{key} at {where}")
+        say(f"check log_sinkhorn {where}: second run bitwise equal {same}")
+        if not same:
+            failures.append(f"second run at {where}")
+    if failures:
+        fail(f"log-Sinkhorn kernel disagrees with its plain version or itself: {failures}")
+    return worst
+
+
+def time_log_sinkhorn(dev, log_sinkhorn_fused_stats, log_sinkhorn_stats_reference, plan_dtype, err, launches):
+    """Kernel 7 and its plain version at dist [B, N, N], 0-300 padded, at
+    both iteration counts; the row of the kernels' JSON line takes 20."""
+    gen = torch.Generator().manual_seed(15)
+    sk = [sinkhorn_inputs(gen, dev) for _ in range(3)]
+    b, n, m = sk[0][0].shape
+    row = None
+    for iters in LOG_ITERS:
+        k_ms = cuda_ms(lambda d, bn, a, c: log_sinkhorn_fused_stats(d, bn, iters, a, c), sk)
+        p_ms = cuda_ms(lambda d, bn, a, c: log_sinkhorn_stats_reference(d, bn, iters, a, c), sk)
+        b_ms, b_by, b_bytes = log_sinkhorn_bound(sk[0][0], sk[0][2], sk[0][3], iters)
+        reread = 2 * iters * b * (n + 1) * (m + 1) * plan_dtype(n, m).itemsize
+        say(f"time log_sinkhorn_fused_stats {[b, n, m]} {iters} iterations: ms {k_ms:.4f} bound_ms "
+            f"{b_ms:.4f} ({b_by}: the exponentials at the special-function rate; reading dist once "
+            f"{1e3 * b_bytes:.2f} us) launches {launches} plain_ms {p_ms:.4f} library_ms none; "
+            f"{1 + 2 * iters + 2} device launches a call; Z's {2 * iters} re-reads move "
+            f"{reread / 1e9:.2f} GB = {1e6 * reread / HBM_BYTES_PER_S:.1f} us at the HBM rate")
+        if iters == LOG_ITERS[0]:
+            row = {"name": "log_sinkhorn_fused_stats", "route": "cuda", "source": "impx_torch/csrc/log_sinkhorn.cu",
+                   "replaces": "impx/ops/pallas/log_sinkhorn.py:208", "launches": launches,
+                   "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+    return row
+
+
+def log_ot_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels):
+    """Phase 14: DGNNS at the eval config under the log-domain head."""
+    cfg = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="bfloat16", log_ot=True)
+    model = carried_model(DGNNS, cfg, dev, reference_layout, load_reference_state_dict)
+    say(f"log_ot path: eval_config('spp', 15) log_ot bf16, {cfg.sinkhorn_iterations} iterations, "
+        f"B={B} N={N} D={D}")
+    call = lambda d: model.produce_matches(d, only_last=True, with_scores=False)
+    gen = torch.Generator().manual_seed(16)
+    launches = drive_path("log_ot path", model, permuted_pairs(gen, dev), call,
+                          {"mha_fused": 2 * cfg.n_layers, "log_sinkhorn_fused_stats": 1}, kernels)
+    label = f"DGNNS log_ot produce_matches B={B} N={N} 15 layers bf16"
+    time_path(label, model, call, [(permuted_pairs(gen, dev),) for _ in range(4)])
+    profile_calls(label, call, [permuted_pairs(gen, dev) for _ in range(4)])
+    return launches
+
+
+def randomize_batch_norm(model, gen):
+    """Random scale, bias and running statistics in every batch norm (at
+    their initial 1, 0, 0, 1 eval-mode batch norm is the identity up to eps)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "bn_var"):
+                c = m.bn_var.shape[0]
+                u = lambda lo, hi: (lo + (hi - lo) * torch.rand(c, generator=gen)).to(m.bn_var.device)
+                m.bn_scale.copy_(u(0.5, 1.5))
+                m.bn_bias.copy_(u(-0.3, 0.3))
+                m.bn_mean.copy_((0.3 * torch.randn(c, generator=gen)).to(m.bn_var.device))
+                m.bn_var.copy_(u(0.3, 2.0))
+
+
+def superglue_pairs(gen, dev):
+    data = permuted_pairs(gen, dev)
+    for k in ("descriptors0", "descriptors1"):
+        data[k] = SG_DESC_SCALE * data[k]
+    return data
+
+
+def superglue_path(dev, SuperGlue, MatcherConfig, load_superglue_state_dict, kernels):
+    """Phase 15: SuperGlue at its published configuration."""
+    cfg = MatcherConfig(descriptor_dim=D, n_layers=SG_LAYERS, sinkhorn_iterations=SG_ITERS,
+                        match_threshold=0.2, norm_fn="bn", compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(17)
+    model = carried_model(SuperGlue, cfg, dev, lambda m: reference_layout(m, single_final_proj=True),
+                          load_superglue_state_dict, lambda m: randomize_batch_norm(m, gen))
+    say(f"superglue: D={cfg.descriptor_dim} encoder {tuple(cfg.keypoint_encoder)} {cfg.num_heads} heads "
+        f"{cfg.n_layers} x (self, cross) {cfg.sinkhorn_iterations} iterations threshold "
+        f"{cfg.match_threshold} norm {cfg.norm_fn} (eval mode, random running statistics) bf16 "
+        f"attention, fp32 stream; descriptors x{SG_DESC_SCALE}; B={B} N={N}")
+    call = lambda d: model.produce_matches(d, only_last=True)
+    launches = drive_path("superglue", model, superglue_pairs(gen, dev), call,
+                          {"mha_fused": 2 * cfg.n_layers, "log_sinkhorn_fused_stats": 1}, kernels)
+    label = f"SuperGlue produce_matches B={B} N={N} {cfg.n_layers} layers {cfg.sinkhorn_iterations} iterations"
+    time_path(label, model, call, [(superglue_pairs(gen, dev),) for _ in range(4)])
+    profile_calls(label, call, [superglue_pairs(gen, dev) for _ in range(4)])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
+    from impx_torch.models import AdaGMN, DGNNS, MatcherConfig, SuperGlue
     from impx_torch.models.fast import _eimp_do_pool
     from impx_torch.ops.kernels import _build
     from impx_torch.ops.kernels import attention as ka
     from impx_torch.ops.kernels.attention import (
         attention_key_mass, attention_key_mass_reference, mha_fused, mha_reference)
+    from impx_torch.ops.kernels.log_sinkhorn import log_sinkhorn_fused_stats, log_sinkhorn_stats_reference
     from impx_torch.ops.kernels.sinkhorn import (
         plan_dtype, sinkhorn_fused_stats, sinkhorn_stats_reference)
-    from impx_torch.tools.convert import load_reference_state_dict
+    from impx_torch.tools.convert import load_reference_state_dict, load_superglue_state_dict
     from impx_torch.train.step import TrainHyperParams, init_opt_state, init_stats, make_train_step
 
     t_start = time.perf_counter()
@@ -966,7 +1182,8 @@ def main() -> int:
     errs["attention_key_mass"] = check_mass(dev, attention_key_mass, attention_key_mass_reference)
     kernels = {"mha_fused": mha_fused, "sinkhorn_fused_stats": sinkhorn_fused_stats,
                "attention_key_mass": attention_key_mass, "mha_fused_lse": ka.mha_fused_lse,
-               "mha_bwd": ka.mha_bwd, "mha_bwd_from_lse": ka.mha_bwd_from_lse}
+               "mha_bwd": ka.mha_bwd, "mha_bwd_from_lse": ka.mha_bwd_from_lse,
+               "log_sinkhorn_fused_stats": log_sinkhorn_fused_stats}
     model, launches = main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels)
     rows = time_all(dev, model, (mha_fused, mha_reference, sinkhorn_fused_stats,
                                  sinkhorn_stats_reference, plan_dtype), errs, launches)
@@ -992,6 +1209,14 @@ def main() -> int:
     train_launches = training_step_check(dev, train_models, kernels, ka)
     rows += time_training_kernels(dev, ka, errs, train_launches)
     training_runs(dev, train_models, TrainHyperParams, make_train_step, init_opt_state, init_stats)
+    del train_models
+
+    log_fns = (log_sinkhorn_fused_stats, log_sinkhorn_stats_reference, plan_dtype)
+    errs["log_sinkhorn_fused_stats"] = check_log_sinkhorn(dev, *log_fns)
+    log_launches = log_ot_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels)
+    superglue_path(dev, SuperGlue, MatcherConfig, load_superglue_state_dict, kernels)
+    rows.append(time_log_sinkhorn(dev, *log_fns, errs["log_sinkhorn_fused_stats"],
+                                  log_launches["log_sinkhorn_fused_stats"]))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

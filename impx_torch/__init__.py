@@ -2,8 +2,8 @@
 
 A port of `impx` (JAX/Pallas) that mirrors its module layout:
 
-  models/   config, gnn, gm, dgnns, adgm, fast, loss (the matcher as nn.Modules,
-            its forwards and its training loss)
+  models/   config, gnn, gm, dgnns, adgm, superglue, fast, loss (the matchers
+            as nn.Modules, their forwards and the training loss)
   ops/      norms, mlp, attention, sinkhorn, matching (plain tensor functions)
   ops/kernels/  the CUDA kernels' wrappers, each beside its plain version
   geometry/ keypoints

@@ -11,7 +11,8 @@ The masses come from the q/k states the layers carry, through the
 attention-mass kernel, so the probabilities never reach device memory.
 
 Not ported yet (the training slice): pool_masks from probability tensors,
-forward_train and the ground-truth masking.
+forward_train and the ground-truth masking; EIMP under the log-domain head
+(config.log_ot) raises.
 """
 from __future__ import annotations
 
@@ -37,6 +38,13 @@ def _normalise(mass: torch.Tensor) -> torch.Tensor:
 
 
 class AdaGMN(DGNNS):
+    def __init__(self, config, device=None, seed: int = 0, use_kernels: bool = True):
+        if config.log_ot:
+            # impx sends EIMP under log_ot to its masked XLA loop
+            # (impx/models/adgm.py:250-264), not to the stacked forward
+            raise NotImplementedError("AdaGMN (EIMP) with log_ot is not ported")
+        super().__init__(config, device, seed, use_kernels)
+
     def _key_masses(self, qk_self, qk_cross, keep0, keep1, qmask0, qmask1):
         """Normalised key masses (n00, n01, n11, n10) from the stacked q/k
         states [2B, H, N, dh], in two launches: the self state's keys are

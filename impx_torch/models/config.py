@@ -10,10 +10,14 @@ Left out of the copy:
   * `train_remat`: it chooses only what XLA stores for the backward (its
     values are identical under every policy, tests/test_fast_train.py:44);
     eager autograd stores every activation;
-  * the log-domain head (`log_ot`), the dual-softmax switch (`with_sinkhorn`),
-    `with_geo`, `geo_*` and `train_compaction`: they arrive with the slices
-    that port those paths. Until then a config that names one is refused
-    with a TypeError, as for any unknown field.
+  * the dual-softmax switch (`with_sinkhorn`), `with_geo`, `geo_*` and
+    `train_compaction`: they arrive with the slices that port those paths.
+    Until then a config that names one is refused with a TypeError, as for
+    any unknown field.
+
+`log_ot` (the log-domain optimal-transport head) is carried for inference:
+DGNNS runs it, and SuperGlue runs it whatever the field says. Training under
+it, and EIMP (AdaGMN) under it, raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ class MatcherConfig:
     sinkhorn_iterations: int = 20
     match_threshold: float = 0.2
     ac_fn: str = "relu"
-    # only 'in' (masked InstanceNorm, the published eval and training
-    # configs) is ported
+    # 'in' (masked InstanceNorm, the published IMP/EIMP eval and training
+    # configs) or 'bn' (batch norm from running statistics: SuperGlue only,
+    # in eval mode)
     norm_fn: str = "bn"
     # EIMP (AdaGMN): pooling never shrinks an image below n_min_tokens kept
     # keypoints, and starts at iteration first_it_to_update
@@ -46,6 +51,10 @@ class MatcherConfig:
     # activation stream dtype ('float32' | 'bfloat16'); InstanceNorm
     # statistics, the final projection and the Sinkhorn head stay fp32
     compute_dtype: str = "float32"
+    # score head: False is the non-log Sinkhorn, True the log-domain optimal
+    # transport (impx/ops/sinkhorn.py:log_optimal_transport; the kernel of
+    # impx/ops/pallas/log_sinkhorn.py on the card)
+    log_ot: bool = False
     # training (models/fast.py:forward_train_scan). train_fused: route B, the
     # attention core whose forward saves the row log-sum-exp and whose
     # backward runs from it (impx/models/fast.py:_make_fused_layer); False is

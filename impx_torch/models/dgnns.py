@@ -15,6 +15,14 @@ from impx_torch.models.gm import GM
 class DGNNS(GM):
     sharing = True
 
+    def __init__(self, config, device=None, seed: int = 0, use_kernels: bool = True):
+        if config.norm_fn != "in":
+            # batch norm runs only from running statistics, which a model
+            # that trains may not do; SuperGlue is the eval-mode user
+            raise NotImplementedError(f"norm_fn={config.norm_fn!r}: DGNNS and AdaGMN run 'in' "
+                                      "(batch norm is ported in eval mode, for SuperGlue)")
+        super().__init__(config, device, seed, use_kernels)
+
     @torch.no_grad()
     def produce_matches(self, data, p: float = 0.2, only_last: bool = False,
                         with_scores: bool = True):

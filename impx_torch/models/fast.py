@@ -24,6 +24,7 @@ custom VJP (`_make_fused_layer` :165) only to control what its rematerialised
 scan stores; the layer's tail and head backward there are plain VJPs, which
 autograd computes the same way, so the port writes only the attention core
 of route B by hand (impx_torch/ops/kernels/attention.py:MhaLseFunction).
+Training under config.log_ot raises: the log head's backward is not ported.
 """
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ from typing import Any
 
 import torch
 
+from impx_torch.ops.kernels.log_sinkhorn import (
+    log_plan_from_uv, log_sinkhorn_fused_stats, log_sinkhorn_stats_reference)
 from impx_torch.ops.kernels.sinkhorn import (
     sinkhorn_fused_stats, sinkhorn_plan_from_uv, sinkhorn_stats_reference)
 from impx_torch.models.loss import graph_loss, matching_accuracy
@@ -45,22 +48,29 @@ def _swap_half(x: torch.Tensor) -> torch.Tensor:
 
 def final_matches_from_desc(model, desc, b: int, valid0, valid1, p: float, with_scores: bool):
     """Last-iteration matches from the final stacked descriptors: final
-    projection -> distance -> Sinkhorn statistics -> mutual-NN matches
-    (impx/models/fast.py:265)."""
+    projection -> distance -> (log-)Sinkhorn statistics -> mutual-NN matches
+    (impx/models/fast.py:265). Under config.log_ot the statistics are of the
+    log plan, so the match scores are exp(max0) and 'scores' is the log plan."""
     cfg = model.config
     dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=-1)
-    stats_fn = sinkhorn_fused_stats if model.use_kernels else sinkhorn_stats_reference
+    if cfg.log_ot:
+        stats_fn = log_sinkhorn_fused_stats if model.use_kernels else log_sinkhorn_stats_reference
+        plan_fn = log_plan_from_uv
+    else:
+        stats_fn = sinkhorn_fused_stats if model.use_kernels else sinkhorn_stats_reference
+        plan_fn = sinkhorn_plan_from_uv
     stats = stats_fn(dist, model.bin_score, cfg.sinkhorn_iterations, valid0, valid1)
-    idx0, _, ms0, _ = matches_from_stats(
-        stats["max0"], stats["idx0"], stats["idx1"], p, valid0, valid1)
-    score = (sinkhorn_plan_from_uv(dist, model.bin_score, stats["u"], stats["v"], valid0, valid1)
+    max0 = torch.exp(stats["max0"]) if cfg.log_ot else stats["max0"]
+    idx0, _, ms0, _ = matches_from_stats(max0, stats["idx0"], stats["idx1"], p, valid0, valid1)
+    score = (plan_fn(dist, model.bin_score, stats["u"], stats["v"], valid0, valid1)
              if with_scores else None)
     return {"scores": [score], "indices0": [idx0], "mscores0": [ms0]}
 
 
-def _encode(model, data: dict[str, Any]):
-    """Keypoint encoding of both images, stacked: (desc [2B, N, D] in the
-    compute dtype, valid0, valid1 [B, N] bool, B, N)."""
+def _encode(model, data: dict[str, Any], stream_dtype: torch.dtype | None = None):
+    """Keypoint encoding of both images, stacked: (desc [2B, N, D] in
+    `stream_dtype`, by default the compute dtype, valid0, valid1 [B, N] bool,
+    B, N)."""
     b, n = data["descriptors0"].shape[:2]
     if data["descriptors1"].shape[1] != n:
         raise ValueError("the stacked batch needs the same keypoint count in both "
@@ -74,7 +84,7 @@ def _encode(model, data: dict[str, Any]):
     enc0 = model.encode_keypoint(model._norm_kpts(data, 0), data["scores0"], valid0)
     enc1 = model.encode_keypoint(model._norm_kpts(data, 1), data["scores1"], valid1)
     desc = torch.cat([data["descriptors0"] + enc0, data["descriptors1"] + enc1], dim=0)
-    return desc.to(model.compute_dtype), valid0, valid1, b, n
+    return desc.to(stream_dtype or model.compute_dtype), valid0, valid1, b, n
 
 
 def forward_scan(model, data: dict[str, Any], p: float = 0.2, only_last: bool = True,
@@ -120,6 +130,9 @@ def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
     geo_loss (0), matching_scores0 and matches0 of the last plan, and the
     accuracy counters."""
     cfg = model.config
+    if cfg.log_ot:
+        raise NotImplementedError("log_ot training (the log-OT head's backward) is not ported; "
+                                  "train with log_ot=False")
     gt = data["matching_mask"]
     desc, valid0, valid1, b, _ = _encode(model, data)
     mask = torch.cat([valid0, valid1], dim=0)

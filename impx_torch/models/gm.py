@@ -1,10 +1,11 @@
 """GM — the base graph matcher's building blocks (impx/models/gm.py).
 
 Keypoint encoding, the per-iteration final projection and scaled dot-product
-distance, the non-log Sinkhorn score head and mutual-NN matches. The forward
-that strings them together is DGNNS's (impx_torch/models/dgnns.py, through
-impx_torch/models/fast.py); the unrolled non-sharing GM forward is not
-ported.
+distance, the score head (non-log Sinkhorn, or the log-domain optimal
+transport under config.log_ot) and mutual-NN matches. The forwards that
+string them together are DGNNS's (impx_torch/models/dgnns.py, through
+impx_torch/models/fast.py) and SuperGlue's (impx_torch/models/superglue.py);
+the unrolled non-sharing GM forward is not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from impx_torch.device import resolve_device
 from impx_torch.geometry.keypoints import normalize_keypoints
 from impx_torch.models.config import MatcherConfig
 from impx_torch.models.gnn import MLP, AttentionalPropagation, Dense
+from impx_torch.ops.kernels.log_sinkhorn import log_optimal_transport_fused
 from impx_torch.ops.matching import compute_matches as _compute_matches
 from impx_torch.ops.sinkhorn import sink_algorithm
 
@@ -36,17 +38,14 @@ class GM(nn.Module):
     def __init__(self, config: MatcherConfig, device: str | torch.device | None = None,
                  seed: int = 0, use_kernels: bool = True):
         super().__init__()
-        if config.norm_fn != "in":
-            raise NotImplementedError(
-                f"norm_fn={config.norm_fn!r}: only 'in' (the eval config) is ported")
         self.config = config
         self.device = resolve_device(device)
         self.compute_dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
         self.use_kernels = use_kernels
         d = config.descriptor_dim
-        self.kenc = MLP([3, *config.keypoint_encoder, d])
+        self.kenc = MLP([3, *config.keypoint_encoder, d], config.norm_fn)
         self.gnn = nn.ModuleList(
-            AttentionalPropagation(d, config.num_heads, shared)
+            AttentionalPropagation(d, config.num_heads, shared, config.norm_fn)
             for shared in config.sharing_layers(self.sharing))
         self.final_proj = nn.ModuleList(Dense(d, d) for _ in range(config.n_layers))
         self.bin_score = nn.Parameter(torch.tensor(1.0))
@@ -93,11 +92,27 @@ class GM(nn.Module):
         dist = torch.einsum("bnd,bmd->bnm", p(desc0), p(desc1))
         return dist / (self.config.descriptor_dim ** 0.5)
 
+    @property
+    def scores_are_log(self) -> bool:
+        """True when compute_score returns a log transport plan (the
+        log-domain head; SuperGlue's always)."""
+        return self.config.log_ot
+
     def compute_score(self, dist, valid0=None, valid1=None):
-        """Non-log Sinkhorn with the learned dustbin (impx/models/gm.py:88)."""
+        """The score head with the learned dustbin (impx/models/gm.py:88). The
+        log-domain head follows impx's attn_impl='pallas' path: u and v from
+        the log-Sinkhorn kernel (its plain version when use_kernels is False),
+        then the fp32 log plan. Otherwise the non-log Sinkhorn plan."""
+        if self.scores_are_log:
+            return log_optimal_transport_fused(dist, self.bin_score, self.config.sinkhorn_iterations,
+                                               valid0, valid1, plain=not self.use_kernels)
         plan_dtype = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else None
         return sink_algorithm(dist, self.bin_score, self.config.sinkhorn_iterations,
                               valid0, valid1, plan_dtype=plan_dtype)
 
     def compute_matches(self, scores, p=0.2, valid0=None, valid1=None):
+        """Mutual-NN matches of a plan; a log plan is exponentiated first
+        (impx/models/gm.py:114-117)."""
+        if self.scores_are_log:
+            scores = torch.exp(scores)
         return _compute_matches(scores, p=p, valid0=valid0, valid1=valid1)

@@ -2,8 +2,9 @@
 of impx/models/fast.py: `_attn_block` :120 and `_tail` :99).
 
 A layer attends from x to a source, merges the heads, and passes
-concat([x, message]) through a 2-block MLP with masked InstanceNorm; the
-caller adds the residual. A full layer owns q/k/v/merge. A shared layer (IMP
+concat([x, message]) through a 2-block MLP with masked InstanceNorm (or, for
+SuperGlue, batch norm from running statistics); the caller adds the
+residual. A full layer owns q/k/v/merge. A shared layer (IMP
 attention sharing) owns only proj (the value projection) and merge, and
 attends with the q/k that the previous layer of its kind projected, which
 gives the same probabilities as reusing that layer's softmax.
@@ -49,24 +50,60 @@ class Dense(nn.Module):
         return dense_apply(self.weight, self.bias, x)
 
 
-class MLP(nn.Module):
-    """Dense -> [InstanceNorm -> activation] per block but the last."""
+class BatchNormEval(nn.Module):
+    """Batch norm of one MLP block from running statistics: parameters
+    bn_scale, bn_bias and buffers bn_mean, bn_var, as impx's block leaves
+    (impx/ops/mlp.py:55-62), at their initial values 1, 0, 0, 1."""
 
-    def __init__(self, channels: Sequence[int]):
+    def __init__(self, channels: int):
         super().__init__()
+        self.bn_scale = nn.Parameter(torch.ones(channels))
+        self.bn_bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("bn_mean", torch.zeros(channels))
+        self.register_buffer("bn_var", torch.ones(channels))
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        for t, value in ((self.bn_scale, 1.0), (self.bn_bias, 0.0), (self.bn_mean, 0.0), (self.bn_var, 1.0)):
+            t.fill_(value)
+
+    def stats(self) -> tuple[torch.Tensor, ...]:
+        return self.bn_scale, self.bn_bias, self.bn_mean, self.bn_var
+
+
+class MLP(nn.Module):
+    """Dense -> [norm -> activation] per block but the last. norm_fn 'in' is
+    the masked InstanceNorm; 'bn' is batch norm from running statistics, and
+    such an MLP raises in training mode (batch statistics are not ported)."""
+
+    def __init__(self, channels: Sequence[int], norm_fn: str = "in"):
+        super().__init__()
+        if norm_fn not in ("in", "bn"):
+            raise ValueError(f"unknown norm_fn {norm_fn!r}")
         self.blocks = nn.ModuleList(Dense(a, b) for a, b in zip(channels[:-1], channels[1:]))
+        self.norms = (nn.ModuleList(BatchNormEval(c) for c in channels[1:-1]) if norm_fn == "bn"
+                      else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for blk in self.blocks:
             blk.reset_parameters(generator)
         self.blocks[-1].bias.data.zero_()  # nn.init.constant_(mlp[-1].bias, 0)
+        for norm in self.norms or ():
+            norm.reset_parameters()
 
     def forward(self, x, *, ac_fn: str, mask=None):
-        return mlp_apply([(b.weight, b.bias) for b in self.blocks], x, ac_fn=ac_fn, mask=mask)
+        batch_norms = None
+        if self.norms is not None:
+            if self.training:
+                raise NotImplementedError("batch norm in training mode (batch statistics) is not "
+                                          "ported; call .eval() to run from running statistics")
+            batch_norms = [norm.stats() for norm in self.norms]
+        return mlp_apply([(b.weight, b.bias) for b in self.blocks], x, ac_fn=ac_fn, mask=mask,
+                         batch_norms=batch_norms)
 
 
 class AttentionalPropagation(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, shared: bool):
+    def __init__(self, d_model: int, num_heads: int, shared: bool, norm_fn: str = "in"):
         super().__init__()
         self.num_heads = num_heads
         self.shared = shared
@@ -75,7 +112,7 @@ class AttentionalPropagation(nn.Module):
             self.merge = Dense(d_model, d_model)
         else:
             self.attn = nn.ModuleDict({n: Dense(d_model, d_model) for n in ("q", "k", "v", "merge")})
-        self.mlp = MLP([2 * d_model, 2 * d_model, d_model])
+        self.mlp = MLP([2 * d_model, 2 * d_model, d_model], norm_fn)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for m in ((self.proj, self.merge) if self.shared else self.attn.values()):
@@ -83,11 +120,14 @@ class AttentionalPropagation(nn.Module):
         self.mlp.reset_parameters(generator)
 
     def forward(self, x, source, qk, key_mask, query_mask, *, ac_fn: str, use_kernels: bool = True,
-                lse_core: bool = False):
+                lse_core: bool = False, attn_dtype: torch.dtype | None = None):
         """x, source [B, N, D] in the stream dtype; `qk` the (q, k) carried from
         the previous layer of this kind (used only by shared layers). Returns
         (delta, (q, k)) with q/k [B, H, N, dh]. use_kernels=False runs the
-        plain versions of the kernels; lse_core picks route B's attention."""
+        plain versions of the kernels; lse_core picks route B's attention.
+        attn_dtype: GM's contract (impx/ops/attention.py:114-120), q/k/v
+        projected in the stream dtype and cast to it for the attention core;
+        the fast path's stream is already in the compute dtype."""
         h = self.num_heads
         if self.shared:
             q, k = qk
@@ -99,6 +139,8 @@ class AttentionalPropagation(nn.Module):
             k = project_heads(a["k"].weight, a["k"].bias, source, h)
             v = project_heads(a["v"].weight, a["v"].bias, source, h)
             merge = a["merge"]
+        if attn_dtype is not None:
+            q, k, v = q.to(attn_dtype), k.to(attn_dtype), v.to(attn_dtype)
         if use_kernels and not lse_core:
             out = mha_fused(q, k, v, key_mask)
         else:  # the plain versions keep the kernels' residuals: q, k, v (and o, lse)
@@ -106,7 +148,7 @@ class AttentionalPropagation(nn.Module):
         return self.tail(x, out, merge, query_mask, ac_fn), (q, k)
 
     def tail(self, x, out, merge: Dense, query_mask, ac_fn: str):
-        """Head merge, then the concat-MLP (fp32 InstanceNorm inside), all in
-        x's dtype (impx/models/fast.py:_tail)."""
+        """Head merge, then the concat-MLP (its norm in fp32), all in x's
+        dtype (impx/models/fast.py:_tail)."""
         message = merge_heads(merge.weight, merge.bias, out.to(x.dtype))
         return self.mlp(torch.cat([x, message], dim=-1), ac_fn=ac_fn, mask=query_mask)

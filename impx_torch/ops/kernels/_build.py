@@ -50,6 +50,11 @@ SIGNATURES = {
         # () -> query rows per block, which size the partial buffer
         "impx_attention_key_mass_block_q": [],
     },
+    "log_sinkhorn": {
+        # dist, bin, f0, f1, log_mu, log_nu, norm, z, u, v, max0, idx0, idx1,
+        # batch, n, m, iterations, z_is_bf16, stream
+        "impx_log_sinkhorn_stats": [_P] * 13 + [_I] * 5 + [_P],
+    },
     "sinkhorn": {
         # dist, bin, r, c, plan, u, v, max0, idx0, idx1, rowmass, colmass,
         # batch, n, m, iterations, plan_is_bf16, stream

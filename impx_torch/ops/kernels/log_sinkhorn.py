@@ -1,0 +1,144 @@
+"""The log-domain Sinkhorn head with match statistics: the CUDA kernel's
+wrapper and its plain PyTorch version.
+
+Replaces the TPU kernel impx/ops/pallas/log_sinkhorn.py:log_sinkhorn_fused_stats
+(:208, kernel `_log_sinkhorn_kernel` :59), which holds the dustbin-padded,
+masked score matrix Z of one pair on chip and runs every iteration there. At
+N = M = 2048 one pair's Z is 8.4 MB in bf16, far beyond one SM, so
+impx_torch/csrc/log_sinkhorn.cu splits the head into launches over a Z kept
+in device memory (1 + 2 * iterations + 2 launches):
+  1. Z [B, N+1, M+1] (Z dtype), dustbin row and column included;
+  2./3. per iteration, u_i = log_mu_i - logsumexp_j(Z_ij + v_j) (one warp per
+     row) and v_j = log_nu_j - logsumexp_i(Z_ij + u_i) (one thread per column
+     and row phase, an online max/sum in a fixed order: no atomics, the same
+     bits on every run);
+  4./5. row statistics (max0, idx0) and column statistics (idx1) of the final
+     log plan's interior Z + u + v - norm.
+What bounds it on the H100: the exponentials, one per cell in each of the
+2 * iterations sweeps, at the special-function units' rate; reading dist
+once is small beside them. Z of 4 pairs (34 MB in bf16) stays in the 50 MB
+L2 between launches. A persistent kernel that keeps Z on chip is later work.
+
+Numerics, as the TPU kernel: invalid cells of Z are -1e30, the dustbin cell
+of an invalid row too; the dustbin row is the bin score at valid columns and
+the corner. Z is stored fp32 when round_up(N+1,16) * round_up(M+1,128) * 4
+<= 6 MiB and bf16 otherwise (the Sinkhorn plan's rule, `plan_dtype`: a rule
+from the TPU's VMEM, kept because the numbers depend on it; dist, the bin
+score and -1e30 are all rounded); every
+sum runs in fp32, u and v stay fp32. The statistics read the stored Z; the
+log plan (`log_plan_from_uv`) reads the fp32 dist. Argmax takes the first
+index on ties; an invalid row has max0 -1e30 and idx0 0, an invalid column
+idx1 0.
+
+Under the bf16 rule, Z holds bf16(-1e30) = -1.00026e30 where log_mu holds
+-1e30, so u at an invalid row is -1e30 - bf16(-1e30) = +2.56e26 (0 under the
+fp32 rule); the plan stays right, since Z + u is -1e30 again. The column sweep
+starts each column's log-sum-exp from one term of exactly -1e30, the
+contribution of a fully masked row: the TPU layout's alignment rows give it
+at N = 2048 (round_up(N+1, 16) > N+1), and with it v is 0 at every invalid
+column, as in impx. It changes no valid column (exp(-1e30 - x) is 0). impx
+without alignment rows and without an invalid row, under the bf16 rule,
+starts from -1e30 with weight 0 and sets v to +inf, then NaN, at an invalid
+column (ROADMAP.md §C); the port does not.
+"""
+from __future__ import annotations
+
+import torch
+
+from impx_torch.ops.kernels import _build
+from impx_torch.ops.kernels.sinkhorn import _flags, plan_dtype
+from impx_torch.ops.sinkhorn import NEG, log_marginals, masked_scores
+
+
+def log_sinkhorn_stats_reference(dist, dustbin, iterations: int, valid0=None, valid1=None):
+    """Plain version of `log_sinkhorn_fused_stats`, the kernel's function
+    step by step: Z rounded to its storage dtype, fp32 sweeps, each column's
+    log-sum-exp started from one term of -1e30, statistics of the rounded Z."""
+    b, n, m = dist.shape
+    f0, f1 = _flags(dist, valid0, valid1)
+    log_mu, log_nu, norm = log_marginals(f0, f1)
+    z = masked_scores(dist.float(), dustbin, valid0, valid1).to(plan_dtype(n, m)).float()
+    u, v = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
+    for _ in range(iterations):
+        u = log_mu - torch.logsumexp(z + v[:, None, :], dim=2)
+        v = log_nu - torch.logaddexp(torch.logsumexp(z + u[:, :, None], dim=1),
+                                     torch.tensor(NEG, device=dist.device))
+    ok = (f0[:, :, None] > 0) & (f1[:, None, :] > 0)
+    val = z[:, :n, :m] + u[:, :n, None] + v[:, None, :m] - norm[:, :, None]
+    filled = torch.where(ok, val, NEG)
+    return {
+        "u": u, "v": v,
+        "max0": filled.amax(dim=2),
+        "idx0": filled.argmax(dim=2).to(torch.int32),   # first index on ties
+        "idx1": filled.argmax(dim=1).to(torch.int32),
+    }
+
+
+def log_sinkhorn_fused_stats(dist, dustbin, iterations: int, valid0=None, valid1=None):
+    """Log-domain Sinkhorn head without returning the plan. dist [B, N, M]
+    fp32, dustbin a scalar. Returns u [B, N+1], v [B, M+1] (log plan =
+    Z + u + v - norm, see `log_plan_from_uv`), max0/idx0 [B, N] (row max and
+    argmax of the log plan's interior) and idx1 [B, M]. CPU tensors run
+    `log_sinkhorn_stats_reference`; CUDA tensors launch the kernels or
+    raise. The kernel has no backward: under autograd a CUDA call raises."""
+    if dist.device.type == "cpu":
+        return log_sinkhorn_stats_reference(dist, dustbin, iterations, valid0, valid1)
+    if dist.device.type != "cuda":
+        raise ValueError(f"no log-Sinkhorn kernel for device {dist.device}")
+    if torch.is_grad_enabled() and (dist.requires_grad or getattr(dustbin, "requires_grad", False)):
+        raise NotImplementedError("the log-Sinkhorn kernel has no backward yet (log-OT training "
+                                  "is not ported); call it under torch.no_grad()")
+    if dist.dtype != torch.float32 or dist.dim() != 3 or not dist.is_contiguous():
+        raise ValueError(f"dist: want a contiguous fp32 [B, N, M], got "
+                         f"{tuple(dist.shape)} {dist.dtype}")
+    if iterations < 1:
+        raise ValueError("the log-Sinkhorn kernel runs at least one iteration")
+    b, n, m = dist.shape
+    for name, t, size in (("valid0", valid0, n), ("valid1", valid1, m)):
+        if t is not None and (t.shape != (b, size) or t.device != dist.device):
+            raise ValueError(f"{name}: want [{b}, {size}] on {dist.device}")
+    bin_ = torch.as_tensor(dustbin, dtype=torch.float32, device=dist.device).reshape(1).contiguous()
+    f0, f1 = (f.contiguous() for f in _flags(dist, valid0, valid1))
+    log_mu, log_nu, norm = log_marginals(f0, f1)
+    zd = plan_dtype(n, m)   # Z's storage rule is the Sinkhorn plan's
+    z = torch.empty((b, n + 1, m + 1), dtype=zd, device=dist.device)
+    f32 = dict(dtype=torch.float32, device=dist.device)
+    out = {
+        "u": torch.empty((b, n + 1), **f32), "v": torch.empty((b, m + 1), **f32),
+        "max0": torch.empty((b, n), **f32),
+        "idx0": torch.empty((b, n), dtype=torch.int32, device=dist.device),
+        "idx1": torch.empty((b, m), dtype=torch.int32, device=dist.device),
+    }
+    lib = _build.load("log_sinkhorn")
+    with torch.cuda.device(dist.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        log_sinkhorn_fused_stats.launches += 1
+        err = lib.impx_log_sinkhorn_stats(
+            *(t.data_ptr() for t in (dist, bin_, f0, f1, log_mu, log_nu, norm, z)),
+            *(out[k].data_ptr() for k in ("u", "v", "max0", "idx0", "idx1")),
+            b, n, m, iterations, int(zd == torch.bfloat16), stream)
+    _build.check(err, "impx_log_sinkhorn_stats")
+    return out
+
+
+log_sinkhorn_fused_stats.launches = 0
+
+
+def log_plan_from_uv(dist, dustbin, u, v, valid0=None, valid1=None):
+    """The fp32 log plan [B, N+1, M+1] from u and v in one pass: Z + u + v -
+    norm over the fp32 dist (impx/ops/pallas/log_sinkhorn.py:292). Plain
+    PyTorch on every device."""
+    _, _, norm = log_marginals(*_flags(dist, valid0, valid1))
+    z = masked_scores(dist.float(), dustbin, valid0, valid1)
+    return z + u[:, :, None] + v[:, None, :] - norm[:, :, None]
+
+
+def log_optimal_transport_fused(dist, dustbin, iterations: int, valid0=None, valid1=None,
+                                plain: bool = False):
+    """Drop-in for `log_optimal_transport`, forward only
+    (impx/ops/pallas/log_sinkhorn.py:307): the kernel's u and v, then the log
+    plan in one pass. plain=True takes u and v from
+    `log_sinkhorn_stats_reference` on any device."""
+    stats_fn = log_sinkhorn_stats_reference if plain else log_sinkhorn_fused_stats
+    stats = stats_fn(dist, dustbin, iterations, valid0, valid1)
+    return log_plan_from_uv(dist, dustbin, stats["u"], stats["v"], valid0, valid1)

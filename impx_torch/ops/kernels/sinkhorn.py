@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from impx_torch.ops.kernels import _build
-from impx_torch.ops.sinkhorn import NEG, _padded_masks, _pad_with_dustbin, _uv_iterate, marginals
+from impx_torch.ops.sinkhorn import NEG, _uv_iterate, marginals, masked_scores
 
 
 def _round_up(x: int, k: int) -> int:
@@ -135,8 +135,5 @@ def sinkhorn_plan_from_uv(dist, dustbin, u, v, valid0=None, valid1=None):
     """The fp32 [B, N+1, M+1] plan from u and v in one pass: row softmax of
     the masked padded scores, scaled by u v^T (impx/ops/pallas/sinkhorn.py:306).
     Plain PyTorch on every device; only with_scores=True callers need it."""
-    b, n, m = dist.shape
-    _, _, v0p, v1p = _padded_masks(b, n, m, valid0, valid1, dist.dtype, dist.device)
-    scores = _pad_with_dustbin(dist, dustbin)
-    scores = torch.where(v0p[:, :, None] & v1p[:, None, :], scores, NEG)
+    scores = masked_scores(dist, dustbin, valid0, valid1)
     return torch.softmax(scores, dim=-1) * u[:, :, None] * v[:, None, :]

@@ -1,8 +1,9 @@
 """Normalization in [B, N, C] layout (impx/ops/norms.py).
 
 InstanceNorm1d(eps=1e-3, affine=False) over the token axis, with statistics
-over valid tokens only. Batch norm is not on the eval path and waits for the
-training slice.
+over valid tokens only, and BatchNorm1d(eps=1e-3) in eval mode, from running
+statistics (SuperGlue's norm). Batch norm in train mode (batch statistics,
+synchronised across replicas) waits for SuperGlue's training slice.
 """
 from __future__ import annotations
 
@@ -25,3 +26,11 @@ def instance_norm(x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Te
         mean = (x * m).sum(dim=1, keepdim=True) / count
         var = (((x - mean) ** 2) * m).sum(dim=1, keepdim=True) / count
     return (x - mean) * torch.rsqrt(var + EPS)
+
+
+def batch_norm_eval(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    running_mean: torch.Tensor, running_var: torch.Tensor) -> torch.Tensor:
+    """Batch norm from running statistics, per channel of [B, N, C]
+    (impx/ops/norms.py:68): a per-channel affine map, the same for every
+    token and batch entry."""
+    return (x - running_mean) * torch.rsqrt(running_var + EPS) * scale + bias

@@ -1,11 +1,13 @@
-"""Non-log Sinkhorn with a learned dustbin, masked (impx/ops/sinkhorn.py).
+"""Sinkhorn with a learned dustbin, masked (impx/ops/sinkhorn.py): the
+non-log head and the log-domain optimal transport.
 
-Padded rows and columns get zero marginals and -1e30 scores, which makes the
-padded iteration identical to running on the unpadded keypoint sets. These
-functions are the plain oracles of the Sinkhorn kernel
-(impx_torch/ops/kernels/sinkhorn.py) and the training head, whose gradient
-is `SinkhornUV`'s. The log-domain head and dual softmax wait for their
-slices.
+Padded rows and columns get zero marginals (-1e30 log-marginals) and -1e30
+scores, which makes the padded iteration identical to running on the
+unpadded keypoint sets. `sink_algorithm` is the plain oracle of the Sinkhorn
+kernel (impx_torch/ops/kernels/sinkhorn.py) and the training head, whose
+gradient is `SinkhornUV`'s; `log_optimal_transport` is the plain log-domain
+head (forward only: its training slice brings impx's restructured backward).
+Dual softmax waits for its slice.
 """
 from __future__ import annotations
 
@@ -34,6 +36,15 @@ def _padded_masks(b, n, m, valid0, valid1, dtype, device):
     return valid0.to(dtype), valid1.to(dtype), v0p, v1p
 
 
+def masked_scores(dist: torch.Tensor, dustbin: torch.Tensor, valid0=None, valid1=None) -> torch.Tensor:
+    """The dustbin-padded scores [B, N+1, M+1] with -1e30 in every invalid
+    row and column, the dustbin cells of invalid rows and columns included
+    (the dustbin row and column themselves are valid)."""
+    b, n, m = dist.shape
+    _, _, v0p, v1p = _padded_masks(b, n, m, valid0, valid1, dist.dtype, dist.device)
+    return torch.where(v0p[:, :, None] & v1p[:, None, :], _pad_with_dustbin(dist, dustbin), NEG)
+
+
 def marginals(f0: torch.Tensor, f1: torch.Tensor):
     """Row and column marginals: 1 per valid keypoint, dustbin = count + 1."""
     r = torch.cat([f0, f0.sum(dim=1, keepdim=True) + 1.0], dim=1)  # [B, N+1]
@@ -54,11 +65,9 @@ def sink_algorithm(
     plan_dtype: storage dtype of the initial plan inside the u/v iteration;
     u and v are rounded to it before each product, sums stay fp32."""
     b, n, m = dist.shape
-    f0, f1, v0p, v1p = _padded_masks(b, n, m, valid0, valid1, dist.dtype, dist.device)
+    f0, f1, _, _ = _padded_masks(b, n, m, valid0, valid1, dist.dtype, dist.device)
     r, c = marginals(f0, f1)
-    scores = _pad_with_dustbin(dist, dustbin)
-    scores = torch.where(v0p[:, :, None] & v1p[:, None, :], scores, NEG)
-    p = torch.softmax(scores, dim=-1)
+    p = torch.softmax(masked_scores(dist, dustbin, valid0, valid1), dim=-1)
     return SinkhornUV.apply(p, r, c, iterations, plan_dtype)
 
 
@@ -136,3 +145,38 @@ class SinkhornUV(torch.autograd.Function):
         bm = torch.cat([torch.stack(sv_bars), v_prevs])         # [2T, B, M+1]
         p_bar = g * (u_t[:, :, None] * v_t[:, None, :]) + torch.einsum("tbn,tbm->bnm", a, bm)
         return p_bar, None, None, None, None
+
+
+def log_marginals(f0: torch.Tensor, f1: torch.Tensor):
+    """Log-marginals of the log-domain head from validity flags f0 [B, N],
+    f1 [B, M] (impx/ops/sinkhorn.py:223-225): norm = -log(n0 + n1) [B, 1];
+    log_mu [B, N+1] is norm at valid rows, -1e30 at invalid ones and
+    log(n1) + norm at the dustbin; log_nu [B, M+1] likewise."""
+    n0 = f0.sum(dim=1, keepdim=True)
+    n1 = f1.sum(dim=1, keepdim=True)
+    norm = -torch.log(n0 + n1)
+    log_mu = torch.cat([torch.where(f0 > 0, norm, NEG), torch.log(n1) + norm], dim=1)
+    log_nu = torch.cat([torch.where(f1 > 0, norm, NEG), torch.log(n0) + norm], dim=1)
+    return log_mu, log_nu, norm
+
+
+def log_optimal_transport(
+    dist: torch.Tensor,
+    dustbin: torch.Tensor,
+    iterations: int,
+    valid0: torch.Tensor | None = None,
+    valid1: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Log-domain Sinkhorn (impx/ops/sinkhorn.py:201), fp32: the log
+    transport plan Z + u + v - norm [B, N+1, M+1], Z the dustbin-padded,
+    masked scores; u_i = log_mu_i - logsumexp_j(Z_ij + v_j) and
+    v_j = log_nu_j - logsumexp_i(Z_ij + u_i) from u = v = 0 (:249-257)."""
+    b, n, m = dist.shape
+    f0, f1, _, _ = _padded_masks(b, n, m, valid0, valid1, dist.dtype, dist.device)
+    log_mu, log_nu, norm = log_marginals(f0, f1)
+    z = masked_scores(dist, dustbin, valid0, valid1)
+    u, v = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
+    for _ in range(iterations):
+        u = log_mu - torch.logsumexp(z + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(z + u[:, :, None], dim=1)
+    return z + u[:, :, None] + v[:, None, :] - norm[:, :, None]

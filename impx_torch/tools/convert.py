@@ -1,14 +1,20 @@
-"""Weights into the port's DGNNS, from two layouts.
+"""Weights into the port's matchers (DGNNS, AdaGMN, SuperGlue), from two
+layouts.
 
 `params_from_jax` takes impx's params pytree with numpy leaves (for example
-`jax.tree.map(np.asarray, params)`); `load_reference_state_dict` takes the
-reference PyTorch module layout that the published imp_spp.pth uses. Both
-return a state_dict of the port's layout, for `DGNNS.load_state_dict`:
+`jax.tree.map(np.asarray, params)`), SuperGlue's included (sharing=False);
+`load_reference_state_dict` takes the reference PyTorch module layout that
+the published imp_spp.pth uses, and `load_superglue_state_dict` SuperGlue's
+(magicleap/SuperGluePretrainedNetwork, as impx/models/superglue.py:
+convert_superglue_matcher reads it). All return a state_dict of the port's
+layout, for `load_state_dict`:
   kenc.blocks.{i}.{weight,bias}                      weight [in, out]
+  kenc.norms.{i}.{bn_scale,bn_bias,bn_mean,bn_var}   norm_fn='bn' only
   gnn.{i}.attn.{q,k,v,merge}.{weight,bias}           full layers
   gnn.{i}.{proj,merge}.{weight,bias}                 shared layers
-  gnn.{i}.mlp.blocks.{0,1}.{weight,bias}
-  final_proj.{i}.{weight,bias}, bin_score
+  gnn.{i}.mlp.blocks.{0,1}.{weight,bias}, gnn.{i}.mlp.norms.0.*
+  final_proj.{i}.{weight,bias}                       SuperGlue: final_proj.0
+  bin_score
 """
 from __future__ import annotations
 
@@ -20,6 +26,9 @@ import torch
 from impx_torch.models.config import MatcherConfig
 
 _ATTN = ("q", "k", "v", "merge")
+_BN = ("bn_scale", "bn_bias", "bn_mean", "bn_var")
+# the reference BatchNorm1d's names of the same leaves
+_BN_REFERENCE = ("weight", "bias", "running_mean", "running_var")
 
 
 def _t(x) -> torch.Tensor:
@@ -43,8 +52,14 @@ def params_from_jax(tree: Mapping, config: MatcherConfig, sharing: bool = True) 
         sd[f"{prefix}.weight"] = _t(blk["w"])
         sd[f"{prefix}.bias"] = _t(blk["b"])
 
-    for i, blk in enumerate(tree["kenc"]):
-        dense(f"kenc.blocks.{i}", blk)
+    def mlp(prefix, blocks):
+        for i, blk in enumerate(blocks):
+            dense(f"{prefix}.blocks.{i}", blk)
+            if "bn_scale" in blk:
+                for leaf in _BN:
+                    sd[f"{prefix}.norms.{i}.{leaf}"] = _t(blk[leaf])
+
+    mlp("kenc", tree["kenc"])
     share = _check_layers(len(tree["gnn"]), config, sharing)
     for i, layer in enumerate(tree["gnn"]):
         if share[i] != ("proj" in layer):
@@ -55,8 +70,7 @@ def params_from_jax(tree: Mapping, config: MatcherConfig, sharing: bool = True) 
         else:
             for name in _ATTN:
                 dense(f"gnn.{i}.attn.{name}", layer["attn"][name])
-        for j, blk in enumerate(layer["mlp"]):
-            dense(f"gnn.{i}.mlp.blocks.{j}", blk)
+        mlp(f"gnn.{i}.mlp", layer["mlp"])
     for i, blk in enumerate(tree["final_proj"]):
         dense(f"final_proj.{i}", blk)
     sd["bin_score"] = _t(tree["bin_score"]).reshape(())
@@ -65,8 +79,23 @@ def params_from_jax(tree: Mapping, config: MatcherConfig, sharing: bool = True) 
 
 def load_reference_state_dict(state: Mapping, config: MatcherConfig, sharing: bool = True) -> dict:
     """Reference layout (Conv1d weights [out, in, 1]; MLP Sequentials of
-    conv, norm, activation, so convs at indices 0, 3, 6, ...) -> the port's
+    conv, norm, activation, so convs at indices 0, 3, 6, ... and, for
+    norm_fn='bn', the BatchNorm1d one index after its conv) -> the port's
     state_dict. A checkpoint file's {'model': state} wrapper is unwrapped."""
+    return _from_reference(state, config, sharing,
+                           [f"final_proj.{i}" for i in range(config.n_layers)])
+
+
+def load_superglue_state_dict(state: Mapping, config: MatcherConfig) -> dict:
+    """The reference SuperGlue layout (one Conv1d `final_proj`, batch norm in
+    the MLPs; impx/models/superglue.py:57-78) -> the port's SuperGlue
+    state_dict. config.norm_fn must be 'bn'."""
+    if config.norm_fn != "bn":
+        raise ValueError("SuperGlue's MLPs use batch norm: config.norm_fn must be 'bn'")
+    return _from_reference(state, config, False, ["final_proj"])
+
+
+def _from_reference(state: Mapping, config: MatcherConfig, sharing: bool, final_proj: list) -> dict:
     if "model" in state:
         state = state["model"]
     sd: dict[str, torch.Tensor] = {}
@@ -78,7 +107,10 @@ def load_reference_state_dict(state: Mapping, config: MatcherConfig, sharing: bo
 
     def mlp(dst, src, n_convs):
         for i in range(n_convs):
-            conv(f"{dst}.blocks.{i}", f"{src}.{3 * i}")  # conv, InstanceNorm, activation
+            conv(f"{dst}.blocks.{i}", f"{src}.{3 * i}")  # conv, norm, activation
+            if config.norm_fn == "bn" and i < n_convs - 1:
+                for leaf, ref in zip(_BN, _BN_REFERENCE):
+                    sd[f"{dst}.norms.{i}.{leaf}"] = _t(state[f"{src}.{3 * i + 1}.{ref}"])
 
     mlp("kenc", "kenc.encoder", len(config.keypoint_encoder) + 1)
     share = _check_layers(2 * config.n_layers, config, sharing)
@@ -92,7 +124,7 @@ def load_reference_state_dict(state: Mapping, config: MatcherConfig, sharing: bo
             for j, name in enumerate(_ATTN[:3]):
                 conv(f"gnn.{i}.attn.{name}", f"{src}.attn.proj.{j}")
             conv(f"gnn.{i}.attn.merge", f"{src}.attn.merge")
-    for i in range(config.n_layers):
-        conv(f"final_proj.{i}", f"final_proj.{i}")
+    for i, src in enumerate(final_proj):
+        conv(f"final_proj.{i}", src)
     sd["bin_score"] = _t(state["bin_score"]).reshape(())
     return sd

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
+from impx_torch.models import AdaGMN, DGNNS, MatcherConfig, SuperGlue
 from impx_torch.ops.kernels.attention import attention_key_mass, mha_fused
+from impx_torch.ops.kernels.log_sinkhorn import log_sinkhorn_fused_stats
 from impx_torch.ops.kernels.sinkhorn import sinkhorn_fused_stats
 
 REPO = Path(__file__).resolve().parents[1]
@@ -115,12 +116,12 @@ def test_wrappers_refuse_devices_without_a_kernel():
         sinkhorn_fused_stats(torch.empty((1, 4, 4), device="meta"), 1.0, 20)
 
 
-@pytest.mark.parametrize("field,value", [("log_ot", True), ("with_geo", True),
+@pytest.mark.parametrize("field,value", [("with_sinkhorn", False), ("with_geo", True),
                                          ("train_compaction", ((2, 8),)), ("train_remat", "attn")])
 def test_unported_options_raise(field, value):
     """A config that names a field the port does not carry is refused, not run
-    without it (log_ot, with_geo and train_compaction change the objective;
-    the fields arrive with the slices that port them)."""
+    without it (with_sinkhorn, with_geo and train_compaction change the head
+    or the objective; the fields arrive with the slices that port them)."""
     with pytest.raises(TypeError, match=field):
         dataclasses.replace(SMALL, **{field: value})
 
@@ -166,3 +167,55 @@ def test_backward_wrappers_refuse_devices_without_a_kernel():
         mha_bwd(q, q, q, None, q)
     with pytest.raises(ValueError, match="no attention backward kernel"):
         mha_bwd_from_lse(q, q, q, None, lse, q, q)
+
+
+SMALL_BN = dataclasses.replace(SMALL, norm_fn="bn")
+
+
+def test_log_ot_training_raises():
+    """log_ot training is not ported: forward_train refuses rather than train
+    the non-log head in its place."""
+    data = _small_pairs(b=2)
+    data["matching_mask"] = np.zeros((2, 17, 17), np.float32)
+    with pytest.raises(NotImplementedError, match="log_ot"):
+        DGNNS(dataclasses.replace(SMALL, log_ot=True), device="cpu").forward_train(data)
+
+
+@pytest.mark.parametrize("model,config", [(AdaGMN, dataclasses.replace(SMALL, log_ot=True)),
+                                          (DGNNS, SMALL_BN), (AdaGMN, SMALL_BN)],
+                         ids=["eimp-log_ot", "dgnns-bn", "eimp-bn"])
+def test_unported_model_options_raise(model, config):
+    """EIMP under log_ot, and batch norm outside SuperGlue's eval-mode use,
+    raise rather than run something else."""
+    with pytest.raises(NotImplementedError):
+        model(config, device="cpu")
+
+
+def test_superglue_entry_point_needs_cuda_unless_cpu_is_named(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SuperGlue(SMALL_BN)
+    model = SuperGlue(SMALL_BN, device="cpu")
+    assert model.device == torch.device("cpu") and not model.training
+
+
+def test_superglue_in_training_mode_raises():
+    model = SuperGlue(SMALL_BN, device="cpu").train()
+    with pytest.raises(NotImplementedError, match="training mode"):
+        model.produce_matches(_small_pairs())
+
+
+def test_log_sinkhorn_wrapper_refuses_devices_without_a_kernel():
+    with pytest.raises(ValueError, match="no log-Sinkhorn kernel"):
+        log_sinkhorn_fused_stats(torch.empty((1, 4, 4), device="meta"), 1.0, 20)
+
+
+def test_cpu_log_paths_count_no_launch():
+    data = _small_pairs()
+    kernels = (mha_fused, sinkhorn_fused_stats, log_sinkhorn_fused_stats)
+    before = [fn.launches for fn in kernels]
+    out = DGNNS(dataclasses.replace(SMALL, log_ot=True), device="cpu").produce_matches(data, only_last=True)
+    assert out["scores"][0].shape == (1, 17, 17)
+    out = SuperGlue(SMALL_BN, device="cpu").produce_matches(data, only_last=True)
+    assert out["indices0"][0].shape == (1, 16)
+    assert [fn.launches for fn in kernels] == before

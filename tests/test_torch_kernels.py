@@ -11,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
+from impx_torch.models import AdaGMN, DGNNS, MatcherConfig, SuperGlue
 from impx_torch.ops.kernels.attention import (
     attention_key_mass, attention_key_mass_reference, mha_bwd, mha_bwd_from_lse,
     mha_bwd_from_lse_reference, mha_bwd_reference, mha_fused, mha_fused_lse, mha_lse_reference,
     mha_reference)
+from impx_torch.ops.kernels.log_sinkhorn import log_sinkhorn_fused_stats, log_sinkhorn_stats_reference
 from impx_torch.ops.kernels.sinkhorn import sinkhorn_fused_stats, sinkhorn_stats_reference
 
 
@@ -110,6 +111,77 @@ def test_sinkhorn_kernel_matches_plain(cuda_device, b, n, m, n0, n1):
         torch.testing.assert_close(out[key], ref[key], rtol=1e-3, atol=1e-6, msg=key)
     for key in ("idx0", "idx1"):  # a flip needs a near-tie within fp32 noise
         assert (out[key] != ref[key]).float().mean().item() <= 1e-3, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations", [20, 100])
+@pytest.mark.parametrize("b,n,m,n0,n1", SINKHORN_CASES + [(1, 31, 49152, [31], [40000])])
+def test_log_sinkhorn_kernel_matches_plain(cuda_device, b, n, m, n0, n1, iterations):
+    """Kernel 7 against its plain version: both round Z alike (the last two
+    cases store it in bf16; the last has no padded row, where impx's kernel
+    turns to NaN), so they differ by the summation order only (rtol 1e-4,
+    atol 1e-5). u and v are defined up to u + c, v - c (the log plan holds
+    u_i + v_j), and the plain version's roundings walk along c, in the
+    heavily masked case at 100 iterations past atol 1e-5 where |v| is small.
+    So u - u_N and v + u_N (u_N the dustbin row's) are held,
+    and max0; u and v at invalid entries within 1e23 (they hold about 2.56e26
+    under the bf16 rule); a second run gives the same bits."""
+    dist, bin_, valid0, valid1 = sinkhorn_case(b, n, m, n0, n1)
+    dist, valid0, valid1 = (torch.from_numpy(a).to(cuda_device) for a in (dist, valid0, valid1))
+    bin_t = torch.tensor(bin_, device=cuda_device)
+    before = log_sinkhorn_fused_stats.launches
+    out, again = (log_sinkhorn_fused_stats(dist, bin_t, iterations, valid0, valid1) for _ in range(2))
+    torch.cuda.synchronize()
+    assert log_sinkhorn_fused_stats.launches == before + 2
+    ref = log_sinkhorn_stats_reference(dist, bin_t, iterations, valid0, valid1)
+    one = torch.ones((b, 1), dtype=torch.bool, device=cuda_device)
+    for key, ok, sign in (("u", torch.cat([valid0, one], 1), -1), ("v", torch.cat([valid1, one], 1), 1)):
+        assert torch.isfinite(out[key]).all(), key
+        fixed, ref_fixed = (x[key] + sign * x["u"][:, n:] for x in (out, ref))
+        torch.testing.assert_close(fixed[ok], ref_fixed[ok], rtol=1e-4, atol=1e-5, msg=key)
+        torch.testing.assert_close(out[key][~ok], ref[key][~ok], rtol=0, atol=1e23, msg=key)
+    torch.testing.assert_close(out["max0"], ref["max0"], rtol=1e-4, atol=1e-5)
+    for key in ("idx0", "idx1"):  # a flip needs a near-tie within fp32 noise
+        assert (out[key] != ref[key]).float().mean().item() <= 1e-3, key
+    assert all(torch.equal(out[k], again[k]) for k in out)
+
+
+@pytest.mark.cuda
+def test_log_ot_matchers_kernel_path_match_plain_path(cuda_device):
+    """DGNNS under log_ot and SuperGlue (random batch-norm statistics,
+    descriptors twice the unit scale so random weights match) at fp32: one
+    attention launch a layer and one log-Sinkhorn call, the same indices as
+    the plain path."""
+    rs = np.random.RandomState(4)
+    b, n = 2, 200
+    d0 = rs.randn(b, n, 64).astype(np.float32)
+    perm = rs.permutation(n)
+    data = {"descriptors0": 2 * d0, "descriptors1": 2 * (d0[:, perm] + 0.01 * rs.randn(b, n, 64)),
+            "norm_keypoints0": rs.rand(b, n, 2) - 0.5, "scores0": rs.rand(b, n),
+            "valid0": np.arange(n)[None].repeat(b, 0) < 180}
+    data["norm_keypoints1"] = data["norm_keypoints0"][:, perm]
+    data["scores1"] = data["scores0"][:, perm]
+    data["valid1"] = data["valid0"][:, perm]
+    data = {k: v.astype(np.float32) if v.dtype != bool else v for k, v in data.items()}
+    small = dict(descriptor_dim=64, keypoint_encoder=(32, 64), n_layers=4, num_heads=4)
+    superglue = SuperGlue(MatcherConfig(**small, norm_fn="bn", sinkhorn_iterations=100), device=cuda_device)
+    with torch.no_grad():
+        for norm in (m for m in superglue.modules() if hasattr(m, "bn_var")):
+            c = norm.bn_var.shape[0]
+            norm.bn_scale.copy_(torch.from_numpy(rs.uniform(0.5, 1.5, c)))
+            norm.bn_mean.copy_(torch.from_numpy(0.3 * rs.randn(c)))
+            norm.bn_var.copy_(torch.from_numpy(rs.uniform(0.3, 2.0, c)))
+    dgnns = DGNNS(MatcherConfig(**small, norm_fn="in", log_ot=True), device=cuda_device)
+    for model, call in ((dgnns, lambda d: dgnns.produce_matches(d, only_last=True, with_scores=False)),
+                        (superglue, lambda d: superglue.produce_matches(d, only_last=True))):
+        launches = (mha_fused.launches, log_sinkhorn_fused_stats.launches)
+        out = call(data)
+        assert (mha_fused.launches - launches[0], log_sinkhorn_fused_stats.launches - launches[1]) == (8, 1)
+        model.use_kernels = False
+        ref = call(data)
+        idx, ridx = out["indices0"][0], ref["indices0"][0]
+        assert torch.equal(idx, ridx), type(model).__name__
+        assert ((idx >= 0).sum(dim=1) >= 45).all(), type(model).__name__  # a quarter of the 180 valid rows
 
 
 @pytest.mark.cuda
