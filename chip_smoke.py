@@ -4,43 +4,44 @@ their plain versions.
     python3 chip_smoke.py
 
 Phases: (1) the card, versions and TF32 flags; (2) build the CUDA kernels from
-impx_torch/csrc; (3) each kernel against its plain PyTorch version at the
-main path's shapes (the attention-mass kernel also twice on the same inputs,
-for the same bits); (4) DGNNS.produce_matches at the published eval config
-(15 layers, D = 256, 2048 keypoints, 4 pairs, bf16) with random weights from a
-seed carried through the reference-checkpoint loader, counting kernel
-launches and comparing with the plain path; (5) CUDA-event timings of each
-kernel, its plain version and the library call, and of the whole call;
-(6) a torch.profiler breakdown of the main path's device time by kernel and
-the device's idle share; (7) AdaGMN (EIMP) at the same config, mask-only and
-bucket-compacted, on pairs that overlap in part: launches per call, the keep
-counts after each pool, overflow, and agreement with the plain path;
-(8) pairs_per_s of both EIMP variants, kernel and plain path, and the
-profile of each (device time by kernel, host time by operation); (9) the
-training kernels, the forward that writes the row log-sum-exp (kernel 4) and
-the two attention backwards (kernels 3 and 5), against their plain versions
-at the training shape [32, 4, 1024, 64] bf16 and a small ragged fp32 shape
-(the backwards twice, for the same bits), with their times, bounds, plain
-and library times; (10) one DGNNS training step at the published training
-config (configs/config_train_megadepth.json: 15 layers, D = 256, 1024
-keypoints, 16 pairs, bf16, a loss on every iteration), route A and route B,
-on the kernel path and on the plain path on the same batch and weights:
-launches a step, the plain bodies never called on the kernel path, the
-loss's relative difference and the smallest gradient cosine over the
+impx_torch/csrc, with ptxas's registers and spills for each kernel; (3) each
+kernel against its plain PyTorch version at the main path's shapes (the
+attention-mass kernel also twice on the same inputs, for the same bits); (4)
+DGNNS.produce_matches at the published eval config (15 layers, D = 256, 2048
+keypoints, 4 pairs, bf16) with random weights from a seed carried through the
+reference-checkpoint loader, counting kernel launches and comparing with the
+plain path; (5) CUDA-event timings of each kernel, its plain version and the
+library call, and of the whole call; (6) a torch.profiler breakdown of the
+main path's device time by kernel and the device's idle share; (7) AdaGMN
+(EIMP) at the same config, mask-only and bucket-compacted, on pairs that
+overlap in part: launches per call, the keep counts after each pool, overflow,
+and agreement with the plain path; (8) pairs_per_s of both EIMP variants,
+kernel and plain path, and the profile of each (device time by kernel, host
+time by operation); (9) the training kernels, the forward that writes the row
+log-sum-exp (kernel 4) and the two attention backwards (kernels 3 and 5),
+against their plain versions at the training shape [32, 4, 1024, 64] bf16 and
+a small ragged fp32 shape (the backwards twice, for the same bits), with their
+times, bounds, plain and library times; (10) one DGNNS training step at the
+published training config (configs/config_train_megadepth.json: 15 layers, D =
+256, 1024 keypoints, 16 pairs, bf16, a loss on every iteration), route A and
+route B, on the kernel path and on the plain path on the same batch and
+weights: launches a step, the plain bodies never called on the kernel path,
+the loss's relative difference and the smallest gradient cosine over the
 parameter leaves; (11) make_train_step over fresh batches, each route: train
-pairs/s, peak device memory and a profile of one step; (12) steps on one
-fixed batch, each route: the loss falls and the NaN guard skips no step;
-(13) the log-Sinkhorn kernel (kernel 7) against its plain version at dist
-[4, 2048, 2048] (bf16 Z) at 20 and 100 iterations and at a ragged fp32-Z
-shape, twice for the same bits, with its times, bound and plain time;
-(14) DGNNS under the log-domain head (eval_config('spp', 15), log_ot, bf16,
-4 pairs of 2048 keypoints): launches per call, agreement with the plain
-path, pairs_per_s and a profile; (15) SuperGlue at its published
-configuration (9 layers, D = 256, 100 Sinkhorn iterations, batch norm from
-random running statistics, weights carried through the reference SuperGlue
-layout), the same checks. The line before the last lists the kernels as
-JSON; the last line is {"ok": true, "device": {...}}. Any failure exits
-nonzero. Needs one CUDA device; exits nonzero without one.
+pairs/s, peak device memory and a profile of one step, in which the route's
+attention backward takes two device launches a call (a dq launch and a dk/dv
+launch); (12) steps on one fixed batch, each route: the loss falls and the NaN
+guard skips no step; (13) the log-Sinkhorn kernel (kernel 7) against its plain
+version at dist [4, 2048, 2048] (bf16 Z) at 20 and 100 iterations and at a
+ragged fp32-Z shape, twice for the same bits, with its times, bound and plain
+time; (14) DGNNS under the log-domain head (eval_config('spp', 15), log_ot,
+bf16, 4 pairs of 2048 keypoints): launches per call, agreement with the plain
+path, pairs_per_s and a profile; (15) SuperGlue at its published configuration
+(9 layers, D = 256, 100 Sinkhorn iterations, batch norm from random running
+statistics, weights carried through the reference SuperGlue layout), the same
+checks. The line before the last lists the kernels as JSON; the last line is
+{"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
+device; exits nonzero without one.
 """
 from __future__ import annotations
 
@@ -471,11 +472,28 @@ def time_all(dev, model, mods, errs, launches):
     ]
 
 
+def kernel_name(mangled: str) -> str:
+    """`name<template integers>` of a kernel in an anonymous namespace, from
+    its mangled name `_ZN<n><namespace><n><name>I<arguments>E...`, so that
+    ptxas's registers and spills carry the kernel they belong to; otherwise
+    the mangled name as it is."""
+    head = re.match(r"_ZN(\d+)", mangled)
+    rest = mangled[head.end() + int(head.group(1)):] if head else ""
+    size = re.match(r"\d+", rest)
+    if size is None:
+        return mangled
+    end = size.end() + int(size.group())
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", rest[end:])
+    values = re.findall(r"L[a-z](\d+)E", args.group(1)) if args else []
+    return rest[size.end():end] + (f"<{', '.join(values)}>" if values else "")
+
+
 KERNEL_GROUPS = (  # device kernel name -> the layer that launched it (first match)
     ("mha_fused, mha_fused_lse (csrc/attention.cu)", ("attn_fwd",)),
     ("log_sinkhorn_fused_stats (csrc/log_sinkhorn.cu)",
      ("log_build_z", "log_update_u", "log_update_v", "log_row_stats", "log_col_stats")),
-    ("mha_bwd (csrc/attention_bwd.cu)", ("bwd_dq_fma", "bwd_dkdv_fma")),
+    ("mha_bwd (csrc/attention_bwd.cu)",
+     ("bwd_dq_recompute", "bwd_dkdv_recompute", "bwd_dq_fma", "bwd_dkdv_fma")),
     ("mha_bwd_from_lse (csrc/attention_bwd.cu)", ("bwd_dq_lse", "bwd_dkdv_lse", "row_dot")),
     ("sinkhorn_fused_stats (csrc/sinkhorn.cu)",
      ("plan_rows", "update_u", "update_v", "row_stats", "col_stats")),
@@ -484,10 +502,11 @@ KERNEL_GROUPS = (  # device kernel name -> the layer that launched it (first mat
 )
 
 
-def profile_calls(label: str, call, inputs):
+def profile_calls(label: str, call, inputs) -> dict | None:
     """torch.profiler over one call per input: the device time per call by
     kernel group and by kernel, and the device's idle share of the window from
-    its first to its last kernel."""
+    its first to its last kernel. Returns the device launches per call of each
+    kernel group, None if the profiler recorded no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -503,7 +522,7 @@ def profile_calls(label: str, call, inputs):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         say("profile: the profiler recorded no device events; breakdown not measured")
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, spans[0][0]
     for s, e in spans:                       # union of kernel intervals, us
@@ -533,6 +552,7 @@ def profile_calls(label: str, call, inputs):
     for e in host:  # where the host's time goes: dispatch, launches, any synchronisation
         say(f"profile host {e.self_cpu_time_total / 1e3 / calls:.3f} ms/call self x{e.count / calls:.0f}: "
             f"{e.key[:90]}")
+    return {g: n / calls for g, (_, n) in groups.items()}
 
 
 def profile_main_path(dev, model, calls: int = 4):
@@ -706,21 +726,27 @@ def work_pairs(q, mask) -> float:
 def training_kernel_bounds(q, mask) -> dict:
     """Least time of each training kernel at these inputs: (ms, what bounds it).
     Kernel 4: QK^T and P.V in the input dtype (4 flops a pair and dh) and its
-    bytes (q, o and the valid k, v rows, the lse). Kernel 3: dv, dq and dk
-    take fp32 operands (p and ds are fp32 values; 6 flops a pair and dh) at
-    the fp32 rate; QK^T and dp = do.v^T take input-dtype values, whose
-    products are exact in fp32, at the input dtype's rate (4 flops); against
-    q, k, v, do read and dq, dk, dv written. Kernel 5: five products in the
-    input dtype (10 flops a pair and dh), against q, k, v, o, do, lse read and
-    dq, dk, dv written."""
+    bytes (q, o and the valid k, v rows, the lse). Kernel 3: QK^T and dp =
+    do.v^T take input-dtype values (4 flops); dv, dq and dk have one fp32
+    factor (p or ds) and one input-dtype factor. At bf16 the card does those
+    at the precision the kernel keeps as two bf16 products each (the fp32
+    factor split into hi + lo), 12 flops, all 16 at the bf16 tensor-core
+    rate; at fp32 all 10 at the fp32 rate. "mha_bwd_fma_rate" keeps the
+    bound that counted the three fp32-factor products at the fp32 FMA rate
+    (6 flops), printed once for the record. Against q, k, v, do read and dq,
+    dk, dv written. Kernel 5: five products in the input dtype (10 flops a
+    pair and dh), against q, k, v, o, do, lse read and dq, dk, dv written."""
     b, h, nq, dh = q.shape
     pairs = work_pairs(q, mask)
-    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32
+    bf16 = q.dtype == torch.bfloat16
+    peak = PEAK_BF16 if bf16 else PEAK_FP32
     row = q.element_size() * h * nq * dh                 # one [H, Nq, dh] tensor of one batch
     nbytes = {"mha_fused_lse": 2 * b * row + 2 * pairs / nq * dh * q.element_size() + 4 * b * h * nq,
-              "mha_bwd": 7 * b * row, "mha_bwd_from_lse": 8 * b * row + 4 * b * h * nq}
+              "mha_bwd": 7 * b * row, "mha_bwd_fma_rate": 7 * b * row,
+              "mha_bwd_from_lse": 8 * b * row + 4 * b * h * nq}
     t_ops = {"mha_fused_lse": 4 * dh * pairs / peak,
-             "mha_bwd": 6 * dh * pairs / PEAK_FP32 + 4 * dh * pairs / peak,
+             "mha_bwd": (16 if bf16 else 10) * dh * pairs / peak,
+             "mha_bwd_fma_rate": 6 * dh * pairs / PEAK_FP32 + 4 * dh * pairs / peak,
              "mha_bwd_from_lse": 10 * dh * pairs / peak}
     out = {}
     for name, t in t_ops.items():
@@ -822,6 +848,10 @@ def time_training_kernels(dev, ka, errs, launches) -> list:
         say(f"time {name} {list(ins[0][0].shape)} bf16: ms {k_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
             f"launches {launches[name]} a training step plain_ms {p_ms:.4f} library_ms {library[name]:.4f} "
             f"(sdpa {'forward' if name == 'mha_fused_lse' else 'backward'}, bool mask)")
+        if name == "mha_bwd":
+            say(f"time mha_bwd: the bound that counted dv, dq and dk at the fp32 FMA rate was "
+                f"{bounds['mha_bwd_fma_rate'][0]:.4f} ms; the bound above counts them as bf16 hi + lo "
+                f"products on the tensor cores, the precision the kernel keeps")
         rows.append({"name": name, "route": "cuda", "source": source[name], "replaces": line[name],
                      "launches": launches[name], "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[name]})
@@ -957,10 +987,13 @@ def training_step_check(dev, models, kernels, ka) -> dict:
     return step_launches
 
 
-def training_runs(dev, models, TrainHyperParams, make_train_step, init_opt_state, init_stats):
+def training_runs(dev, models, launches, TrainHyperParams, make_train_step, init_opt_state,
+                  init_stats):
     """Phases 11 and 12 for each route: TRAIN_STEPS timed steps on fresh
-    batches (train pairs/s, peak memory, one step profiled), then FIXED_STEPS
-    on one batch (the loss must fall). Any skipped step fails."""
+    batches (train pairs/s, peak memory, one step profiled: the route's
+    attention backward must take two device launches a wrapper call, whose
+    count per step is `launches`), then FIXED_STEPS on one batch (the loss
+    must fall). Any skipped step fails."""
     gen = torch.Generator().manual_seed(13)
     fresh = [train_pairs(gen, dev) for _ in range(TRAIN_STEPS + 2)]
     fixed = train_pairs(gen, dev)
@@ -987,8 +1020,16 @@ def training_runs(dev, models, TrainHyperParams, make_train_step, init_opt_state
             f"{[round(1e3 * t, 1) for t in times]}); peak device memory {peak:.2f} GiB; skipped steps {skipped}")
         if skipped:
             fail(f"route {route}: the NaN guard skipped {skipped} steps")
-        profile_calls(f"training step route {route} B={TB} N={TN}",
-                      lambda d: step(opt, TRAIN_STEPS + 2, d, stats), [fresh[0]])
+        per_step = profile_calls(f"training step route {route} B={TB} N={TN}",
+                                 lambda d: step(opt, TRAIN_STEPS + 2, d, stats), [fresh[0]])
+        bwd = "mha_bwd" if route == "A" else "mha_bwd_from_lse"
+        if per_step is not None:
+            device = per_step[f"{bwd} (csrc/attention_bwd.cu)"]
+            say(f"train route {route}: {bwd} takes {device / launches[bwd]:g} device launches a call "
+                f"({device:.0f} in the profiled step over {launches[bwd]} wrapper calls; a dq launch "
+                f"and a dk/dv launch)")
+            if device != 2 * launches[bwd]:
+                fail(f"route {route}: {bwd} did not take two device launches a call")
 
         model.load_state_dict(state)
         opt, stats = init_opt_state(model), init_stats(dev)
@@ -1173,7 +1214,9 @@ def main() -> int:
     say(f"build: {seconds:.1f} s for {sorted(_build.SIGNATURES)}")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "Function properties for" in line:
+                say(f"  ptxas {name}: {kernel_name(line.split()[-1])}")
+            elif "registers" in line or "spill" in line or "error" in line:
                 say(f"  ptxas {name}: {line.strip()}")
 
     errs = {"mha_fused": check_attention(dev, mha_fused, mha_reference),
@@ -1208,7 +1251,8 @@ def main() -> int:
     train_models = training_models(dev, DGNNS, MatcherConfig)
     train_launches = training_step_check(dev, train_models, kernels, ka)
     rows += time_training_kernels(dev, ka, errs, train_launches)
-    training_runs(dev, train_models, TrainHyperParams, make_train_step, init_opt_state, init_stats)
+    training_runs(dev, train_models, train_launches, TrainHyperParams, make_train_step,
+                  init_opt_state, init_stats)
     del train_models
 
     log_fns = (log_sinkhorn_fused_stats, log_sinkhorn_stats_reference, plan_dtype)

@@ -1,6 +1,6 @@
 // Device helpers shared by the attention kernels (attention.cu,
-// attention_mass.cu, attention_bwd.cu): the TPU kernels' masking and the bf16
-// mma.sync with its fragment loads.
+// attention_mass.cu, attention_bwd.cu): the TPU kernels' masking, the bf16
+// mma.sync with its fragment loads (ldmatrix among them), and cp.async.
 #pragma once
 #include <cuda_bf16.h>
 #include <math.h>
@@ -44,6 +44,56 @@ __device__ __forceinline__ uint32_t ld_pair_rows(const __nv_bfloat16* p, int ld)
   uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
   uint32_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
   return lo | (hi << 16);
+}
+
+// x0, x1 as bf16 hi = bf16(x) and lo = bf16(x - hi), each pair packed low =
+// x0: hi + lo keeps about 16 bits of each fp32 value (x - hi is exact)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// --------------------------------------------- asynchronous copies, ldmatrix
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without passing through registers; zeros when !fill
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(fill ? 16 : 0));
+}
+
+// 4 bytes global -> shared; zeros when !fill
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(fill ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lanes 8i .. 8i+7 give the row
+// addresses of matrix i, and each lane gets (row lane/4, columns 2(lane%4),
+// +1) of each matrix: the mma fragment layout
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// the same, transposed: each lane gets (rows 2(lane%4), +1, column lane/4)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
 }  // namespace

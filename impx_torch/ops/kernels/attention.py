@@ -272,7 +272,8 @@ def mha_bwd_from_lse(q, k, v, key_mask, lse, o, do):
     """Kernel 5, the VJP of `mha_fused_lse` from its saved o and lse [B,H,Nq]:
     (dq, dk, dv) in the inputs' dtype. CPU tensors run
     `mha_bwd_from_lse_reference`; CUDA tensors launch
-    impx_torch/csrc/attention_bwd.cu (three launches, no atomics) or raise."""
+    impx_torch/csrc/attention_bwd.cu (two launches at bf16, three at fp32; no
+    atomics) or raise."""
     if _device_kind(q, "attention backward") == "cpu":
         return mha_bwd_from_lse_reference(q, k, v, key_mask, lse, o, do)
     return _backward(q, k, v, key_mask, do, lse=lse, o=o)

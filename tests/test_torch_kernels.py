@@ -273,12 +273,23 @@ def _rel_l2_per_batch(a, r):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nq,nk,dh", [(128, 192, 64), (100, 77, 32)])
-def test_attention_training_kernels_match_plain(cuda_device, dtype, nq, nk, dh):
+@pytest.mark.parametrize("nq,nk,dh,one_key", [
+    (128, 192, 64, False), (100, 77, 32, False),
+    (1000, 1030, 64, False),   # many 64-row tiles, neither length a multiple of 64
+    (100, 77, 16, False),      # dh = 16
+    (130, 200, 64, True),      # batch 0 has exactly one valid key
+], ids=["128-192-64", "100-77-32", "1000-1030-64", "100-77-16", "one-valid-key"])
+def test_attention_training_kernels_match_plain(cuda_device, dtype, nq, nk, dh, one_key):
     """Kernel 4 (forward with lse), kernel 3 and kernel 5 against their plain
     versions, with padded keys, random masks and a fully masked batch; the
-    backward kernels give the same bits on a second run (no atomics)."""
+    backward kernels give the same bits on a second run (no atomics). With
+    one valid key, p = 1 on it and ds = p (dp - delta) is 0 up to rounding,
+    so that batch's dq and dk are held against the norm of the other batches
+    with valid keys (relative to their own zero norm would divide by 0)."""
     q, k, v, mask = attention_inputs(nq=nq, nk=nk, dh=dh)
+    if one_key:
+        mask[0] = False
+        mask[0, nk // 2] = True
     do = np.random.RandomState(2).randn(*q.shape).astype(np.float32)
     q, k, v, do = (torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v, do))
     mask = torch.from_numpy(mask).to(cuda_device)
@@ -299,6 +310,10 @@ def test_attention_training_kernels_match_plain(cuda_device, dtype, nq, nk, dh):
         for name, a, b, r in zip(("dq", "dk", "dv"), got, again, ref):
             assert a.dtype == dtype and torch.equal(a, b), (kernel, name)
             assert torch.isfinite(a.float()).all(), (kernel, name)
+            if one_key and name != "dv":
+                err = (a[0].float() - r[0].float()).norm()
+                assert err <= BWD_REL_L2[dtype] * r[1].float().norm(), (kernel, name, err.item())
+                a, r = a[1:], r[1:]
             rel = _rel_l2_per_batch(a, r)
             assert bool((rel <= BWD_REL_L2[dtype]).all()), (kernel, name, rel.tolist())
 
