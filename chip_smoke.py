@@ -4,21 +4,27 @@ their plain versions.
     python3 chip_smoke.py
 
 Phases: (1) the card, versions and TF32 flags; (2) build the CUDA kernels from
-impx_torch/csrc, with ptxas's registers and spills for each kernel; (3) each
-kernel against its plain PyTorch version at the main path's shapes (the
-attention-mass kernel also twice on the same inputs, for the same bits); (4)
+impx_torch/csrc, with ptxas's registers and spills for each kernel, and a
+summary line (registers, spills, shared memory) for each instantiation of the
+bf16 attention forward; (3) each kernel against its plain PyTorch version at
+the main path's shapes (the attention-mass kernel also twice on the same
+inputs, for the same bits); (4)
 DGNNS.produce_matches at the published eval config (15 layers, D = 256, 2048
 keypoints, 4 pairs, bf16) with random weights from a seed carried through the
 reference-checkpoint loader, counting kernel launches and comparing with the
 plain path; (5) CUDA-event timings of each kernel, its plain version and the
-library call, and of the whole call; (6) a torch.profiler breakdown of the
-main path's device time by kernel and the device's idle share; (7) AdaGMN
-(EIMP) at the same config, mask-only and bucket-compacted, on pairs that
-overlap in part: launches per call, the keep counts after each pool, overflow,
-and agreement with the plain path; (8) pairs_per_s of both EIMP variants,
-kernel and plain path, and the profile of each (device time by kernel, host
-time by operation); (9) the training kernels, the forward that writes the row
-log-sum-exp (kernel 4) and the two attention backwards (kernels 3 and 5),
+library call, and of the whole call, the host time of one attention
+wrapper call (median over WRAPPER_CALLS calls, host clock), and kernels 1
+and 4 (phase 9) beside sdpa with 20 calls queued back to back; (6) a
+torch.profiler breakdown of the main path's device time by kernel and the
+device's idle share, with the attention group beside its time before the
+bf16 forward's redesign; (7) AdaGMN (EIMP) at the same config, mask-only
+and bucket-compacted, on pairs that overlap in part: launches per call, the
+keep counts after each pool, overflow, and agreement with the plain path;
+(8) pairs_per_s of both EIMP variants, kernel and plain path, and the
+profile of each (device time by kernel, host time by operation); (9) the
+training kernels, the forward that writes the row log-sum-exp (kernel 4)
+and the two attention backwards (kernels 3 and 5),
 against their plain versions at the training shape [32, 4, 1024, 64] bf16 and
 a small ragged fp32 shape (the backwards twice, for the same bits), with their
 times, bounds, plain and library times; (10) one DGNNS training step at the
@@ -65,6 +71,10 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9   # MUFU: 16 per SM per clock, 132 SMs, 1.98 G
 B, N, D, H = 4, 2048, 256, 4      # the main path: 4 pairs of 2048 keypoints
 ITERS = 20
 TIMED_RUNS = 12
+WRAPPER_CALLS = 300               # host-clock calls of the attention wrapper, already-built inputs
+# the main path's attention group in the profile before the bf16 forward's
+# redesign (mma.sync, 64-query blocks), as PERF.md section 5 records it
+ATTN_GROUP_MS_BEFORE = 7.996
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # atol = rtol, vs plain
 SINK_RTOL, SINK_ATOL, IDX_FLIP_MAX = 1e-3, 1e-6, 1e-3
 E2E_AGREE_MIN = 0.95              # indices0 equal, kernel vs plain path (bf16)
@@ -132,6 +142,27 @@ def cuda_ms(fn, inputs, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(fn, inputs, calls: int = 20) -> float:
+    """Median device ms a call over TIMED_RUNS windows of `calls` calls queued
+    back to back between two events. The host enqueues the next call while
+    the device runs the last, so a short kernel's time is not padded by its
+    wrapper's host time, as one call between events (cuda_ms) is when the
+    device waits for the launch."""
+    for x in inputs[:2]:
+        fn(*x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_RUNS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(calls):
+            fn(*inputs[i % len(inputs)])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -423,6 +454,20 @@ def main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels):
     return model, launches
 
 
+def host_us(fn, x, calls: int = WRAPPER_CALLS) -> float:
+    """Median host-clock microseconds of one fn(*x) call (enqueue only: no
+    synchronise inside the window), over `calls` calls on the same inputs."""
+    fn(*x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn(*x)
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
 def time_all(dev, model, mods, errs, launches):
     (mha_fused, mha_reference, sinkhorn_fused_stats, sinkhorn_stats_reference, plan_dtype) = mods
     gen = torch.Generator().manual_seed(4)
@@ -433,6 +478,8 @@ def time_all(dev, model, mods, errs, launches):
     a_plain = cuda_ms(mha_reference, att)
     a_lib = cuda_ms(sdpa, att)
     a_bound, a_by, a_bytes = attention_bound(*att[0][::3])
+    a_host, lib_host = host_us(mha_fused, att[0]), host_us(sdpa, att[0])
+    a_queued, lib_queued = queued_ms(mha_fused, att), queued_ms(sdpa, att)
     sk = [sinkhorn_inputs(gen, dev) for _ in range(3)]
     run_k = lambda d, bn, a, b: sinkhorn_fused_stats(d, bn, ITERS, a, b)
     run_p = lambda d, bn, a, b: sinkhorn_stats_reference(d, bn, ITERS, a, b)
@@ -449,6 +496,10 @@ def time_all(dev, model, mods, errs, launches):
     say(f"time mha_fused {list(att[0][0].shape)} bf16: ms {a_ms:.4f} bound_us {1e3 * a_bound:.2f} "
         f"({a_by}; bytes alone {1e3 * a_bytes:.2f} us) "
         f"launches {launches['mha_fused']} plain_ms {a_plain:.4f} library_ms {a_lib:.4f} (sdpa, bool mask)")
+    say(f"host mha_fused {list(att[0][0].shape)} bf16 bool mask: {a_host:.2f} us a wrapper call (median of "
+        f"{WRAPPER_CALLS} calls, host clock, enqueue only); sdpa {lib_host:.2f} us")
+    say(f"time mha_fused queued: {a_queued:.4f} ms a call, 20 calls back to back (device time); sdpa "
+        f"{lib_queued:.4f}")
     b, n, m = sk[0][0].shape
     reread = 2 * ITERS * b * (n + 1) * (m + 1) * plan_dtype(n, m).itemsize  # the design's plan traffic
     say(f"time sinkhorn_fused_stats {[b, n, m]}: ms {s_ms:.4f} bound_us {1e3 * s_bound:.2f} "
@@ -488,6 +539,28 @@ def kernel_name(mangled: str) -> str:
     return rest[size.end():end] + (f"<{', '.join(values)}>" if values else "")
 
 
+def forward_resources(log: str | None, lib) -> None:
+    """One line per instantiation of the bf16 attention forward
+    (attn_fwd_wgmma<dh>): ptxas's registers, spills and static shared memory,
+    and the dynamic shared memory a block takes at the main path's 2048 keys
+    and the training path's 1024."""
+    if log is None:
+        say("ptxas attn_fwd_wgmma: not compiled in this process (a library of this source was already built)")
+        return
+    kernel, spills = None, ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            kernel = kernel_name(line.split()[-1])
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and kernel and kernel.startswith("attn_fwd_wgmma"):
+            used = line.split(":", 1)[1].strip()
+            dh = int(re.search(r"<(\d+)>", kernel).group(1))
+            say(f"ptxas {kernel}: {used}; {spills}; dynamic smem a block "
+                f"{lib.impx_mha_fwd_smem_bytes(dh, N)} bytes at Nk = {N}, "
+                f"{lib.impx_mha_fwd_smem_bytes(dh, TN)} at Nk = {TN}")
+
+
 KERNEL_GROUPS = (  # device kernel name -> the layer that launched it (first match)
     ("mha_fused, mha_fused_lse (csrc/attention.cu)", ("attn_fwd",)),
     ("log_sinkhorn_fused_stats (csrc/log_sinkhorn.cu)",
@@ -505,8 +578,8 @@ KERNEL_GROUPS = (  # device kernel name -> the layer that launched it (first mat
 def profile_calls(label: str, call, inputs) -> dict | None:
     """torch.profiler over one call per input: the device time per call by
     kernel group and by kernel, and the device's idle share of the window from
-    its first to its last kernel. Returns the device launches per call of each
-    kernel group, None if the profiler recorded no device event."""
+    its first to its last kernel. Returns (device ms, device launches) per
+    call of each kernel group, None if the profiler recorded no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -552,14 +625,18 @@ def profile_calls(label: str, call, inputs) -> dict | None:
     for e in host:  # where the host's time goes: dispatch, launches, any synchronisation
         say(f"profile host {e.self_cpu_time_total / 1e3 / calls:.3f} ms/call self x{e.count / calls:.0f}: "
             f"{e.key[:90]}")
-    return {g: n / calls for g, (_, n) in groups.items()}
+    return {g: (t / 1e3 / calls, n / calls) for g, (t, n) in groups.items()}
 
 
 def profile_main_path(dev, model, calls: int = 4):
     gen = torch.Generator().manual_seed(5)
     pairs = [permuted_pairs(gen, dev) for _ in range(calls)]
-    profile_calls(f"produce_matches B={B} N={N}",
-                  lambda d: model.produce_matches(d, only_last=True, with_scores=False), pairs)
+    groups = profile_calls(f"produce_matches B={B} N={N}",
+                           lambda d: model.produce_matches(d, only_last=True, with_scores=False), pairs)
+    if groups is not None:
+        ms, n = groups[KERNEL_GROUPS[0][0]]
+        say(f"profile produce_matches attention group: {ms:.3f} ms/call over {n:.0f} launches; "
+            f"{ATTN_GROUP_MS_BEFORE} ms/call before the bf16 forward's redesign (PERF.md section 5)")
 
 
 # ---------------------------------------------------------------- EIMP
@@ -831,6 +908,8 @@ def time_training_kernels(dev, ka, errs, launches) -> list:
     sdpa = lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=m[:, None, None, :])
     lib_fwd = cuda_ms(sdpa, fwd)
+    say(f"time mha_fused_lse queued: {queued_ms(ka.mha_fused_lse, fwd):.4f} ms a call, 20 calls back to "
+        f"back (device time); sdpa forward {queued_ms(sdpa, fwd):.4f}")
     graphs = []
     for q, k, v, m, do in ins:
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -1024,7 +1103,7 @@ def training_runs(dev, models, launches, TrainHyperParams, make_train_step, init
                                  lambda d: step(opt, TRAIN_STEPS + 2, d, stats), [fresh[0]])
         bwd = "mha_bwd" if route == "A" else "mha_bwd_from_lse"
         if per_step is not None:
-            device = per_step[f"{bwd} (csrc/attention_bwd.cu)"]
+            device = per_step[f"{bwd} (csrc/attention_bwd.cu)"][1]
             say(f"train route {route}: {bwd} takes {device / launches[bwd]:g} device launches a call "
                 f"({device:.0f} in the profiled step over {launches[bwd]} wrapper calls; a dq launch "
                 f"and a dk/dv launch)")
@@ -1218,6 +1297,7 @@ def main() -> int:
                 say(f"  ptxas {name}: {kernel_name(line.split()[-1])}")
             elif "registers" in line or "spill" in line or "error" in line:
                 say(f"  ptxas {name}: {line.strip()}")
+    forward_resources(logs.get("attention"), _build.load("attention"))
 
     errs = {"mha_fused": check_attention(dev, mha_fused, mha_reference),
             "sinkhorn_fused_stats": check_sinkhorn(dev, sinkhorn_fused_stats,

@@ -11,179 +11,307 @@
 // impx/ops/pallas/attention.py:mha_fused_lse (:245, kernel _attn_kernel_lse
 // :221) too: the online softmax ends with each row's max m and sum l, and the
 // kernel writes lse = m + log(l) in fp32, the residual of the training
-// backward csrc/attention_bwd.cu (impx_mha_bwd_lse). For a fully masked row
-// m = -1e30 and l = Nk, and the log term is absorbed: lse == -1e30 exactly,
-// as in the TPU kernel.
+// backward csrc/attention_bwd.cu (impx_mha_bwd_lse). A fully masked row
+// writes lse = -1e30 exactly, as the TPU kernel (-1e30 + log Nk == -1e30).
 //
 // Bound on the H100: the two products, 4 * Nq * Nk * dh flops per
-// (batch, head), against the bf16 tensor-core rate; the exponentials take
-// about as long and the bytes of q, k, v, o a third of that. Scores and
-// probabilities live in registers only.
+// (batch, head), against the bf16 tensor-core rate (0.032 ms at [8, 4, 2048,
+// 64]); the exponentials, one a score, take about as long on the
+// special-function units, and the bytes of q, k, v, o a third of that.
 //
-// Layout: q [BH, Nq, dh], k/v [BH, Nk, dh] contiguous, mask [B, Nk] fp32
-// (1 valid / 0 masked, or null for all valid), out like q. One block per
-// (64 queries, batch*head); 64-key tiles of K and V in shared memory.
-//   bf16: 4 warps, each owns 16 query rows; QK^T and P.V by mma.sync
-//         m16n8k16 (bf16 in, fp32 accumulate). The S accumulator fragment is
-//         the A fragment of P.V, so P never leaves registers.
-//   fp32: 256 threads, 4 per query row, plain FMA in full fp32.
+// Layout: q [BH, Nq, dh], k/v [BH, Nk, dh] contiguous, out like q; the key
+// mask [B, Nk] or none: at bf16 one byte a key (bool, nonzero valid), read
+// as the caller gave it; at fp32 an fp32 mask (> 0 valid).
+//
+// bf16 (attn_fwd_wgmma, dh 16, 32, 64), one block per (128 queries,
+// batch*head), 288 threads:
+//   * a producer warp keeps TMA loads in flight: Q once, then K and V in
+//     64-key tiles through a ring of kStages stages, each stage with a "full"
+//     mbarrier (transaction bytes) and an "empty" one (the 8 consumer warps);
+//     the tensor maps are 3-D [BH, N, dh], so a ragged last tile arrives
+//     zero-filled, and the swizzle (32, 64 or 128 B, a row's bytes) is the
+//     one wgmma reads;
+//   * two consumer warpgroups own 64 query rows each. S = Q K^T is a wgmma
+//     with Q and the K tile (K-major) from shared memory; O += P V a wgmma
+//     with P from registers (the S accumulator rounded to bf16 is the
+//     register A fragment, so P never touches shared memory) and the V tile
+//     MN-major (transposed). A warpgroup runs its two products in turn; the
+//     four warpgroups of the two blocks an SM holds (at most 96 registers a
+//     thread) overlap one's exponentials with the others' products. Issuing
+//     tile j's QK^T beside tile j-1's P.V inside a warpgroup (wait_group 1)
+//     keeps S, P and O live at once: at two blocks an SM that spills, at one
+//     block an SM half the warps hide the latencies, and both ran slower;
+//   * the softmax runs in base 2: p = 2^(s c - m c) with c = log2(e) /
+//     sqrt(dh) folded into one FFMA a score; the running max m is kept in the
+//     scores' own units, so lse = m / sqrt(dh) + log(l) as the reference;
+//   * the key mask becomes a bit vector in shared memory once a block, and a
+//     tile whose keys are all valid skips the selects. When no key of the
+//     batch is valid (the reference gives every key -1e30, so a uniform
+//     average of V), every key in range counts as valid with c = 0, and lse
+//     is written as -1e30.
+// fp32 (attn_fwd_f32): one block per (64 queries, batch*head), 256 threads,
+// 4 per query row, plain FMA in full fp32, 64-key tiles; fp32 mask or none.
 // Semantics of the TPU kernel: scale by 1/sqrt(dh) before masking; masked
 // keys score the finite -1e30 (a fully masked row averages V uniformly, never
-// NaN); keys past Nk (the ragged last tile) get weight 0.
+// NaN); keys past Nk (the ragged last tile) get weight 0; P is exp(s - running
+// max) rounded to the input dtype before P.V, the division by l after it.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
+constexpr int kBlockQ = 64;   // fp32 kernel
 constexpr int kBlockK = 64;
 
-// ----------------------------------------------------------------- bf16, mma
+// --------------------------------------------------------- bf16, wgmma + TMA
+constexpr int kTileQ = 128;          // query rows a block: two consumer warpgroups of 64
+constexpr int kTileK = 64;           // keys a tile
+constexpr int kStages = 4;           // K/V tiles in flight
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 32 * (kConsumerWarps + 1);  // + the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Dynamic shared memory, from a 1024-byte aligned base: Q, the K stages, the
+// V stages, the key mask as bits (two 32-bit words a key tile), mbarriers
 template <int DH>
-__global__ void __launch_bounds__(128)
-attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int heads, int nq, int nk,
-              float scale) {
-  constexpr int LD = DH + 8;        // bf16 row stride: 16-byte rows, conflict-free fragments
-  constexpr int KSTEPS = DH / 16;   // k-steps of QK^T
-  constexpr int NT = DH / 8;        // n-tiles of P.V
-  constexpr int CH = DH / 8;        // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBlockK * LD];
-  __shared__ float code[kBlockK];
+struct FwdSmem {
+  static constexpr int kRow = 2 * DH;  // bytes of a row: the swizzle span
+  static constexpr int kQ = kTileQ * kRow;
+  static constexpr int kKV = kTileK * kRow;
+  static constexpr int kK = kQ;
+  static constexpr int kV = kK + kStages * kKV;
+  static constexpr int kWords = kV + kStages * kKV;
+  static constexpr int kBars = 1 + 2 * kStages;
+  static int bytes(int ntiles) { return 1024 + kWords + 8 * ntiles + 8 * kBars; }
+};
+
+// One 64-key tile's softmax for this thread's two rows (g, g + 8): the tile's
+// scores s (raw q.k, m64n64 accumulator layout), the tile's mask words, the
+// running max m (raw units), its scaled copy mu = m c (0 while m = -inf), the
+// running sum l; writes p = 2^(s c - mu) over s (0 at invalid keys) and
+// alpha, the factor for O and l.
+template <bool kAllValid>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t w_lo, uint32_t w_hi, int t,
+                                             float c, float (&m)[2], float (&mu)[2],
+                                             float (&l)[2], float (&alpha)[2]) {
+  uint32_t valid = 0xffffu;  // bit 2j + e: key 8j + 2t + e of the tile
+  if (!kAllValid) {
+    valid = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) valid |= (((j < 4 ? w_lo : w_hi) >> ((j & 3) * 8 + 2 * t)) & 3u) << (2 * j);
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if ((valid >> (2 * j + e)) & 1u) {
+        mx[0] = fmaxf(mx[0], s[4 * j + e]);
+        mx[1] = fmaxf(mx[1], s[4 * j + 2 + e]);
+      }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)  // the 4 threads of a row
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+    const float m_new = fmaxf(m[r], mx[r]);
+    const float mu_new = m_new == -INFINITY ? 0.f : m_new * c;
+    alpha[r] = m[r] == -INFINITY ? 0.f : ex2(mu[r] - mu_new);
+    m[r] = m_new;
+    mu[r] = mu_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // s[4j + 2h + e] = row g + 8h, key 8j + 2t + e
+      const float e = ((valid >> (2 * j + (i & 1))) & 1u) ? ex2(fmaf(s[4 * j + i], c, -mu[i >> 1])) : 0.f;
+      s[4 * j + i] = e;
+      sum[i >> 1] += e;
+    }
+  l[0] = l[0] * alpha[0] + sum[0];
+  l[1] = l[1] * alpha[1] + sum[1];
+}
+
+// the tile's p (in s) rounded to bf16 as the register A fragments of P.V,
+// one per 16-key step: n-blocks 2k and 2k + 1 of the accumulator
+__device__ __forceinline__ void pack_p(const float (&s)[32], uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    p[j >> 1][(j & 1) * 2 + 0] = pack_bf16(s[4 * j + 0], s[4 * j + 1]);  // row g
+    p[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);  // row g + 8
+  }
+}
+
+// a tile whose 64 keys are all valid, the common case, skips the selects
+__device__ __forceinline__ void softmax(float (&s)[32], uint32_t w_lo, uint32_t w_hi, int t,
+                                        float c, float (&m)[2], float (&mu)[2], float (&l)[2],
+                                        float (&alpha)[2]) {
+  if ((w_lo & w_hi) == 0xffffffffu) softmax_tile<true>(s, w_lo, w_hi, t, c, m, mu, l, alpha);
+  else softmax_tile<false>(s, w_lo, w_hi, t, c, m, mu, l, alpha);
+}
+
+template <int DH>
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint64_t dq, uint32_t k_tile) {
+  constexpr uint64_t kSwizzle = DH == 64 ? 1 : (DH == 32 ? 2 : 3);
+  const uint64_t dk = wgmma_desc(k_tile, 16 * DH, kSwizzle);  // 8 rows of 2 * DH bytes
+#pragma unroll
+  for (int k = 0; k < DH / 16; ++k) wgmma_ss_n64(s, dq + 2 * k, dk + 2 * k, k);  // +32 B a k-step
+  wgmma_commit();
+}
+
+template <int DH>
+__device__ __forceinline__ void issue_pv(float (&o)[DH / 2], const uint32_t (&p)[4][4],
+                                         uint32_t v_tile) {
+  constexpr uint64_t kSwizzle = DH == 64 ? 1 : (DH == 32 ? 2 : 3);
+  const uint64_t dv = wgmma_desc(v_tile, 16 * DH, kSwizzle);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wgmma_rs(o, p[k], dv + 2 * DH * k);  // 16 rows of 2 * DH bytes a k-step
+  wgmma_commit();
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 2)
+attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ mask,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int heads, int nq, int nk,
+               float scale) {
+  using L = FwdSmem<DH>;
+  constexpr uint64_t kSwizzle = DH == 64 ? 1 : (DH == 32 ? 2 : 3);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int ntiles = (nk + kTileK - 1) / kTileK;
+  uint32_t* words = reinterpret_cast<uint32_t*>(sm + L::kWords);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kWords + 8 * ntiles);
+  uint64_t* full = q_full + 1;         // [kStages]: the tile's K and V have arrived
+  uint64_t* empty = full + kStages;    // [kStages]: every consumer warp is done with them
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
-  const float* mask_row = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
-  const __nv_bfloat16* qb = q + (size_t)bh * nq * DH;
-  const __nv_bfloat16* kb = k + (size_t)bh * nk * DH;
-  const __nv_bfloat16* vb = v + (size_t)bh * nk * DH;
-  const int r0 = blockIdx.x * kBlockQ + warp * 16 + g, r1 = r0 + 8;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kTileQ;
+  const bool producer = tid == kConsumerWarps * 32;
+  auto load_kv = [&](int j) {
+    const int st = j % kStages;
+    mbar_expect_tx(&full[st], 2 * L::kKV);
+    tma_load_3d(sm + L::kK + st * L::kKV, &tk, &full[st], 0, j * kTileK, bh);
+    tma_load_3d(sm + L::kV + st * L::kKV, &tv, &full[st], 0, j * kTileK, bh);
+  };
 
-  // this warp's 16 query rows as A fragments, held for the whole key loop
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int s = 0; s < KSTEPS; ++s) {
-    const int c = s * 16 + 2 * t;
-    qa[s][0] = r0 < nq ? ld_u32(qb + (size_t)r0 * DH + c) : 0u;
-    qa[s][1] = r1 < nq ? ld_u32(qb + (size_t)r1 * DH + c) : 0u;
-    qa[s][2] = r0 < nq ? ld_u32(qb + (size_t)r0 * DH + c + 8) : 0u;
-    qa[s][3] = r1 < nq ? ld_u32(qb + (size_t)r1 * DH + c + 8) : 0u;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumerWarps);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (producer) {  // the first copies fly while the block reads the mask
+    mbar_expect_tx(q_full, L::kQ);
+    tma_load_3d(sm, &tq, q_full, 0, q0, bh);
+    for (int j = 0; j < kStages && j < ntiles; ++j) load_kv(j);
   }
 
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows r0, r1
-  float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
-
-  for (int k0 = 0; k0 < nk; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kBlockK * CH; idx += 128) {
-      const int key = idx / CH, ch = idx % CH;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + key < nk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + key) * DH + ch * 8);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + key) * DH + ch * 8);
-      }
-      *reinterpret_cast<uint4*>(ks + key * LD + ch * 8) = kv;
-      *reinterpret_cast<uint4*>(vs + key * LD + ch * 8) = vv;
+  // the batch's key mask as bits, one warp a 32-key word
+  const size_t mrow = static_cast<size_t>(bh / heads) * nk;
+  int any = 0;
+  for (int w = warp; w < 2 * ntiles; w += kConsumerWarps + 1) {
+    const int key = w * 32 + lane;
+    const bool ok = key < nk && (mask == nullptr || mask[mrow + key] != 0);
+    const uint32_t bits = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0) words[w] = bits;
+    any |= bits != 0u;
+  }
+  // no valid key in the batch: every key in range weighs alike (the
+  // reference's -1e30 on each), so all of them count, with scores scaled by 0
+  const bool all_masked = !__syncthreads_or(any);
+  if (all_masked) {
+    for (int w = tid; w < 2 * ntiles; w += kThreads) {
+      const int n = min(max(nk - 32 * w, 0), 32);
+      words[w] = n == 32 ? 0xffffffffu : (1u << n) - 1u;
     }
-    if (tid < kBlockK) code[tid] = key_code(mask_row, k0 + tid, nk);
     __syncthreads();
+  }
 
-    // S = Q K^T for 16 rows x 64 keys; s[j] covers keys j*8 .. j*8+7
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int st = 0; st < KSTEPS; ++st) {
-        const __nv_bfloat16* kp = ks + (j * 8 + g) * LD + st * 16 + 2 * t;
-        mma_bf16(s[j], qa[st], ld_u32(kp), ld_u32(kp + 8));
+  if (warp == kConsumerWarps) {  // producer: the rest of the ring
+    if (producer) {
+      for (int j = kStages; j < ntiles; ++j) {
+        mbar_wait(&empty[j % kStages], ((j / kStages) - 1) & 1);
+        load_kv(j);
       }
     }
+    return;
+  }
 
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const float c = all_masked ? 0.f : scale * kLog2e;
+  const uint64_t dq = wgmma_desc(smem_addr(sm + wg * 64 * L::kRow), 16 * DH, kSwizzle);
+  const uint32_t k_base = smem_addr(sm + L::kK), v_base = smem_addr(sm + L::kV);
+  float o[DH / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float c0 = code[j * 8 + 2 * t], c1 = code[j * 8 + 2 * t + 1];
-      s[j][0] = masked_score(s[j][0] * scale, c0);
-      s[j][1] = masked_score(s[j][1] * scale, c1);
-      s[j][2] = masked_score(s[j][2] * scale, c0);
-      s[j][3] = masked_score(s[j][3] * scale, c1);
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {  // the 4 threads of a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    // every tile holds at least one key < nk, so the new max is finite
-    const float mn0 = fmaxf(m_run[0], mx0), mn1 = fmaxf(m_run[1], mx1);
-    const float a0 = expf(m_run[0] - mn0), a1 = expf(m_run[1] - mn1);
-    m_run[0] = mn0;
-    m_run[1] = mn1;
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, mu[2] = {0.f, 0.f}, l[2] = {0.f, 0.f}, alpha[2];
+  float s[32];
+  uint32_t p[4][4];
 
-    uint32_t pa[4][4];  // P as A fragments of P.V, one per 16-key step
-    float sum0 = 0.f, sum1 = 0.f;
+  // Each tile: S = Q K^T, the softmax, O += P V. The two products of one
+  // warpgroup run in turn; the four warpgroups an SM holds (two blocks)
+  // overlap one's exponentials with another's products. fence_regs before a
+  // wgmma.fence keeps the definitions of the wgmma's register operands (o's
+  // rescaling, P) ahead of it, and after the issue keeps their next uses
+  // behind the wait: a definition inside the pipeline makes ptxas serialise
+  // the wgmmas (warning C7513).
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % kStages;
+    mbar_wait(&full[st], (j / kStages) & 1);
+    fence_regs(s);
+    wgmma_fence();
+    issue_qk<DH>(s, dq, k_base + st * L::kKV);
+    fence_regs(s);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(s, words[2 * j], words[2 * j + 1], t, c, m, mu, l, alpha);
+    pack_p(s, p);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float e0 = expf(s[j][0] - mn0), e1 = expf(s[j][1] - mn0);
-      const float e2 = expf(s[j][2] - mn1), e3 = expf(s[j][3] - mn1);
-      sum0 += e0 + e1;
-      sum1 += e2 + e3;
-      pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(e0, e1);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(e2, e3);
-    }
-    l_run[0] = l_run[0] * a0 + sum0;
-    l_run[1] = l_run[1] * a1 + sum1;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= a0;
-      o[n][1] *= a0;
-      o[n][2] *= a1;
-      o[n][3] *= a1;
-    }
-
-    // O += P V; B[key][d] read as two bf16 of consecutive key rows
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int st = 0; st < 4; ++st) {
-        const __nv_bfloat16* vp = vs + (st * 16 + 2 * t) * LD + n * 8 + g;
-        mma_bf16(o[n], pa[st], ld_pair_rows(vp, LD), ld_pair_rows(vp + 8 * LD, LD));
-      }
-    }
+    for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+    issue_pv<DH>(o, p, v_base + st * L::kKV);
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    if (lane == 0) mbar_arrive(&empty[st]);
   }
 
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_run[0] += __shfl_xor_sync(0xffffffffu, l_run[0], off);
-    l_run[1] += __shfl_xor_sync(0xffffffffu, l_run[1], off);
-  }
-  if (lse != nullptr && t == 0) {  // m + log(l): a fully masked row keeps -1e30 exactly
-    if (r0 < nq) lse[(size_t)bh * nq + r0] = m_run[0] + logf(l_run[0]);
-    if (r1 < nq) lse[(size_t)bh * nq + r1] = m_run[1] + logf(l_run[1]);
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+  const int r0 = q0 + wg * 64 + (warp & 3) * 16 + g;
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r0 + 8 * r < nq)
+        lse[(size_t)bh * nq + r0 + 8 * r] = all_masked ? kNeg : m[r] * scale + logf(l[r]);
   }
   __nv_bfloat16* ob = out + (size_t)bh * nq * DH;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (r0 < nq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * DH + c) =
-          pack_bf16(o[n][0] / l_run[0], o[n][1] / l_run[0]);
-    if (r1 < nq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * DH + c) =
-          pack_bf16(o[n][2] / l_run[1], o[n][3] / l_run[1]);
-  }
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r0 + 8 * r < nq)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)(r0 + 8 * r) * DH + 8 * n + 2 * t) =
+            pack_bf16(o[4 * n + 2 * r] / l[r], o[4 * n + 2 * r + 1] / l[r]);
 }
 
 // ------------------------------------------------------------------ fp32, FMA
@@ -273,35 +401,108 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [bh, n, DH] bf16 tensor as a 3-D tensor map of [rows, DH] boxes, swizzled
+// by a row's bytes
 template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* mask, void* out,
+bool encode(CUtensorMap* map, const void* ptr, int bh, int n, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {DH, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {2 * DH, (cuuint64_t)n * 2 * DH};
+  const cuuint32_t box[3] = {DH, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = DH == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory
+
+int smem_bytes(int dh, int nk) {
+  const int ntiles = (nk + kTileK - 1) / kTileK;
+  switch (dh) {
+    case 16: return FwdSmem<16>::bytes(ntiles);
+    case 32: return FwdSmem<32>::bytes(ntiles);
+    case 64: return FwdSmem<64>::bytes(ntiles);
+    default: return -1;
+  }
+}
+
+template <int DH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* mask, void* out,
+                        float* lse, int bh, int heads, int nq, int nk, float scale,
+                        cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode<DH>(&tq, q, bh, nq, kTileQ) || !encode<DH>(&tk, k, bh, nk, kTileK) ||
+      !encode<DH>(&tv, v, bh, nk, kTileK))
+    return cudaErrorInvalidValue;
+  const int smem = smem_bytes(DH, nk);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  static uint64_t raised = 0;  // devices whose dynamic shared memory limit is raised
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && !((raised >> device) & 1u)) {
+    err = cudaFuncSetAttribute(attn_fwd_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    raised |= uint64_t{1} << device;
+  }
+  const dim3 grid((nq + kTileQ - 1) / kTileQ, bh);
+  attn_fwd_wgmma<DH><<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<const uint8_t*>(mask),
+                                                       static_cast<__nv_bfloat16*>(out), lse, heads,
+                                                       nq, nk, scale);
+  return cudaGetLastError();
+}
+
+// mask: one byte a key at bf16, fp32 at fp32, or null
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    float* lse, int bh, int heads, int nq, int nk, int is_bf16,
                    cudaStream_t stream) {
   const float scale = (float)(1.0 / sqrt((double)DH));
+  if (is_bf16) return launch_bf16<DH>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, stream);
   const dim3 grid((nq + kBlockQ - 1) / kBlockQ, bh);
-  if (is_bf16) {
-    attn_fwd_bf16<DH><<<grid, 128, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), lse, heads,
-        nq, nk, scale);
-  } else {
-    attn_fwd_f32<DH><<<grid, 256, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        mask, static_cast<float*>(out), lse, heads, nq, nk, scale);
-  }
+  attn_fwd_f32<DH><<<grid, 256, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(mask), static_cast<float*>(out), lse, heads, nq, nk, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* mask, void* out,
                      float* lse, int bh, int heads, int nq, int nk, int dh, int is_bf16,
                      void* stream) {
-  const float* m = static_cast<const float*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nq < 1 || nk < 1 || bh < 1 || bh > 65535) return cudaErrorInvalidValue;
   switch (dh) {
-    case 16: return launch<16>(q, k, v, m, out, lse, bh, heads, nq, nk, is_bf16, st);
-    case 32: return launch<32>(q, k, v, m, out, lse, bh, heads, nq, nk, is_bf16, st);
-    case 64: return launch<64>(q, k, v, m, out, lse, bh, heads, nq, nk, is_bf16, st);
+    case 16: return launch<16>(q, k, v, mask, out, lse, bh, heads, nq, nk, is_bf16, st);
+    case 32: return launch<32>(q, k, v, mask, out, lse, bh, heads, nq, nk, is_bf16, st);
+    case 64: return launch<64>(q, k, v, mask, out, lse, bh, heads, nq, nk, is_bf16, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -322,3 +523,7 @@ extern "C" int impx_mha_fwd_lse(const void* q, const void* k, const void* v, con
   return (int)dispatch(q, k, v, mask, out, static_cast<float*>(lse), bh, heads, nq, nk, dh,
                        is_bf16, stream);
 }
+
+// dynamic shared memory of one bf16 block at head dim dh and nk keys (-1 for
+// an unsupported dh)
+extern "C" int impx_mha_fwd_smem_bytes(int dh, int nk) { return smem_bytes(dh, nk); }

@@ -39,13 +39,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// two bf16 from consecutive rows of a row-major tile, packed low = first
-__device__ __forceinline__ uint32_t ld_pair_rows(const __nv_bfloat16* p, int ld) {
-  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
-  return lo | (hi << 16);
-}
-
 // x0, x1 as bf16 hi = bf16(x) and lo = bf16(x - hi), each pair packed low =
 // x0: hi + lo keeps about 16 bits of each fp32 value (x - hi is exact)
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {

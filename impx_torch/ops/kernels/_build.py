@@ -30,10 +30,13 @@ _I = ctypes.c_int
 # launching function returns the cudaError_t of its launches
 SIGNATURES = {
     "attention": {
-        # q, k, v, mask, out, batch*heads, heads, nq, nk, dh, is_bf16, stream
+        # q, k, v, mask (bool at bf16, fp32 at fp32), out, batch*heads, heads,
+        # nq, nk, dh, is_bf16, stream
         "impx_mha_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # q, k, v, mask, out, lse, batch*heads, heads, nq, nk, dh, is_bf16, stream
         "impx_mha_fwd_lse": [_P] * 6 + [_I] * 6 + [_P],
+        # (dh, nk) -> dynamic shared memory of one bf16 block, bytes
+        "impx_mha_fwd_smem_bytes": [_I, _I],
     },
     "attention_bwd": {
         # q, k, v, mask, dout, scratch, dq, dk, dv, batch*heads, heads, nq, nk,

@@ -12,9 +12,13 @@ What bounds it on the H100: the QK^T and P.V products (4 * N^2 * dh flops per
 (batch, head)), against 989 TFLOP/s of bf16 tensor cores; the exponentials
 take about as long on the special-function units, and q, k, v, o move a
 third of that time's bytes. The design keeps scores and probabilities in
-registers (never in device memory): one block per (batch*head, 64 queries),
-64-key tiles of K and V staged in shared memory, bf16 mma.sync (m16n8k16)
-with fp32 accumulation; fp32 inputs take an FMA path that keeps full fp32.
+registers (never in device memory). bf16: one block per (batch*head, 128
+queries), a producer warp keeping TMA loads of 64-key K and V tiles in flight
+through a ring in shared memory, two consumer warpgroups running both
+products as wgmma with fp32 accumulation, P fed to P.V from registers, and
+the four warpgroups of two blocks on an SM overlapping one's exponentials
+with the others' products; it reads the bool key mask in place. fp32 inputs
+take an FMA path that keeps full fp32 and reads an fp32 mask.
 
 Semantics, as the TPU kernel: scores scaled by 1/sqrt(dh) before masking;
 invalid keys get the finite -1e30 (a fully masked row gives uniform weights,
@@ -165,6 +169,15 @@ def _mask_f32(key_mask):
     return None if key_mask is None else key_mask.to(torch.float32).contiguous()
 
 
+def _forward_mask(key_mask, dtype):
+    """The key mask of kernels 1 and 4: the bf16 kernel reads a bool mask as
+    the caller gave it (no device operation when it is contiguous), any other
+    mask cast to bool; the fp32 kernel reads it cast to fp32."""
+    if key_mask is None or dtype != torch.bfloat16:
+        return _mask_f32(key_mask)
+    return key_mask.bool().contiguous()
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -173,7 +186,7 @@ def _forward(q, k, v, key_mask, with_lse: bool):
     """Kernel 1, or kernel 4 with_lse, on CUDA tensors: (out, lse or None)."""
     _check(q, k, v, key_mask)
     b, h, nq, dh = q.shape
-    mask = _mask_f32(key_mask)
+    mask = _forward_mask(key_mask, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _build.load("attention")

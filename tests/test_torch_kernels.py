@@ -83,19 +83,79 @@ def cuda_device():
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nq,nk,dh", [(128, 192, 64), (100, 77, 32)])
-def test_attention_kernel_matches_plain(cuda_device, dtype, nq, nk, dh):
+# kernels 1 and 4 at the edges of the bf16 kernel's tiles (128 query rows a
+# block, 64-key tiles): Nq under 64 and not a multiple of 128, Nk under one
+# key tile and a multiple of it, dh 16, 32 and 64
+FWD_SHAPES = [(128, 192, 64), (100, 77, 32), (17, 5, 16), (200, 256, 64), (200, 64, 16)]
+FWD_IDS = ["128-192-64", "100-77-32", "17-5-16", "200-256-64", "200-64-16"]
+
+
+def _forward_inputs(device, dtype, nq, nk, dh, mask_dtype):
     q, k, v, mask = attention_inputs(nq=nq, nk=nk, dh=dh)
-    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v))
-    mask = torch.from_numpy(mask).to(cuda_device)
+    q, k, v = (torch.from_numpy(x).to(device, dtype) for x in (q, k, v))
+    return q, k, v, torch.from_numpy(mask).to(device, mask_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.float32], ids=["bool-mask", "float-mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nk,dh", FWD_SHAPES, ids=FWD_IDS)
+def test_attention_kernel_matches_plain(cuda_device, dtype, nq, nk, dh, mask_dtype):
+    """Kernel 1 against its plain version (batch 2 fully masked), twice for
+    the same bits."""
+    q, k, v, mask = _forward_inputs(cuda_device, dtype, nq, nk, dh, mask_dtype)
     before = mha_fused.launches
-    out = mha_fused(q, k, v, mask)
+    out, again = mha_fused(q, k, v, mask), mha_fused(q, k, v, mask)
     torch.cuda.synchronize()
-    assert mha_fused.launches == before + 1
+    assert mha_fused.launches == before + 2
+    assert torch.equal(out, again)
     ref = mha_reference(q, k, v, mask)
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.float32], ids=["bool-mask", "float-mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nk,dh", FWD_SHAPES, ids=FWD_IDS)
+def test_attention_lse_kernel_matches_plain(cuda_device, dtype, nq, nk, dh, mask_dtype):
+    """Kernel 4 alone (the forward of route B) against its plain version: o
+    as kernel 1, lse elementwise within 1e-5 and exactly -1e30 on the fully
+    masked batch; twice for the same bits."""
+    q, k, v, mask = _forward_inputs(cuda_device, dtype, nq, nk, dh, mask_dtype)
+    before = mha_fused_lse.launches
+    (o, lse), (o2, lse2) = mha_fused_lse(q, k, v, mask), mha_fused_lse(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert mha_fused_lse.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = mha_lse_reference(q, k, v, mask)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    assert bool((lse[2] == -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", [mha_fused, mha_fused_lse], ids=["kernel-1", "kernel-4"])
+def test_attention_forward_reads_the_bool_mask_in_place(cuda_device, fn):
+    """A bf16 forward with a bool key mask launches the attention kernel and
+    no other device operation (a cast of the mask to fp32 would add one):
+    three calls under torch.profiler, then a spin kernel, so that the calls'
+    events are not the profile's last (a profile can lose its last one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, mask = _forward_inputs(cuda_device, torch.bfloat16, 200, 256, 64, torch.bool)
+    fn(q, k, v, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn(q, k, v, mask)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    attention = [n for n in names if "attn_fwd" in n]
+    others = [n for n in names if "attn_fwd" not in n and "spin" not in n]
+    assert attention and not others, names
 
 
 @pytest.mark.cuda
