@@ -6,19 +6,24 @@ their plain versions.
 Phases: (1) the card, versions and TF32 flags; (2) build the CUDA kernels from
 impx_torch/csrc, with ptxas's registers and spills for each kernel, and a
 summary line (registers, spills, shared memory) for each instantiation of the
-bf16 attention forward; (3) each kernel against its plain PyTorch version at
-the main path's shapes (the attention-mass kernel also twice on the same
-inputs, for the same bits); (4)
+bf16 attention forward, and one for each instantiation of the persistent
+Sinkhorn kernels; (3) each kernel against its plain PyTorch version at
+the main path's shapes (the attention-mass and Sinkhorn kernels also twice
+on the same inputs, for the same bits; the Sinkhorn kernel once more through
+a CUDA-graph replay); (4)
 DGNNS.produce_matches at the published eval config (15 layers, D = 256, 2048
 keypoints, 4 pairs, bf16) with random weights from a seed carried through the
 reference-checkpoint loader, counting kernel launches and comparing with the
 plain path; (5) CUDA-event timings of each kernel, its plain version and the
 library call, and of the whole call, the host time of one attention
-wrapper call (median over WRAPPER_CALLS calls, host clock), and kernels 1
-and 4 (phase 9) beside sdpa with 20 calls queued back to back; (6) a
-torch.profiler breakdown of the main path's device time by kernel and the
-device's idle share, with the attention group beside its time before the
-bf16 forward's redesign; (7) AdaGMN (EIMP) at the same config, mask-only
+wrapper call (median over WRAPPER_CALLS calls, host clock), kernels 1
+and 4 (phase 9) beside sdpa and kernels 2 and 7 (phase 13) with 20 calls
+queued back to back, and the Sinkhorn kernels' schedule (CTAs, rows kept on
+chip, overflow bytes); (6) a torch.profiler breakdown of the main path's
+device time by kernel and the device's idle share, with the attention group
+beside its time before the bf16 forward's redesign, and in this and every
+later profile the device launches of each kernel wrapper call (at most 3 for
+kernels 2 and 7); (7) AdaGMN (EIMP) at the same config, mask-only
 and bucket-compacted, on pairs that overlap in part: launches per call, the
 keep counts after each pool, overflow, and agreement with the plain path;
 (8) pairs_per_s of both EIMP variants, kernel and plain path, and the
@@ -39,8 +44,8 @@ attention backward takes two device launches a call (a dq launch and a dk/dv
 launch); (12) steps on one fixed batch, each route: the loss falls and the NaN
 guard skips no step; (13) the log-Sinkhorn kernel (kernel 7) against its plain
 version at dist [4, 2048, 2048] (bf16 Z) at 20 and 100 iterations and at a
-ragged fp32-Z shape, twice for the same bits, with its times, bound and plain
-time; (14) DGNNS under the log-domain head (eval_config('spp', 15), log_ot,
+ragged fp32-Z shape, twice for the same bits and through a CUDA-graph replay,
+with its times, bound, plain time and schedule; (14) DGNNS under the log-domain head (eval_config('spp', 15), log_ot,
 bf16, 4 pairs of 2048 keypoints): launches per call, agreement with the plain
 path, pairs_per_s and a profile; (15) SuperGlue at its published configuration
 (9 layers, D = 256, 100 Sinkhorn iterations, batch norm from random running
@@ -294,11 +299,15 @@ def sinkhorn_bound(dist, valid0, valid1) -> tuple[float, str, float]:
 
 
 def check_sinkhorn(dev, sinkhorn_fused_stats, sinkhorn_stats_reference, plan_dtype):
+    """Kernel 2 against its plain version, and a second run for the same
+    bits. Prints every check before failing on any. Returns the largest
+    error at the main shape."""
     gen = torch.Generator().manual_seed(2)
-    worst = 0.0
+    worst, failures = 0.0, []
     for shape in (dict(), dict(b=2, n=256, m=200)):      # bf16 plan; fp32 plan
         dist, bin_, v0, v1 = sinkhorn_inputs(gen, dev, **shape)
         out = sinkhorn_fused_stats(dist, bin_, ITERS, v0, v1)
+        again = sinkhorn_fused_stats(dist, bin_, ITERS, v0, v1)
         torch.cuda.synchronize()
         ref = sinkhorn_stats_reference(dist, bin_, ITERS, v0, v1)
         pd = str(plan_dtype(dist.shape[1], dist.shape[2]))[6:]
@@ -309,13 +318,52 @@ def check_sinkhorn(dev, sinkhorn_fused_stats, sinkhorn_stats_reference, plan_dty
             say(f"check sinkhorn {list(dist.shape)} plan {pd} {key}: max_abs_err "
                 f"{err.max().item():.3e} (tol rtol={SINK_RTOL:g} atol={SINK_ATOL:g}), out of tolerance {bad}")
             if bad or not bool(torch.isfinite(out[key]).all()):
-                fail(f"sinkhorn kernel disagrees on {key} at {list(dist.shape)}")
+                failures.append(f"{key} at {list(dist.shape)}")
         for key in ("idx0", "idx1"):
             flips = (out[key] != ref[key]).float().mean().item()
             say(f"check sinkhorn {list(dist.shape)} {key}: share differing {flips:.2e} (max {IDX_FLIP_MAX:g})")
             if flips > IDX_FLIP_MAX:
-                fail(f"sinkhorn kernel disagrees on {key} at {list(dist.shape)}")
+                failures.append(f"{key} at {list(dist.shape)}")
+        same = all(torch.equal(out[k], again[k]) for k in out)
+        say(f"check sinkhorn {list(dist.shape)}: second run bitwise equal {same}")
+        if not same:
+            failures.append(f"second run at {list(dist.shape)}")
+        if not shape:
+            graph_replay(f"sinkhorn_fused_stats {list(dist.shape)}", sinkhorn_fused_stats,
+                         (dist, bin_, ITERS, v0, v1))
+    if failures:
+        fail(f"sinkhorn kernel disagrees with its plain version or itself: {failures}")
     return worst
+
+
+def graph_replay(label: str, fn, args) -> None:
+    """One wrapper call of a persistent kernel captured in a CUDA graph (its
+    cooperative launch goes through ctypes on the capturing stream) and
+    replayed twice: the replay's outputs must equal a direct call's bits."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)                                   # the capture stream's barrier words
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(*args)
+    graph.replay()
+    graph.replay()
+    direct = fn(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(captured[k], direct[k]) for k in direct)
+    say(f"graph {label}: captured in a CUDA graph, replay bitwise equal to a direct call {same}")
+    if not same:
+        fail(f"{label}: a CUDA graph replay disagrees with a direct call")
+
+
+def schedule_line(label: str, sched: dict) -> str:
+    """The persistent kernel's schedule (csrc/persistent.cuh) as one line."""
+    return (f"{label}: {sched['ctas']} CTAs ({sched['ctas_a_pair']} a pair), {sched['rows_on_chip']} rows "
+            f"on chip ({sched['cap']} a CTA at most, {sched['smem_bytes']} bytes of shared memory), "
+            f"{sched['overflow_rows']} rows in overflow = {sched['overflow_bytes'] / 1e6:.2f} MB read from "
+            f"L2 twice an iteration")
 
 
 # ---------------------------------------------------------------- main path
@@ -484,6 +532,7 @@ def time_all(dev, model, mods, errs, launches):
     run_k = lambda d, bn, a, b: sinkhorn_fused_stats(d, bn, ITERS, a, b)
     run_p = lambda d, bn, a, b: sinkhorn_stats_reference(d, bn, ITERS, a, b)
     s_ms, s_plain = cuda_ms(run_k, sk), cuda_ms(run_p, sk)
+    s_queued = queued_ms(run_k, sk)
     s_bound, s_by, s_bytes = sinkhorn_bound(sk[0][0], *sk[0][2:])
 
     pairs = [(permuted_pairs(gen, dev),) for _ in range(4)]
@@ -500,13 +549,15 @@ def time_all(dev, model, mods, errs, launches):
         f"{WRAPPER_CALLS} calls, host clock, enqueue only); sdpa {lib_host:.2f} us")
     say(f"time mha_fused queued: {a_queued:.4f} ms a call, 20 calls back to back (device time); sdpa "
         f"{lib_queued:.4f}")
+    from impx_torch.ops.kernels import sinkhorn as ks
+
     b, n, m = sk[0][0].shape
-    reread = 2 * ITERS * b * (n + 1) * (m + 1) * plan_dtype(n, m).itemsize  # the design's plan traffic
-    say(f"time sinkhorn_fused_stats {[b, n, m]}: ms {s_ms:.4f} bound_us {1e3 * s_bound:.2f} "
+    say(f"time sinkhorn_fused_stats {[b, n, m]}: ms {s_ms:.4f} (one call between two events) queued_ms "
+        f"{s_queued:.4f} (20 calls back to back: device time) bound_us {1e3 * s_bound:.2f} "
         f"({s_by}; reading dist once {1e3 * s_bytes:.2f} us) "
-        f"launches {launches['sinkhorn_fused_stats']} plain_ms {s_plain:.4f} library_ms none; "
-        f"the plan's {2 * ITERS} re-reads move {reread / 1e9:.2f} GB = "
-        f"{1e6 * reread / HBM_BYTES_PER_S:.1f} us at the HBM rate")
+        f"launches {launches['sinkhorn_fused_stats']} plain_ms {s_plain:.4f} library_ms none")
+    say(schedule_line(f"schedule sinkhorn_fused_stats {[b, n, m]} plan {str(plan_dtype(n, m))[6:]}",
+                      ks.schedule(b, n, m, dev)))
     say(f"time produce_matches B={B} N={N} 15 layers bf16: kernel path {e2e_ms:.3f} ms = "
         f"pairs_per_s {1e3 * B / e2e_ms:.2f}; plain path {e2e_plain:.3f} ms = "
         f"pairs_per_s {1e3 * B / e2e_plain:.2f}")
@@ -561,18 +612,50 @@ def forward_resources(log: str | None, lib) -> None:
                 f"{lib.impx_mha_fwd_smem_bytes(dh, TN)} at Nk = {TN}")
 
 
+def persistent_resources(logs: dict) -> None:
+    """One line per instantiation of the persistent Sinkhorn kernels
+    (sinkhorn_persistent, log_sinkhorn_persistent; plan or Z in fp32 or
+    bf16): ptxas's registers and spills, and the dynamic shared memory a CTA
+    at the main path's dist [B, N, N] from the schedule query."""
+    from impx_torch.ops.kernels import log_sinkhorn as kl
+    from impx_torch.ops.kernels import sinkhorn as ks
+
+    for name, module in (("sinkhorn", ks), ("log_sinkhorn", kl)):
+        log = logs.get(name)
+        if log is None:
+            say(f"ptxas {name}_persistent: not compiled in this process (a library of this source was "
+                f"already built)")
+            continue
+        kernel, spills = None, ""
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                kernel = line.split()[-1]
+            elif "spill" in line:
+                spills = line.strip()
+            elif "Used" in line and "registers" in line and kernel and f"{name}_persistent" in kernel:
+                dtype = "bf16" if "bfloat16" in kernel else "fp32"
+                sched = module.schedule(B, N, N)
+                say(f"ptxas {name}_persistent<{dtype}>: {line.split(':', 1)[1].strip()}; {spills}; dynamic "
+                    f"smem a CTA {sched['smem_bytes']} bytes at dist {[B, N, N]} "
+                    f"({str(ks.plan_dtype(N, N))[6:]} rule)")
+
+
 KERNEL_GROUPS = (  # device kernel name -> the layer that launched it (first match)
     ("mha_fused, mha_fused_lse (csrc/attention.cu)", ("attn_fwd",)),
-    ("log_sinkhorn_fused_stats (csrc/log_sinkhorn.cu)",
-     ("log_build_z", "log_update_u", "log_update_v", "log_row_stats", "log_col_stats")),
+    ("log_sinkhorn_fused_stats (csrc/log_sinkhorn.cu)", ("log_sinkhorn_persistent",)),
     ("mha_bwd (csrc/attention_bwd.cu)",
      ("bwd_dq_recompute", "bwd_dkdv_recompute", "bwd_dq_fma", "bwd_dkdv_fma")),
     ("mha_bwd_from_lse (csrc/attention_bwd.cu)", ("bwd_dq_lse", "bwd_dkdv_lse", "row_dot")),
-    ("sinkhorn_fused_stats (csrc/sinkhorn.cu)",
-     ("plan_rows", "update_u", "update_v", "row_stats", "col_stats")),
+    ("sinkhorn_fused_stats (csrc/sinkhorn.cu)", ("sinkhorn_persistent",)),
     ("attention_key_mass (csrc/attention_mass.cu)", ("key_mass",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "sm90_", "cutlass", "nvjet", "xmma")),
 )
+
+# kernel group -> its wrappers, whose launch counts give the wrapper calls of a
+# profile (filled in main, where the package is imported)
+GROUP_WRAPPERS: dict[str, tuple] = {}
+PERSISTENT_GROUPS = (KERNEL_GROUPS[1][0], KERNEL_GROUPS[4][0])   # kernels 7 and 2
+PERSISTENT_LAUNCHES_MAX = 3        # device launches a wrapper call of kernel 2 or 7
 
 
 def profile_calls(label: str, call, inputs) -> dict | None:
@@ -586,12 +669,15 @@ def profile_calls(label: str, call, inputs) -> dict | None:
     calls = len(inputs)
     call(inputs[0])
     torch.cuda.synchronize()
+    wrapper_calls = {g: -sum(fn.launches for fn in fns) for g, fns in GROUP_WRAPPERS.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for data in inputs:
             call(data)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+    for g, fns in GROUP_WRAPPERS.items():
+        wrapper_calls[g] += sum(fn.launches for fn in fns)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         say("profile: the profiler recorded no device events; breakdown not measured")
@@ -618,6 +704,13 @@ def profile_calls(label: str, call, inputs) -> dict | None:
     for g, (t, n) in groups.items():
         say(f"profile group {g}: {t / 1e3 / calls:.3f} ms/call, {n / calls:.0f} launches/call, "
             f"{t / busy:.3f} of busy")
+    for g, wrapped in wrapper_calls.items():
+        if wrapped:
+            per = groups[g][1] / wrapped
+            say(f"profile {label} {g}: {groups[g][1]} device launches over {wrapped} wrapper calls = "
+                f"{per:.2f} a wrapper call")
+            if g in PERSISTENT_GROUPS and per > PERSISTENT_LAUNCHES_MAX:
+                fail(f"{g}: {per:.2f} device launches a wrapper call (at most {PERSISTENT_LAUNCHES_MAX})")
     for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]:
         say(f"profile kernel {sum(ts) / 1e3 / calls:.3f} ms/call x{len(ts) / calls:.0f}: {name[:110]}")
     host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
@@ -1178,6 +1271,9 @@ def check_log_sinkhorn(dev, log_sinkhorn_fused_stats, log_sinkhorn_stats_referen
         say(f"check log_sinkhorn {where}: second run bitwise equal {same}")
         if not same:
             failures.append(f"second run at {where}")
+        if not shape and iters == LOG_ITERS[0]:
+            graph_replay(f"log_sinkhorn_fused_stats {where}", log_sinkhorn_fused_stats,
+                         (dist, bin_, iters, v0, v1))
     if failures:
         fail(f"log-Sinkhorn kernel disagrees with its plain version or itself: {failures}")
     return worst
@@ -1191,20 +1287,23 @@ def time_log_sinkhorn(dev, log_sinkhorn_fused_stats, log_sinkhorn_stats_referenc
     b, n, m = sk[0][0].shape
     row = None
     for iters in LOG_ITERS:
-        k_ms = cuda_ms(lambda d, bn, a, c: log_sinkhorn_fused_stats(d, bn, iters, a, c), sk)
+        run_k = lambda d, bn, a, c: log_sinkhorn_fused_stats(d, bn, iters, a, c)
+        k_ms, k_queued = cuda_ms(run_k, sk), queued_ms(run_k, sk)
         p_ms = cuda_ms(lambda d, bn, a, c: log_sinkhorn_stats_reference(d, bn, iters, a, c), sk)
         b_ms, b_by, b_bytes = log_sinkhorn_bound(sk[0][0], sk[0][2], sk[0][3], iters)
-        reread = 2 * iters * b * (n + 1) * (m + 1) * plan_dtype(n, m).itemsize
-        say(f"time log_sinkhorn_fused_stats {[b, n, m]} {iters} iterations: ms {k_ms:.4f} bound_ms "
+        say(f"time log_sinkhorn_fused_stats {[b, n, m]} {iters} iterations: ms {k_ms:.4f} (one call between "
+            f"two events) queued_ms {k_queued:.4f} (20 calls back to back: device time) bound_ms "
             f"{b_ms:.4f} ({b_by}: the exponentials at the special-function rate; reading dist once "
-            f"{1e3 * b_bytes:.2f} us) launches {launches} plain_ms {p_ms:.4f} library_ms none; "
-            f"{1 + 2 * iters + 2} device launches a call; Z's {2 * iters} re-reads move "
-            f"{reread / 1e9:.2f} GB = {1e6 * reread / HBM_BYTES_PER_S:.1f} us at the HBM rate")
+            f"{1e3 * b_bytes:.2f} us) launches {launches} plain_ms {p_ms:.4f} library_ms none")
         if iters == LOG_ITERS[0]:
             row = {"name": "log_sinkhorn_fused_stats", "route": "cuda", "source": "impx_torch/csrc/log_sinkhorn.cu",
                    "replaces": "impx/ops/pallas/log_sinkhorn.py:208", "launches": launches,
                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": None}
+    from impx_torch.ops.kernels import log_sinkhorn as kl
+
+    say(schedule_line(f"schedule log_sinkhorn_fused_stats {[b, n, m]} Z {str(plan_dtype(n, m))[6:]}",
+                      kl.schedule(b, n, m, dev)))
     return row
 
 
@@ -1298,6 +1397,7 @@ def main() -> int:
             elif "registers" in line or "spill" in line or "error" in line:
                 say(f"  ptxas {name}: {line.strip()}")
     forward_resources(logs.get("attention"), _build.load("attention"))
+    persistent_resources(logs)
 
     errs = {"mha_fused": check_attention(dev, mha_fused, mha_reference),
             "sinkhorn_fused_stats": check_sinkhorn(dev, sinkhorn_fused_stats,
@@ -1307,6 +1407,9 @@ def main() -> int:
                "attention_key_mass": attention_key_mass, "mha_fused_lse": ka.mha_fused_lse,
                "mha_bwd": ka.mha_bwd, "mha_bwd_from_lse": ka.mha_bwd_from_lse,
                "log_sinkhorn_fused_stats": log_sinkhorn_fused_stats}
+    GROUP_WRAPPERS.update(zip((g for g, _ in KERNEL_GROUPS[:6]), (
+        (mha_fused, ka.mha_fused_lse), (log_sinkhorn_fused_stats,), (ka.mha_bwd,), (ka.mha_bwd_from_lse,),
+        (sinkhorn_fused_stats,), (attention_key_mass,))))
     model, launches = main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels)
     rows = time_all(dev, model, (mha_fused, mha_reference, sinkhorn_fused_stats,
                                  sinkhorn_stats_reference, plan_dtype), errs, launches)

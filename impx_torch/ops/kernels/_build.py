@@ -2,7 +2,7 @@
 
 Each source is compiled by nvcc for sm_90a into a shared library with a plain
 C interface, loaded with ctypes; the sources share device helpers through
-csrc/*.cuh. Builds go to impx_torch/_build/ (listed in .gitignore), named by a
+csrc/*.cuh (common.cuh, hopper.cuh, persistent.cuh). Builds go to impx_torch/_build/ (listed in .gitignore), named by a
 hash of the source and the headers, so an edited source rebuilds and an
 unchanged one loads at once. Nothing is built on import: the first wrapper
 call on a CUDA tensor builds what it needs.
@@ -54,14 +54,20 @@ SIGNATURES = {
         "impx_attention_key_mass_block_q": [],
     },
     "log_sinkhorn": {
-        # dist, bin, f0, f1, log_mu, log_nu, norm, z, u, v, max0, idx0, idx1,
-        # batch, n, m, iterations, z_is_bf16, stream
-        "impx_log_sinkhorn_stats": [_P] * 13 + [_I] * 5 + [_P],
+        # dist, bin, valid0, valid1 (bool or null), overflow rows, u, v, max0,
+        # idx0, idx1, workspace, barrier words, batch, n, m, iterations,
+        # z_is_bf16, stream
+        "impx_log_sinkhorn_stats": [_P] * 12 + [_I] * 5 + [_P],
+        # batch, n, m, z_is_bf16, int[8] out -> the persistent schedule
+        "impx_log_sinkhorn_schedule": [_I] * 4 + [_P],
     },
     "sinkhorn": {
-        # dist, bin, r, c, plan, u, v, max0, idx0, idx1, rowmass, colmass,
-        # batch, n, m, iterations, plan_is_bf16, stream
-        "impx_sinkhorn_stats": [_P] * 12 + [_I] * 5 + [_P],
+        # dist, bin, valid0, valid1 (bool or null), overflow rows, u, v, max0,
+        # idx0, idx1, rowmass, colmass, workspace, barrier words, batch, n, m,
+        # iterations, plan_is_bf16, stream
+        "impx_sinkhorn_stats": [_P] * 14 + [_I] * 5 + [_P],
+        # batch, n, m, plan_is_bf16, int[8] out -> the persistent schedule
+        "impx_sinkhorn_schedule": [_I] * 4 + [_P],
     },
 }
 

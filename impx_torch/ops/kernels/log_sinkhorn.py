@@ -4,20 +4,22 @@ wrapper and its plain PyTorch version.
 Replaces the TPU kernel impx/ops/pallas/log_sinkhorn.py:log_sinkhorn_fused_stats
 (:208, kernel `_log_sinkhorn_kernel` :59), which holds the dustbin-padded,
 masked score matrix Z of one pair on chip and runs every iteration there. At
-N = M = 2048 one pair's Z is 8.4 MB in bf16, far beyond one SM, so
-impx_torch/csrc/log_sinkhorn.cu splits the head into launches over a Z kept
-in device memory (1 + 2 * iterations + 2 launches):
-  1. Z [B, N+1, M+1] (Z dtype), dustbin row and column included;
-  2./3. per iteration, u_i = log_mu_i - logsumexp_j(Z_ij + v_j) (one warp per
-     row) and v_j = log_nu_j - logsumexp_i(Z_ij + u_i) (one thread per column
-     and row phase, an online max/sum in a fixed order: no atomics, the same
-     bits on every run);
-  4./5. row statistics (max0, idx0) and column statistics (idx1) of the final
-     log plan's interior Z + u + v - norm.
-What bounds it on the H100: the exponentials, one per cell in each of the
-2 * iterations sweeps, at the special-function units' rate; reading dist
-once is small beside them. Z of 4 pairs (34 MB in bf16) stays in the 50 MB
-L2 between launches. A persistent kernel that keeps Z on chip is later work.
+N = M = 2048 one pair's Z is 8.4 MB in bf16, beyond one SM;
+impx_torch/csrc/log_sinkhorn.cu spreads it over every SM in one persistent,
+cooperative launch (csrc/persistent.cuh): each CTA builds a fixed block of
+the rows of Z [B, N+1, M+1] (Z dtype, dustbin row and column included) once
+and keeps as many as fit in its shared memory for every iteration, the rest
+in an overflow buffer in device memory (`schedule` reports the split). Per
+iteration one pass over a CTA's rows gives u_i = log_mu_i -
+logsumexp_j(Z_ij + v_j) and the CTA's column partials, an online (max, sum)
+of Z_ij + u_i in row order; two grid barriers around a fixed-order column
+merge give v_j = log_nu_j - logsumexp_i(Z_ij + u_i) (no atomics, the same
+bits on every run). The row and column statistics (max0, idx0; idx1) of the
+final log plan's interior Z + u + v - norm come from the same launch, and
+the log-marginals are computed in the kernel from the bool validity masks,
+so a call issues one device launch. What bounds it on the H100: the
+exponentials, one per cell in each of the 2 * iterations sweeps, at the
+special-function units' rate; reading dist once is small beside them.
 
 Numerics, as the TPU kernel: invalid cells of Z are -1e30, the dustbin cell
 of an invalid row too; the dustbin row is the bin score at valid columns and
@@ -46,7 +48,8 @@ from __future__ import annotations
 import torch
 
 from impx_torch.ops.kernels import _build
-from impx_torch.ops.kernels.sinkhorn import _flags, plan_dtype
+from impx_torch.ops.kernels.sinkhorn import (
+    _flags, barrier_words, kernel_mask, plan_dtype, query_schedule)
 from impx_torch.ops.sinkhorn import NEG, log_marginals, masked_scores
 
 
@@ -74,13 +77,22 @@ def log_sinkhorn_stats_reference(dist, dustbin, iterations: int, valid0=None, va
     }
 
 
+def schedule(b: int, n: int, m: int, device=None) -> dict:
+    """Kernel 7's schedule for dist [b, n, m] on `device` (the current card
+    when None)."""
+    with torch.cuda.device(device):
+        return query_schedule(_build.load("log_sinkhorn").impx_log_sinkhorn_schedule,
+                              "impx_log_sinkhorn_schedule", b, n, m, plan_dtype(n, m))
+
+
 def log_sinkhorn_fused_stats(dist, dustbin, iterations: int, valid0=None, valid1=None):
     """Log-domain Sinkhorn head without returning the plan. dist [B, N, M]
-    fp32, dustbin a scalar. Returns u [B, N+1], v [B, M+1] (log plan =
-    Z + u + v - norm, see `log_plan_from_uv`), max0/idx0 [B, N] (row max and
-    argmax of the log plan's interior) and idx1 [B, M]. CPU tensors run
-    `log_sinkhorn_stats_reference`; CUDA tensors launch the kernels or
-    raise. The kernel has no backward: under autograd a CUDA call raises."""
+    fp32, dustbin a scalar, valid0/valid1 bool [B, N]/[B, M] (others are
+    read as > 0). Returns u [B, N+1], v [B, M+1] (log plan = Z + u + v -
+    norm, see `log_plan_from_uv`), max0/idx0 [B, N] (row max and argmax of
+    the log plan's interior) and idx1 [B, M]. CPU tensors run
+    `log_sinkhorn_stats_reference`; CUDA tensors launch the kernel or raise.
+    The kernel has no backward: under autograd a CUDA call raises."""
     if dist.device.type == "cpu":
         return log_sinkhorn_stats_reference(dist, dustbin, iterations, valid0, valid1)
     if dist.device.type != "cuda":
@@ -94,29 +106,37 @@ def log_sinkhorn_fused_stats(dist, dustbin, iterations: int, valid0=None, valid1
     if iterations < 1:
         raise ValueError("the log-Sinkhorn kernel runs at least one iteration")
     b, n, m = dist.shape
-    for name, t, size in (("valid0", valid0, n), ("valid1", valid1, m)):
-        if t is not None and (t.shape != (b, size) or t.device != dist.device):
-            raise ValueError(f"{name}: want [{b}, {size}] on {dist.device}")
+    m0 = kernel_mask(valid0, b, n, dist.device, "valid0")
+    m1 = kernel_mask(valid1, b, m, dist.device, "valid1")
     bin_ = torch.as_tensor(dustbin, dtype=torch.float32, device=dist.device).reshape(1).contiguous()
-    f0, f1 = (f.contiguous() for f in _flags(dist, valid0, valid1))
-    log_mu, log_nu, norm = log_marginals(f0, f1)
+    with torch.cuda.device(dist.device):
+        return _launch(dist, bin_, iterations, m0, m1, torch.cuda.current_stream().cuda_stream)
+
+
+def _launch(dist, bin_, iterations: int, mask0, mask1, stream: int) -> dict:
+    """Allocate the outputs, the overflow rows and the workspace, and launch
+    kernel 7 on `stream`; raises on any error the launch reports."""
+    b, n, m = dist.shape
     zd = plan_dtype(n, m)   # Z's storage rule is the Sinkhorn plan's
-    z = torch.empty((b, n + 1, m + 1), dtype=zd, device=dist.device)
-    f32 = dict(dtype=torch.float32, device=dist.device)
+    lib = _build.load("log_sinkhorn")
+    sched = query_schedule(lib.impx_log_sinkhorn_schedule, "impx_log_sinkhorn_schedule", b, n, m, zd)
+    dev = dist.device
+    spill = torch.empty(max(1, sched["overflow_rows"] * sched["stride"]), dtype=zd, device=dev)
+    work = torch.empty(3 * sched["slots"] * (m + 1), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
     out = {
         "u": torch.empty((b, n + 1), **f32), "v": torch.empty((b, m + 1), **f32),
         "max0": torch.empty((b, n), **f32),
-        "idx0": torch.empty((b, n), dtype=torch.int32, device=dist.device),
-        "idx1": torch.empty((b, m), dtype=torch.int32, device=dist.device),
+        "idx0": torch.empty((b, n), dtype=torch.int32, device=dev),
+        "idx1": torch.empty((b, m), dtype=torch.int32, device=dev),
     }
-    lib = _build.load("log_sinkhorn")
-    with torch.cuda.device(dist.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        log_sinkhorn_fused_stats.launches += 1
-        err = lib.impx_log_sinkhorn_stats(
-            *(t.data_ptr() for t in (dist, bin_, f0, f1, log_mu, log_nu, norm, z)),
-            *(out[k].data_ptr() for k in ("u", "v", "max0", "idx0", "idx1")),
-            b, n, m, iterations, int(zd == torch.bfloat16), stream)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    log_sinkhorn_fused_stats.launches += 1
+    err = lib.impx_log_sinkhorn_stats(
+        dist.data_ptr(), bin_.data_ptr(), ptr(mask0), ptr(mask1), spill.data_ptr(),
+        *(out[k].data_ptr() for k in ("u", "v", "max0", "idx0", "idx1")),
+        work.data_ptr(), barrier_words(dev, stream).data_ptr(),
+        b, n, m, iterations, int(zd == torch.bfloat16), stream)
     _build.check(err, "impx_log_sinkhorn_stats")
     return out
 

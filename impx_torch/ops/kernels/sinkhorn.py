@@ -1,22 +1,22 @@
-"""The Sinkhorn head with match statistics: the CUDA kernels' wrapper and
+"""The Sinkhorn head with match statistics: the CUDA kernel's wrapper and
 its plain PyTorch version.
 
 Replaces the TPU kernel impx/ops/pallas/sinkhorn.py:sinkhorn_fused_stats
 (:206, kernel `_sinkhorn_kernel` :62), which holds the whole dustbin-padded
 plan of one pair on chip. At N = M = 2048 that plan is about 8.4 MB in bf16,
-far beyond one SM, so impx_torch/csrc/sinkhorn.cu splits the head into
-launches over a plan kept in device memory:
-  1. row softmax of the masked, dustbin-padded scores into the plan
-     [B, N+1, M+1] (plan dtype), dustbin row included;
-  2./3. per iteration, a u update (one warp per row) and a v update (column
-     strips, a fixed-order reduction: no atomics, deterministic);
-  4./5. row statistics (max0, idx0, rowmass) and column statistics (idx1,
-     colmass) of the final plan's interior.
+beyond one SM; impx_torch/csrc/sinkhorn.cu spreads it over every SM in one
+persistent, cooperative launch (csrc/persistent.cuh): each CTA builds a
+fixed block of the plan's rows [B, N+1, M+1] once (the row softmax of the
+masked, dustbin-padded scores, dustbin row included) and keeps as many as
+fit in its shared memory for every iteration, the rest in an overflow buffer
+in device memory (`schedule` reports the split). Per iteration one pass over
+a CTA's rows gives u and the CTA's column partials; two grid barriers
+around a fixed-order column reduce give v (no atomics, deterministic). The
+statistics (max0, idx0, rowmass; idx1, colmass) of the final plan's
+interior come from the same launch. The marginals are computed in the
+kernel from the bool validity masks, so a call issues one device launch.
 What bounds it on the H100: reading dist once (4 bytes a cell) and the fp32
-multiply-adds of the iterations, both about 20 us at B = 4, N = M = 2048. The
-design re-reads the plan 2 * iterations times; the plan of 4 pairs (34 MB in
-bf16) fits in the 50 MB L2, which is what keeps those re-reads off device
-memory. A persistent kernel that keeps the plan on chip is later work.
+multiply-adds of the iterations, both about 20 us at B = 4, N = M = 2048.
 
 Numerics, as the TPU kernel: invalid rows/columns are masked to -1e30 before
 the softmax (in the kernel, where the TPU wrapper did it in XLA: identical
@@ -29,6 +29,8 @@ and the masses a 0 fill at invalid cells; argmax takes the first index on
 ties, by row and by column.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -85,11 +87,60 @@ def sinkhorn_stats_reference(dist, dustbin, iterations: int, valid0=None, valid1
     }
 
 
+SCHEDULE_KEYS = ("ctas", "slots", "rows_on_chip", "overflow_rows", "stride", "smem_bytes",
+                 "cap", "ctas_a_pair")
+_barriers: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def barrier_words(device: torch.device, stream: int) -> torch.Tensor:
+    """The two grid-barrier words of the persistent kernels on (device,
+    stream): zeroed once, and left at zero by every launch, so that a call
+    issues no memset. Launches on one stream run in order; each stream has
+    its own words."""
+    key = (device.index if device.index is not None else -1, stream)
+    words = _barriers.get(key)
+    if words is None:
+        words = _barriers[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return words
+
+
+def kernel_mask(t, b: int, size: int, device, name: str):
+    """A validity mask as the persistent kernels read it: a contiguous bool
+    [B, size] tensor (handed over as it is when it already is one), or None
+    for all valid."""
+    if t is None:
+        return None
+    if t.shape != (b, size) or t.device != device:
+        raise ValueError(f"{name}: want [{b}, {size}] on {device}")
+    return t if t.dtype == torch.bool and t.is_contiguous() else (t > 0).contiguous()
+
+
+def query_schedule(fn, what: str, b: int, n: int, m: int, dtype: torch.dtype) -> dict:
+    """The persistent kernel's schedule on the current card: CTAs, column
+    slots, rows kept on chip, overflow rows and bytes, row stride, shared
+    memory a CTA (csrc/persistent.cuh:schedule_query). Raises when the card
+    cannot hold the cooperative grid."""
+    out = (ctypes.c_int * len(SCHEDULE_KEYS))()
+    _build.check(fn(b, n, m, int(dtype == torch.bfloat16), out), what)
+    sched = dict(zip(SCHEDULE_KEYS, out))
+    sched["overflow_bytes"] = sched["overflow_rows"] * sched["stride"] * dtype.itemsize
+    return sched
+
+
+def schedule(b: int, n: int, m: int, device=None) -> dict:
+    """Kernel 2's schedule for dist [b, n, m] on `device` (the current card
+    when None)."""
+    with torch.cuda.device(device):
+        return query_schedule(_build.load("sinkhorn").impx_sinkhorn_schedule,
+                              "impx_sinkhorn_schedule", b, n, m, plan_dtype(n, m))
+
+
 def sinkhorn_fused_stats(dist, dustbin, iterations: int, valid0=None, valid1=None):
     """Sinkhorn head without returning the plan. dist [B, N, M] fp32, dustbin
-    a scalar. Returns u [B, N+1], v [B, M+1] (plan = softmax_pad * u v^T),
+    a scalar, valid0/valid1 bool [B, N]/[B, M] (others are read as > 0).
+    Returns u [B, N+1], v [B, M+1] (plan = softmax_pad * u v^T),
     max0/idx0/rowmass [B, N] and idx1/colmass [B, M]. CPU tensors run
-    `sinkhorn_stats_reference`; CUDA tensors launch the kernels or raise."""
+    `sinkhorn_stats_reference`; CUDA tensors launch the kernel or raise."""
     if dist.device.type == "cpu":
         return sinkhorn_stats_reference(dist, dustbin, iterations, valid0, valid1)
     if dist.device.type != "cuda":
@@ -100,30 +151,38 @@ def sinkhorn_fused_stats(dist, dustbin, iterations: int, valid0=None, valid1=Non
     if iterations < 1:
         raise ValueError("the Sinkhorn kernel runs at least one iteration")
     b, n, m = dist.shape
-    for name, t, size in (("valid0", valid0, n), ("valid1", valid1, m)):
-        if t is not None and (t.shape != (b, size) or t.device != dist.device):
-            raise ValueError(f"{name}: want [{b}, {size}] on {dist.device}")
+    m0 = kernel_mask(valid0, b, n, dist.device, "valid0")
+    m1 = kernel_mask(valid1, b, m, dist.device, "valid1")
     bin_ = torch.as_tensor(dustbin, dtype=torch.float32, device=dist.device).reshape(1).contiguous()
-    f0, f1 = _flags(dist, valid0, valid1)
-    r, c = marginals(f0, f1)
+    with torch.cuda.device(dist.device):
+        return _launch(dist, bin_, iterations, m0, m1, torch.cuda.current_stream().cuda_stream)
+
+
+def _launch(dist, bin_, iterations: int, mask0, mask1, stream: int) -> dict:
+    """Allocate the outputs, the overflow rows and the workspace, and launch
+    kernel 2 on `stream`; raises on any error the launch reports."""
+    b, n, m = dist.shape
     pd = plan_dtype(n, m)
-    plan = torch.empty((b, n + 1, m + 1), dtype=pd, device=dist.device)
-    f32 = dict(dtype=torch.float32, device=dist.device)
+    lib = _build.load("sinkhorn")
+    sched = query_schedule(lib.impx_sinkhorn_schedule, "impx_sinkhorn_schedule", b, n, m, pd)
+    dev = dist.device
+    spill = torch.empty(max(1, sched["overflow_rows"] * sched["stride"]), dtype=pd, device=dev)
+    work = torch.empty(3 * sched["slots"] * (m + 1), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
     out = {
         "u": torch.empty((b, n + 1), **f32), "v": torch.empty((b, m + 1), **f32),
         "max0": torch.empty((b, n), **f32),
-        "idx0": torch.empty((b, n), dtype=torch.int32, device=dist.device),
-        "idx1": torch.empty((b, m), dtype=torch.int32, device=dist.device),
+        "idx0": torch.empty((b, n), dtype=torch.int32, device=dev),
+        "idx1": torch.empty((b, m), dtype=torch.int32, device=dev),
         "rowmass": torch.empty((b, n), **f32), "colmass": torch.empty((b, m), **f32),
     }
-    lib = _build.load("sinkhorn")
-    with torch.cuda.device(dist.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        sinkhorn_fused_stats.launches += 1
-        err = lib.impx_sinkhorn_stats(
-            dist.data_ptr(), bin_.data_ptr(), r.data_ptr(), c.data_ptr(), plan.data_ptr(),
-            *(out[k].data_ptr() for k in ("u", "v", "max0", "idx0", "idx1", "rowmass", "colmass")),
-            b, n, m, iterations, int(pd == torch.bfloat16), stream)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    sinkhorn_fused_stats.launches += 1
+    err = lib.impx_sinkhorn_stats(
+        dist.data_ptr(), bin_.data_ptr(), ptr(mask0), ptr(mask1), spill.data_ptr(),
+        *(out[k].data_ptr() for k in ("u", "v", "max0", "idx0", "idx1", "rowmass", "colmass")),
+        work.data_ptr(), barrier_words(dev, stream).data_ptr(),
+        b, n, m, iterations, int(pd == torch.bfloat16), stream)
     _build.check(err, "impx_sinkhorn_stats")
     return out
 

@@ -239,3 +239,50 @@ def test_forward_mask_is_read_in_place_by_the_bf16_kernel(mask_dtype, dtype, wan
     assert got.dtype == want and got.is_contiguous()
     assert (got.data_ptr() == mask.data_ptr()) == (mask_dtype == want)
     assert torch.equal(got.bool(), mask.bool())
+
+
+class _KernelLibrary:
+    """Stands in for a built kernel library: the schedule query and the launch
+    each return a given cudaError_t."""
+
+    def __init__(self, schedule_err: int, launch_err: int):
+        self.schedule_err, self.launch_err = schedule_err, launch_err
+
+    def _schedule(self, b, n, m, bf16, out):
+        out[:] = [b, b, b * (n + 1), 0, -(-(m + 1) // 8) * 8, 4096, n + 1, 1]
+        return self.schedule_err
+
+    def _launch(self, *args):
+        return self.launch_err
+
+    impx_sinkhorn_schedule = impx_log_sinkhorn_schedule = _schedule
+    impx_sinkhorn_stats = impx_log_sinkhorn_stats = _launch
+
+
+@pytest.mark.parametrize("kernel", ["sinkhorn", "log_sinkhorn"])
+@pytest.mark.parametrize("schedule_err,launch_err", [(82, 0), (0, 82), (0, 719)],
+                         ids=["no-cooperative-grid", "launch-too-large", "launch-failure"])
+def test_sinkhorn_wrappers_raise_when_the_launch_reports_an_error(monkeypatch, kernel, schedule_err,
+                                                                  launch_err):
+    """Kernels 2 and 7 raise through `_build.check` when the card cannot hold
+    the cooperative grid or the launch reports an error, and never fall back
+    to their plain versions."""
+    from impx_torch.ops.kernels import _build
+    from impx_torch.ops.kernels import log_sinkhorn as kl
+    from impx_torch.ops.kernels import sinkhorn as ks
+
+    module = ks if kernel == "sinkhorn" else kl
+    monkeypatch.setattr(_build, "load", lambda name: _KernelLibrary(schedule_err, launch_err))
+
+    def fell_back(*args, **kwargs):
+        raise AssertionError("the wrapper fell back to its plain version")
+
+    monkeypatch.setattr(ks, "sinkhorn_stats_reference", fell_back)
+    monkeypatch.setattr(kl, "log_sinkhorn_stats_reference", fell_back)
+    dist = torch.zeros((2, 5, 7))
+    mask0, mask1 = torch.ones((2, 5), dtype=torch.bool), torch.ones((2, 7), dtype=torch.bool)
+    fn = getattr(module, f"{kernel}_fused_stats")
+    before = fn.launches
+    with pytest.raises(RuntimeError, match=f"CUDA error {schedule_err or launch_err}"):
+        module._launch(dist, torch.ones(1), 20, mask0, mask1, 0)
+    assert fn.launches == before + (0 if schedule_err else 1)

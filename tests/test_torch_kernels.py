@@ -158,19 +158,62 @@ def test_attention_forward_reads_the_bool_mask_in_place(cuda_device, fn):
     assert attention and not others, names
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,m,n0,n1", SINKHORN_CASES)
-def test_sinkhorn_kernel_matches_plain(cuda_device, b, n, m, n0, n1):
+# the persistent schedule's edges on the card (one CTA an SM): 8 pairs of
+# 2048 keypoints put about half of each CTA's rows in the overflow buffer; one
+# pair of 100 keypoints has fewer rows than the card has CTAs (one row a
+# CTA); 3 x 701 rows do not divide among 3 x 44 CTAs
+PERSISTENT_CASES = [
+    (8, 2048, 2048, [2048, 1900, 1748, 2000, 1800, 2048, 1760, 1999],
+     [1950, 2048, 1800, 1748, 2048, 1900, 2001, 1777]),
+    (1, 100, 100, [90], [80]),
+    (3, 700, 650, [700, 600, 650], [650, 500, 620]),
+]
+PERSISTENT_IDS = ["8x2048-overflow", "1x100-fewer-rows-than-ctas", "3x700-ragged-split"]
+
+
+def _check_sinkhorn(device, b, n, m, n0, n1, iterations=20):
+    """Kernel 2 against its plain version (rtol 1e-3, atol 1e-6, at most 1e-3
+    of the indices flipped), twice for the same bits."""
     dist, bin_, valid0, valid1 = sinkhorn_case(b, n, m, n0, n1)
-    args = [torch.from_numpy(a).to(cuda_device) for a in (dist, valid0, valid1)]
-    bin_t = torch.tensor(bin_, device=cuda_device)
-    out = sinkhorn_fused_stats(args[0], bin_t, 20, args[1], args[2])
+    args = [torch.from_numpy(a).to(device) for a in (dist, valid0, valid1)]
+    bin_t = torch.tensor(bin_, device=device)
+    before = sinkhorn_fused_stats.launches
+    out, again = (sinkhorn_fused_stats(args[0], bin_t, iterations, args[1], args[2]) for _ in range(2))
     torch.cuda.synchronize()
-    ref = sinkhorn_stats_reference(args[0], bin_t, 20, args[1], args[2])
+    assert sinkhorn_fused_stats.launches == before + 2
+    assert all(torch.equal(out[k], again[k]) for k in out)
+    ref = sinkhorn_stats_reference(args[0], bin_t, iterations, args[1], args[2])
     for key in ("u", "v", "max0", "rowmass", "colmass"):
         torch.testing.assert_close(out[key], ref[key], rtol=1e-3, atol=1e-6, msg=key)
     for key in ("idx0", "idx1"):  # a flip needs a near-tie within fp32 noise
         assert (out[key] != ref[key]).float().mean().item() <= 1e-3, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,n0,n1", SINKHORN_CASES)
+def test_sinkhorn_kernel_matches_plain(cuda_device, b, n, m, n0, n1):
+    _check_sinkhorn(cuda_device, b, n, m, n0, n1)
+
+
+def _check_log_sinkhorn(device, b, n, m, n0, n1, iterations):
+    dist, bin_, valid0, valid1 = sinkhorn_case(b, n, m, n0, n1)
+    dist, valid0, valid1 = (torch.from_numpy(a).to(device) for a in (dist, valid0, valid1))
+    bin_t = torch.tensor(bin_, device=device)
+    before = log_sinkhorn_fused_stats.launches
+    out, again = (log_sinkhorn_fused_stats(dist, bin_t, iterations, valid0, valid1) for _ in range(2))
+    torch.cuda.synchronize()
+    assert log_sinkhorn_fused_stats.launches == before + 2
+    ref = log_sinkhorn_stats_reference(dist, bin_t, iterations, valid0, valid1)
+    one = torch.ones((b, 1), dtype=torch.bool, device=device)
+    for key, ok, sign in (("u", torch.cat([valid0, one], 1), -1), ("v", torch.cat([valid1, one], 1), 1)):
+        assert torch.isfinite(out[key]).all(), key
+        fixed, ref_fixed = (x[key] + sign * x["u"][:, n:] for x in (out, ref))
+        torch.testing.assert_close(fixed[ok], ref_fixed[ok], rtol=1e-4, atol=1e-5, msg=key)
+        torch.testing.assert_close(out[key][~ok], ref[key][~ok], rtol=0, atol=1e23, msg=key)
+    torch.testing.assert_close(out["max0"], ref["max0"], rtol=1e-4, atol=1e-5)
+    for key in ("idx0", "idx1"):  # a flip needs a near-tie within fp32 noise
+        assert (out[key] != ref[key]).float().mean().item() <= 1e-3, key
+    assert all(torch.equal(out[k], again[k]) for k in out)
 
 
 @pytest.mark.cuda
@@ -186,24 +229,77 @@ def test_log_sinkhorn_kernel_matches_plain(cuda_device, b, n, m, n0, n1, iterati
     So u - u_N and v + u_N (u_N the dustbin row's) are held,
     and max0; u and v at invalid entries within 1e23 (they hold about 2.56e26
     under the bf16 rule); a second run gives the same bits."""
-    dist, bin_, valid0, valid1 = sinkhorn_case(b, n, m, n0, n1)
-    dist, valid0, valid1 = (torch.from_numpy(a).to(cuda_device) for a in (dist, valid0, valid1))
+    _check_log_sinkhorn(cuda_device, b, n, m, n0, n1, iterations)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,n0,n1", PERSISTENT_CASES, ids=PERSISTENT_IDS)
+def test_sinkhorn_kernels_at_the_schedule_edges(cuda_device, b, n, m, n0, n1):
+    """Kernels 2 and 7 against their plain versions where the persistent
+    schedule is unusual: overflow rows, fewer rows than CTAs, a row count
+    that does not divide among the CTAs. The schedule's rows add up, and
+    only the first case spills."""
+    from impx_torch.ops.kernels import log_sinkhorn as kl
+    from impx_torch.ops.kernels import sinkhorn as ks
+
+    for sched in (ks.schedule(b, n, m, cuda_device), kl.schedule(b, n, m, cuda_device)):
+        assert sched["rows_on_chip"] + sched["overflow_rows"] == b * (n + 1)
+        assert sched["ctas"] <= torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        assert (sched["overflow_rows"] > 0) == (b == 8), sched
+    _check_sinkhorn(cuda_device, b, n, m, n0, n1)
+    _check_log_sinkhorn(cuda_device, b, n, m, n0, n1, 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sinkhorn", "log_sinkhorn"])
+def test_sinkhorn_kernels_replay_in_a_cuda_graph(cuda_device, kernel):
+    """A wrapper call captured in a CUDA graph (the cooperative launch goes
+    through ctypes on the capturing stream) replays to a direct call's bits."""
+    fn = sinkhorn_fused_stats if kernel == "sinkhorn" else log_sinkhorn_fused_stats
+    dist, bin_, valid0, valid1 = sinkhorn_case(2, 700, 650, [700, 600], [650, 500])
+    args = [torch.from_numpy(a).to(cuda_device) for a in (dist, valid0, valid1)]
+    call = lambda: fn(args[0], torch.tensor(bin_, device=cuda_device), 20, args[1], args[2])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
     bin_t = torch.tensor(bin_, device=cuda_device)
-    before = log_sinkhorn_fused_stats.launches
-    out, again = (log_sinkhorn_fused_stats(dist, bin_t, iterations, valid0, valid1) for _ in range(2))
+    with torch.cuda.graph(graph):
+        captured = fn(args[0], bin_t, 20, args[1], args[2])
+    graph.replay()
+    graph.replay()
+    direct = fn(args[0], bin_t, 20, args[1], args[2])
     torch.cuda.synchronize()
-    assert log_sinkhorn_fused_stats.launches == before + 2
-    ref = log_sinkhorn_stats_reference(dist, bin_t, iterations, valid0, valid1)
-    one = torch.ones((b, 1), dtype=torch.bool, device=cuda_device)
-    for key, ok, sign in (("u", torch.cat([valid0, one], 1), -1), ("v", torch.cat([valid1, one], 1), 1)):
-        assert torch.isfinite(out[key]).all(), key
-        fixed, ref_fixed = (x[key] + sign * x["u"][:, n:] for x in (out, ref))
-        torch.testing.assert_close(fixed[ok], ref_fixed[ok], rtol=1e-4, atol=1e-5, msg=key)
-        torch.testing.assert_close(out[key][~ok], ref[key][~ok], rtol=0, atol=1e23, msg=key)
-    torch.testing.assert_close(out["max0"], ref["max0"], rtol=1e-4, atol=1e-5)
-    for key in ("idx0", "idx1"):  # a flip needs a near-tie within fp32 noise
-        assert (out[key] != ref[key]).float().mean().item() <= 1e-3, key
-    assert all(torch.equal(out[k], again[k]) for k in out)
+    assert all(torch.equal(captured[k], direct[k]) for k in direct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sinkhorn", "log_sinkhorn"])
+def test_sinkhorn_wrapper_call_is_one_device_launch(cuda_device, kernel):
+    """One wrapper call of kernel 2 or 7 issues at most 3 device operations,
+    all of them its persistent kernel (the design issues 1): three calls
+    under torch.profiler, then a spin kernel, so that the calls' events are
+    not the profile's last (a profile can lose its last one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = sinkhorn_fused_stats if kernel == "sinkhorn" else log_sinkhorn_fused_stats
+    dist, bin_, valid0, valid1 = sinkhorn_case(4, 2048, 2048, [2048, 1900, 1800, 2000], [2000, 2048, 1750, 1900])
+    args = [torch.from_numpy(a).to(cuda_device) for a in (dist, valid0, valid1)]
+    bin_t = torch.tensor(bin_, device=cuda_device)
+    fn(args[0], bin_t, 20, args[1], args[2])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn(args[0], bin_t, 20, args[1], args[2])
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA and "spin" not in e.name]
+    ours = [n_ for n_ in names if f"{kernel}_persistent" in n_]
+    assert ours and len(names) == len(ours) and len(ours) <= 3 * 3, names
 
 
 @pytest.mark.cuda
