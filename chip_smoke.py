@@ -9,8 +9,10 @@ summary line (registers, spills, shared memory) for each instantiation of the
 bf16 attention forward, and one for each instantiation of the persistent
 Sinkhorn kernels; (3) each kernel against its plain PyTorch version at
 the main path's shapes (the attention-mass and Sinkhorn kernels also twice
-on the same inputs, for the same bits; the Sinkhorn kernel once more through
-a CUDA-graph replay); (4)
+on the same inputs, for the same bits, and once more through a CUDA-graph
+replay; the attention mass on both routes, from kernel 4's row lse and from
+its own, at the main path's shape, EIMP's compacted sizes and a ragged shape
+with a fully masked batch, with its device launches a call); (4)
 DGNNS.produce_matches at the published eval config (15 layers, D = 256, 2048
 keypoints, 4 pairs, bf16) with random weights from a seed carried through the
 reference-checkpoint loader, counting kernel launches and comparing with the
@@ -24,10 +26,14 @@ device time by kernel and the device's idle share, with the attention group
 beside its time before the bf16 forward's redesign, and in this and every
 later profile the device launches of each kernel wrapper call (at most 3 for
 kernels 2 and 7); (7) AdaGMN (EIMP) at the same config, mask-only
-and bucket-compacted, on pairs that overlap in part: launches per call, the
-keep counts after each pool, overflow, and agreement with the plain path;
-(8) pairs_per_s of both EIMP variants, kernel and plain path, and the
-profile of each (device time by kernel, host time by operation); (9) the
+and bucket-compacted, on pairs that overlap in part: launches per call (a
+pooling iteration's two layers run kernel 4, whose row lse the masses take),
+the keep counts after each pool, overflow, and agreement with the plain path;
+(8) the attention mass's times on both routes (one call, queued, and a CUDA
+graph's device time), its bound and its split at the compacted sizes,
+pairs_per_s of both EIMP variants, kernel and plain path, and the profile of
+each (device time by kernel, host time by operation, the attention-mass group
+beside its time before the redesign); (9) the
 training kernels, the forward that writes the row log-sum-exp (kernel 4)
 and the two attention backwards (kernels 3 and 5),
 against their plain versions at the training shape [32, 4, 1024, 64] bf16 and
@@ -80,6 +86,9 @@ WRAPPER_CALLS = 300               # host-clock calls of the attention wrapper, a
 # the main path's attention group in the profile before the bf16 forward's
 # redesign (mma.sync, 64-query blocks), as PERF.md section 5 records it
 ATTN_GROUP_MS_BEFORE = 7.996
+# EIMP's attention-mass group before the mass kernel's one-pass redesign
+# (two passes, a second launch a call), as PERF.md section 5 records it
+MASS_GROUP_MS_BEFORE = {"mask-only": 3.964, "compacted": 1.228}
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # atol = rtol, vs plain
 SINK_RTOL, SINK_ATOL, IDX_FLIP_MAX = 1e-3, 1e-6, 1e-3
 E2E_AGREE_MIN = 0.95              # indices0 equal, kernel vs plain path (bf16)
@@ -171,6 +180,33 @@ def queued_ms(fn, inputs, calls: int = 20) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, inputs, calls: int = 20) -> float:
+    """Median device ms a call over TIMED_RUNS replays of one CUDA graph that
+    holds `calls` calls (inputs cycled): the device time without any host
+    time, for kernels shorter than their wrapper's host time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in inputs:
+            fn(*x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(*inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_RUNS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def padded_counts(gen, batch: int, n: int, low: int) -> torch.Tensor:
     return torch.randint(low, n + 1, (batch,), generator=gen)
 
@@ -237,43 +273,96 @@ def mass_inputs(gen, dev, dtype, b=2 * B, h=H, nq=N, nk=N, dh=D // H, fully_mask
     return q, k, kmask.to(dev), qmask.to(dev)
 
 
-def mass_bound(q, k, kmask, qmask) -> tuple[float, str, float, float]:
+def mass_bound(q, k, kmask, qmask) -> tuple[float, str, float, float, float]:
     """This call's work over valid (query, key) pairs of each batch only (a
-    masked query adds 0 to every mass): one QK^T (2 flops a multiply-add)
-    versus reading the valid q and k rows and the masks and writing [B, Nk]
-    fp32; also the exponentials of those pairs at the special-function rate
-    (ms). Returns (bound ms, what bounds it, ms of the bytes, ms of the exps)."""
+    masked query adds 0 to every mass): one QK^T (2 flops a multiply-add) and
+    one exponential a pair at the special-function rate, versus reading the
+    valid q and k rows and the masks and writing [B, Nk] fp32. Returns (bound
+    ms, what bounds it, ms of the QK^T, ms of the exponentials, ms of the
+    bytes)."""
     b, h, nq, dh = q.shape
     nq_b, nk_b = qmask.sum(1).double(), kmask.sum(1).double()
     pairs = (nq_b * nk_b).sum().item()
-    flops = 2.0 * h * dh * pairs
     nbytes = q.element_size() * h * dh * (nq_b.sum() + nk_b.sum()).item() + 4 * (
         kmask.numel() + qmask.numel() + b * k.shape[2])
-    t, by, t_bytes = bound(flops, PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32, nbytes)
-    return t, by, t_bytes, 1e3 * h * pairs / SFU_EXP_PER_S
+    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32
+    t_qk, t_bytes = 1e3 * 2.0 * h * dh * pairs / peak, 1e3 * nbytes / HBM_BYTES_PER_S
+    t_exp = 1e3 * h * pairs / SFU_EXP_PER_S
+    t = max(t_qk, t_exp, t_bytes)
+    return t, ("bytes" if t == t_bytes else "operations"), t_qk, t_exp, t_bytes
 
 
-def check_mass(dev, attention_key_mass, attention_key_mass_reference):
-    gen = torch.Generator().manual_seed(7)
-    errs = {}
-    ragged = dict(b=3, h=2, nq=333, nk=290, dh=32, fully_masked=True)
-    for dtype, shape in ((torch.bfloat16, dict()), (torch.bfloat16, ragged), (torch.float32, ragged)):
-        q, k, kmask, qmask = mass_inputs(gen, dev, dtype, **shape)
-        out = attention_key_mass(q, k, kmask, qmask)
-        again = attention_key_mass(q, k, kmask, qmask)
+MASS_ROUTES = ("lse", "standalone")
+
+
+def mass_route(mha_fused_lse, route: str, q, k, kmask, qmask):
+    """The wrapper's arguments of one route: the lse route takes kernel 4's
+    row lse on the same q, k and key mask (as EIMP's pooling layers give it);
+    the standalone route lets the wrapper launch its own row lse."""
+    if route == "standalone":
+        return q, k, kmask, qmask
+    return q, k, kmask, qmask, mha_fused_lse(q, k, k, kmask)[1]
+
+
+def mass_device_launches(attention_key_mass, args, calls: int = 4) -> float:
+    """Device kernels of csrc/attention_mass.cu a wrapper call, from
+    torch.profiler over `calls` calls (a profile around one call loses its
+    last device event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    attention_key_mass(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            attention_key_mass(*args)
         torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA and "key_mass" in e.name for e in prof.events()) / calls
+
+
+def check_mass(dev, attention_key_mass, attention_key_mass_reference, mha_fused_lse):
+    """Both routes of kernel 6 against the plain version at the main path's
+    shape, EIMP's compacted sizes and a ragged shape with a fully masked batch
+    (bf16 and fp32): twice for the same bits and through a CUDA-graph replay.
+    On the lse route at the main shape, one device launch a call. Returns the
+    largest error at the main shape."""
+    gen = torch.Generator().manual_seed(7)
+    worst, failures = 0.0, []
+    ragged = dict(b=3, h=2, nq=333, nk=290, dh=32, fully_masked=True)
+    shapes = [(torch.bfloat16, dict())] + [(torch.bfloat16, dict(nq=n, nk=n)) for _, n in EIMP_COMPACTION] + [
+        (torch.bfloat16, ragged), (torch.float32, ragged)]
+    for dtype, shape in shapes:
+        q, k, kmask, qmask = mass_inputs(gen, dev, dtype, **shape)
         ref = attention_key_mass_reference(q, k, kmask, qmask)
-        err = (out - ref).abs()
-        bad = (err > MASS_ATOL + MASS_RTOL * ref.abs()).sum().item()
-        finite = bool(torch.isfinite(out).all())
-        same_bits = torch.equal(out, again)
-        say(f"check attention_key_mass q {list(q.shape)} k {list(k.shape)} {str(dtype)[6:]}: "
-            f"max_abs_err {err.max().item():.3e} (tol rtol={MASS_RTOL:g} atol={MASS_ATOL:g}), "
-            f"out of tolerance {bad}, finite {finite}, second run bitwise equal {same_bits}")
-        if bad or not finite or not same_bits:
-            fail(f"attention-mass kernel disagrees with its plain version or itself at {list(q.shape)} {dtype}")
-        errs.setdefault(dtype, err.max().item())
-    return errs[torch.bfloat16]
+        outs = {}
+        for route in MASS_ROUTES:
+            args = mass_route(mha_fused_lse, route, q, k, kmask, qmask)
+            out = attention_key_mass(*args)
+            again = attention_key_mass(*args)
+            torch.cuda.synchronize()
+            outs[route] = out
+            err = (out - ref).abs()
+            bad = (err > MASS_ATOL + MASS_RTOL * ref.abs()).sum().item()
+            finite = bool(torch.isfinite(out).all())
+            same_bits = torch.equal(out, again)
+            label = f"attention_key_mass {route} route q {list(q.shape)} k {list(k.shape)} {str(dtype)[6:]}"
+            say(f"check {label}: max_abs_err {err.max().item():.3e} (tol rtol={MASS_RTOL:g} "
+                f"atol={MASS_ATOL:g}), out of tolerance {bad}, finite {finite}, second run bitwise equal {same_bits}")
+            if bad or not finite or not same_bits:
+                failures.append(label)
+            if not shape:
+                if route == "lse":
+                    worst = err.max().item()
+                per = mass_device_launches(attention_key_mass, args)
+                say(f"check {label}: {per:.2f} device launches a wrapper call")
+                if route == "lse" and per != 1:
+                    failures.append(f"{label}: {per:.2f} device launches a call, want 1")
+            graph_replay(label, attention_key_mass, args)
+        say(f"check attention_key_mass q {list(q.shape)} {str(dtype)[6:]}: the two routes bitwise equal "
+            f"{torch.equal(outs['lse'], outs['standalone'])} (reported, not a check)")
+    if failures:
+        fail(f"attention-mass kernel disagrees with its plain version or itself: {failures}")
+    return worst
 
 
 # ---------------------------------------------------------------- Sinkhorn
@@ -337,9 +426,9 @@ def check_sinkhorn(dev, sinkhorn_fused_stats, sinkhorn_stats_reference, plan_dty
 
 
 def graph_replay(label: str, fn, args) -> None:
-    """One wrapper call of a persistent kernel captured in a CUDA graph (its
-    cooperative launch goes through ctypes on the capturing stream) and
-    replayed twice: the replay's outputs must equal a direct call's bits."""
+    """One wrapper call captured in a CUDA graph (its launches go through
+    ctypes on the capturing stream) and replayed twice: the replay's outputs
+    (a tensor or a dict of them) must equal a direct call's bits."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -352,7 +441,8 @@ def graph_replay(label: str, fn, args) -> None:
     graph.replay()
     direct = fn(*args)
     torch.cuda.synchronize()
-    same = all(torch.equal(captured[k], direct[k]) for k in direct)
+    same = (torch.equal(captured, direct) if isinstance(direct, torch.Tensor)
+            else all(torch.equal(captured[k], direct[k]) for k in direct))
     say(f"graph {label}: captured in a CUDA graph, replay bitwise equal to a direct call {same}")
     if not same:
         fail(f"{label}: a CUDA graph replay disagrees with a direct call")
@@ -788,7 +878,9 @@ def eimp_path(dev, models, kernels, pool_its):
     valid = (data["valid0"], data["valid1"])
     n_valid = [v.sum(1) for v in valid]
     n_layers = models["mask-only"].config.n_layers
-    want = {**dict.fromkeys(kernels, 0), "mha_fused": 2 * n_layers, "sinkhorn_fused_stats": n_layers,
+    # a pooling iteration's two layers run kernel 4 for the row lse its masses take
+    want = {**dict.fromkeys(kernels, 0), "mha_fused": 2 * (n_layers - len(pool_its)),
+            "mha_fused_lse": 2 * len(pool_its), "sinkhorn_fused_stats": n_layers,
             "attention_key_mass": 2 * len(pool_its)}
     dropped_any = False
     first_launches = None
@@ -855,16 +947,34 @@ def eimp_path(dev, models, kernels, pool_its):
 
 
 def time_eimp(dev, models, mods, err, launches):
-    attention_key_mass, attention_key_mass_reference = mods
+    from impx_torch.ops.kernels import _build
+
+    attention_key_mass, attention_key_mass_reference, mha_fused_lse = mods
     gen = torch.Generator().manual_seed(8)
     ins = [mass_inputs(gen, dev, torch.bfloat16) for _ in range(4)]
-    m_ms = cuda_ms(attention_key_mass, ins)
+    m_bound, m_by, m_qk, m_exp, m_bytes = mass_bound(*ins[0])
     m_plain = cuda_ms(attention_key_mass_reference, ins)
-    m_bound, m_by, m_bytes, m_exp = mass_bound(*ins[0])
-    say(f"time attention_key_mass {list(ins[0][0].shape)} bf16: ms {m_ms:.4f} bound_us "
-        f"{1e3 * m_bound:.2f} ({m_by}, one QK^T; bytes alone {1e3 * m_bytes:.2f} us; the "
-        f"exponentials {1e3 * m_exp:.2f} us at the special-function rate) launches "
-        f"{launches['attention_key_mass']} plain_ms {m_plain:.4f} library_ms none")
+    one_call = {}
+    for route in MASS_ROUTES:
+        args = [mass_route(mha_fused_lse, route, *x) for x in ins]
+        one_call[route] = cuda_ms(attention_key_mass, args)
+        say(f"time attention_key_mass {route} route {list(ins[0][0].shape)} bf16: ms {one_call[route]:.4f} "
+            f"(one call between two events) queued_ms {queued_ms(attention_key_mass, args):.4f} (20 calls back "
+            f"to back) graph_ms {graph_ms(attention_key_mass, args):.4f} (20 calls in a CUDA graph: device time) "
+            f"bound_us {1e3 * m_bound:.2f} ({m_by}: the larger of the QK^T {1e3 * m_qk:.2f} us, the exponentials "
+            f"{1e3 * m_exp:.2f} us at the special-function rate and the bytes {1e3 * m_bytes:.2f} us) launches "
+            f"{launches['attention_key_mass']} plain_ms {m_plain:.4f} library_ms none")
+    lib = _build.load("attention_mass")
+    for _, n in EIMP_COMPACTION:   # the split of EIMP's compacted sizes, by device time
+        small = [mass_route(mha_fused_lse, "lse", *mass_inputs(gen, dev, torch.bfloat16, nq=n, nk=n))
+                 for _ in range(2)]
+        by_split = ", ".join(f"{sp}: {graph_ms(lambda *a, sp=sp: attention_key_mass(*a, splits=sp), small):.4f}"
+                             for sp in (1, 2, 4, 8, 16))
+        q = small[0][0]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        default = lib.impx_attention_key_mass_splits(q.shape[0], q.shape[1], n, n, 1, sms)
+        say(f"time attention_key_mass lse route {list(q.shape)} graph_ms by splits {{{by_split}}}; the default "
+            f"takes {default}")
     pairs = [(overlap_pairs(gen, dev),) for _ in range(4)]
     for name, model in models.items():
         call = lambda d: model.produce_matches(d, only_last=True, with_scores=False)
@@ -877,7 +987,7 @@ def time_eimp(dev, models, mods, err, launches):
             f"{1e3 * B / p_ms:.2f}")
     return {"name": "attention_key_mass", "route": "cuda", "source": "impx_torch/csrc/attention_mass.cu",
             "replaces": "impx/ops/pallas/attention.py:422", "launches": launches["attention_key_mass"],
-            "max_abs_err": err, "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
+            "max_abs_err": err, "ms": one_call["lse"], "plain_ms": m_plain, "bound_ms": m_bound,
             "bound_by": m_by, "library_ms": None}
 
 
@@ -1402,7 +1512,8 @@ def main() -> int:
     errs = {"mha_fused": check_attention(dev, mha_fused, mha_reference),
             "sinkhorn_fused_stats": check_sinkhorn(dev, sinkhorn_fused_stats,
                                                    sinkhorn_stats_reference, plan_dtype)}
-    errs["attention_key_mass"] = check_mass(dev, attention_key_mass, attention_key_mass_reference)
+    errs["attention_key_mass"] = check_mass(dev, attention_key_mass, attention_key_mass_reference,
+                                            ka.mha_fused_lse)
     kernels = {"mha_fused": mha_fused, "sinkhorn_fused_stats": sinkhorn_fused_stats,
                "attention_key_mass": attention_key_mass, "mha_fused_lse": ka.mha_fused_lse,
                "mha_bwd": ka.mha_bwd, "mha_bwd_from_lse": ka.mha_bwd_from_lse,
@@ -1419,14 +1530,18 @@ def main() -> int:
     models = eimp_models(dev, AdaGMN, MatcherConfig, load_reference_state_dict)
     pool_its = [i for i, pool in enumerate(_eimp_do_pool(models["mask-only"].config)) if pool]
     eimp_launches = eimp_path(dev, models, kernels, pool_its)
-    rows.append(time_eimp(dev, models, (attention_key_mass, attention_key_mass_reference),
+    rows.append(time_eimp(dev, models, (attention_key_mass, attention_key_mass_reference, ka.mha_fused_lse),
                           errs["attention_key_mass"], eimp_launches))
     gen = torch.Generator().manual_seed(9)
     pairs = [overlap_pairs(gen, dev) for _ in range(4)]
     for name in ("compacted", "mask-only"):
-        profile_calls(f"eimp {name} produce_matches B={B} N={N}",
-                      lambda d, m=models[name]: m.produce_matches(d, only_last=True, with_scores=False),
-                      pairs)
+        groups = profile_calls(f"eimp {name} produce_matches B={B} N={N}",
+                               lambda d, m=models[name]: m.produce_matches(d, only_last=True, with_scores=False),
+                               pairs)
+        if groups is not None:
+            ms, n = groups[KERNEL_GROUPS[5][0]]
+            say(f"profile eimp {name} attention_key_mass group: {ms:.3f} ms/call over {n:.0f} device launches; "
+                f"{MASS_GROUP_MS_BEFORE[name]} ms/call before the one-pass redesign (PERF.md section 5)")
     say(f"peak device memory of the inference phases {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del models
 

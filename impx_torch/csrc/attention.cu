@@ -401,49 +401,6 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query, so the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a [bh, n, DH] bf16 tensor as a 3-D tensor map of [rows, DH] boxes, swizzled
-// by a row's bytes
-template <int DH>
-bool encode(CUtensorMap* map, const void* ptr, int bh, int n, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {DH, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {2 * DH, (cuuint64_t)n * 2 * DH};
-  const cuuint32_t box[3] = {DH, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = DH == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory
-
 int smem_bytes(int dh, int nk) {
   const int ntiles = (nk + kTileK - 1) / kTileK;
   switch (dh) {

@@ -6,232 +6,548 @@
 // queries that query_mask keeps: [B, Nk] fp32. The TPU kernel holds all of K
 // of one (batch, head) in VMEM, softmaxes a block of queries against every
 // key at once and adds the block's column sums into one [Nk] accumulator
-// carried across its sequential (head, query-block) grid. On the H100, K at
-// N = 2048, dh = 64 is 256 KB in bf16, more than a block's 227 KB of shared
-// memory, and blocks run in parallel and carry nothing between them.
+// carried across its sequential (head, query-block) grid.
 //
-// Bound on the H100: the QK^T product, 2 * Nq * Nk * dh flops per (batch,
-// head), against the bf16 tensor-core rate, and about as long again for the
-// exponentials on the special-function units; q and k are read once. This
-// design is simple first: it computes QK^T and the exponentials twice.
-//   pass 1: over 64-key tiles, each query row's running max and sum;
-//   pass 2: the scores again, p = exp(s - max) / sum * query_mask, reduced
-//           over the block's 64 queries into a per-key column sum (within the
-//           mma fragment, across lanes by shuffles, across warps through
-//           shared memory) and written as one partial row;
-//   then a second launch sums each key's partial rows in a fixed order.
-// No atomics: the same inputs give the same bits on every run, which pooling
-// needs, since it compares each mass with a median.
+// A column sum over queries mixes rows whose softmax each has its own max and
+// sum, so it needs every row's statistics before it starts. Here they come
+// in: lse [B, H, Nq] fp32, each row's log-sum-exp, as the attention forward
+// writes it (csrc/attention.cu, impx_mha_fwd_lse) for the same q, k and key
+// mask, so the mass is one pass, p = exp(s / sqrt(dh) - lse). Without an lse
+// from the caller, impx_attention_row_lse (this file) writes it first: QK^T and
+// an online max and sum, kernel 1's arithmetic without P.V.
+//
+// Bound on the H100: one exponential a valid (query, key) pair on the
+// special-function units (about 0.028 ms at [8, 4, 2048, 64] with 0-300
+// padded keypoints), four times the QK^T's tensor-core time; q and k are read
+// once.
+//
+// bf16 mass (key_mass_bf16, dh 16, 32, 64): the product is transposed, S^T =
+// K Q^T, keys as wgmma's M and queries as its N. A thread's accumulator then
+// holds two keys' scores against 16 of every 64 queries, so the sum over
+// queries stays in its registers: carried across query tiles and heads,
+// reduced over the four threads of a row once at the end, with no shuffle a
+// tile. One CTA per (128 keys, split, batch), 544 threads: a producer warp
+// streams 256-query tiles of Q (K-major, as they lie in memory) through a TMA
+// ring, with each query's lse in base 2 (+inf for a query that weighs 0, so
+// its p is 0; no select a score), loaded a tile ahead; four consumer
+// warpgroups in two pairs that take alternate tiles, each warpgroup 64 keys
+// whose K rows of a head are the wgmma's A in registers (loaded once a head).
+// Each pair sums its tiles in its registers, and pair 1's sum is added to
+// pair 0's at the end. p = 2^(s c - lse log2 e), c = log2(e) / sqrt(dh), one
+// FFMA and one ex2 a score. One pair of warpgroups runs slower
+// (impx_torch/tools/mass_phases.py).
+// A tile with no kept query and a key block with no valid key are skipped;
+// masked keys are written as 0 (the reference's exp(-1e30 - lse)). Heads and
+// query tiles run in a fixed order, and with `splits` > 1 (the small key counts
+// of compacted EIMP, where B * Nk / 128 CTAs leave SMs idle) each split takes a
+// contiguous range of the (head, query tile) items into its own partial row,
+// summed in split order by a second launch. No atomics: the same inputs give
+// the same bits on every run, which pooling needs, since it compares each
+// mass with a median.
+//
+// The batch with no valid key: the reference scores every key -1e30, so each
+// kept query spreads 1/Nk over all Nk keys; the attention forward writes lse =
+// -1e30 there, which would give exp(0) = 1 a key. The kernel detects the batch
+// from the key mask and writes H * (kept queries) / Nk to every key instead.
+//
+// fp32 (key_mass_f32, key_mass_row_lse_f32): plain FMA in full fp32, 256
+// threads, 64 keys a CTA (4 threads a key, 16 of every 64 queries each) and
+// the same splits; the row lse one block per 64 queries, 4 threads a row.
 //
 // Layout: q [BH, Nq, dh], k [BH, Nk, dh] contiguous; key_mask [B, Nk] and
-// query_mask [B, Nq] fp32 (1 / 0, or null for all ones); partial
-// [B, H * ceil(Nq / 64), Nk] fp32 scratch (row h * ceil(Nq / 64) + tile),
-// which the caller sizes from impx_attention_key_mass_block_q(); out [B, Nk]
-// fp32. One block per (64 queries, batch*head).
-//   bf16: 4 warps, each owns 16 query rows; QK^T by mma.sync m16n8k16 (bf16
-//         in, fp32 accumulate), as csrc/attention.cu.
-//   fp32: 256 threads, 4 per query row, plain FMA in full fp32.
-// Semantics of the TPU kernel: scale by 1/sqrt(dh) before masking; masked
-// keys score the finite -1e30 (a query with no valid key spreads 1/Nk over
-// all Nk keys, masked ones included); keys past Nk (the ragged last tile) and
-// query rows past Nq weigh 0.
+// query_mask [B, Nq] one byte an entry (bool, nonzero kept) or null for all
+// ones; lse [BH, Nq] fp32; partial [splits, B, Nk] fp32 when splits > 1; out
+// [B, Nk] fp32. Semantics of the TPU kernel: scale by 1/sqrt(dh) before
+// masking; masked keys score the finite -1e30; query rows past Nq weigh 0.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 32 * (kConsumerWarps + 1);  // + the producer warp
+// bf16 mass: keys a CTA (a pair of warpgroups of 64 keys), pairs that take
+// turns at the tiles, queries a ring stage, stages
+constexpr int kMassKeys = 128;
+constexpr int kMassPairs = 2;
+constexpr int kMassConsumerWarps = 8 * kMassPairs;
+constexpr int kMassThreads = 32 * (kMassConsumerWarps + 1);
+constexpr int kMassQ = 256;  // the largest TMA box: fewer ring handshakes a query
+constexpr int kMassStages = 4;
+// bf16 row lse, kernel 1's shape: queries a block, keys a tile, stages
+constexpr int kLseQ = 128;
+constexpr int kLseK = 64;
+constexpr int kLseStages = 4;
+// fp32: keys a mass CTA, queries a tile (mass) or a block (row lse), keys a tile
+constexpr int kF32Keys = 64;
+constexpr int kF32Q = 64;
+constexpr int kF32K = 64;
+constexpr int kF32Threads = 256;
 constexpr int kReduceThreads = 256;
 
-__device__ __forceinline__ float query_weight(const float* qmask_row, int row, int nq) {
-  if (row >= nq) return 0.f;
-  return qmask_row == nullptr ? 1.f : qmask_row[row];
+__device__ __forceinline__ bool kept(const uint8_t* mask_row, int i) {
+  return mask_row == nullptr || mask_row[i] != 0;
 }
 
-// ----------------------------------------------------------------- bf16, mma
-// one 64-key tile of K into shared memory (zeros past nk), and its key codes
-template <int DH, int THREADS>
-__device__ __forceinline__ void load_k_tile_bf16(__nv_bfloat16* ks, float* code,
-                                                 const __nv_bfloat16* kb, const float* mask_row,
-                                                 int k0, int nk, int tid) {
-  constexpr int LD = DH + 8;  // 16-byte rows, conflict-free fragments
-  constexpr int CH = DH / 8;  // 16-byte chunks per row
-  for (int idx = tid; idx < kBlockK * CH; idx += THREADS) {
-    const int key = idx / CH, ch = idx % CH;
-    uint4 kv = make_uint4(0, 0, 0, 0);
-    if (k0 + key < nk) kv = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + key) * DH + ch * 8);
-    *reinterpret_cast<uint4*>(ks + key * LD + ch * 8) = kv;
+// code: 1 valid, 0 masked, -1 past the end of the keys (common.cuh's
+// masked_score takes it)
+__device__ __forceinline__ float key_code_u8(const uint8_t* mask_row, int key, int nk) {
+  if (key >= nk) return -1.f;
+  return kept(mask_row, key) ? 1.f : 0.f;
+}
+
+// What a mass CTA knows of its batch before it starts: whether no key of the
+// batch is valid, whether any of its own keys [key0, key0 + nkeys) is, and,
+// for a batch with no valid key, how many queries it keeps. Every thread of
+// the block calls it; its barriers also publish what the block wrote before.
+struct BatchView {
+  bool all_masked, block_any;
+  int kept_queries;
+};
+
+__device__ BatchView batch_view(const uint8_t* kmask, const uint8_t* qmask, int key0, int nkeys,
+                                int nq, int nk) {
+  int any = kmask == nullptr, here = kmask == nullptr;
+  if (kmask != nullptr) {
+    for (int key = threadIdx.x; key < nk; key += blockDim.x)
+      if (kmask[key]) {
+        any = 1;
+        here |= key >= key0 && key < key0 + nkeys;
+      }
   }
-  if (tid < kBlockK) code[tid] = key_code(mask_row, k0 + tid, nk);
+  BatchView v;
+  v.all_masked = !__syncthreads_or(any);
+  v.block_any = __syncthreads_or(here) != 0;
+  v.kept_queries = 0;
+  if (v.all_masked) {
+    for (int q0 = 0; q0 < nq; q0 += blockDim.x) {
+      const int q = q0 + threadIdx.x;
+      v.kept_queries += __syncthreads_count(q < nq && kept(qmask, q));
+    }
+  }
+  return v;
 }
 
-// masked, scaled scores of this warp's 16 rows against the tile's 64 keys;
-// s[j] covers keys j*8 .. j*8+7 (mma C fragment: rows g, g+8; cols 2t, 2t+1)
+// One key's result from a CTA: its sum, 0 at a masked key, or in a batch with
+// no valid key the reference's 1/Nk for every kept query and head, all of it
+// in split 0's row
+__device__ __forceinline__ float key_result(float sum, const BatchView& v, const uint8_t* kmask,
+                                            int key, int split, int heads, int nk) {
+  if (v.all_masked) return split == 0 ? (float)heads * (float)v.kept_queries / (float)nk : 0.f;
+  return kept(kmask, key) ? sum : 0.f;
+}
+
+// the first (head, query tile) item of `split`: splits take contiguous ranges
+__device__ __forceinline__ int split_begin(int items, int split, int splits) {
+  return (int)((long long)split * items / splits);
+}
+
+// ----------------------------------------------------------- bf16 mass, wgmma
+// Dynamic shared memory, from a 1024-byte aligned base: the Q stages, each
+// stage's lse in base 2, the key sums of pairs 1.., a flag a query tile, mbarriers
 template <int DH>
-__device__ __forceinline__ void tile_scores_bf16(float (&s)[8][4], const uint32_t (&qa)[DH / 16][4],
-                                                 const __nv_bfloat16* ks, const float* code,
-                                                 float scale, int g, int t) {
-  constexpr int LD = DH + 8;
+struct MassSmem {
+  static constexpr int kRow = 2 * DH;  // bytes of a row: the swizzle span
+  static constexpr int kQBuf = kMassQ * kRow;
+  static constexpr int kLse = kMassStages * kQBuf;
+  static constexpr int kPair = kLse + kMassStages * kMassQ * 4;
+  static constexpr int kFlags = kPair + (kMassPairs - 1) * kMassKeys * 4;
+  static constexpr int kBars = 2 * kMassStages;
+  static __host__ __device__ int bars(int ntq) { return kFlags + ((ntq + 7) & ~7); }
+  static int bytes(int ntq) { return 1024 + bars(ntq) + 8 * kBars; }
+};
+
+// This thread's two keys (rows g, g + 8 of the warp's 16) summed over the 64
+// queries of one m64n64 accumulator, 16 of them its own: s[4j + 2h + e] is key
+// g + 8h against query 8j + 2t + e; lse2 the tile's lse in base 2
+__device__ __forceinline__ void column_sums(const float (&s)[32], const float* lse2, int t, float c,
+                                            float (&part)[2]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int st = 0; st < DH / 16; ++st) {
-      const __nv_bfloat16* kp = ks + (j * 8 + g) * LD + st * 16 + 2 * t;
-      mma_bf16(s[j], qa[st], ld_u32(kp), ld_u32(kp + 8));
-    }
-    const float c0 = code[j * 8 + 2 * t], c1 = code[j * 8 + 2 * t + 1];
-    s[j][0] = masked_score(s[j][0] * scale, c0);
-    s[j][1] = masked_score(s[j][1] * scale, c1);
-    s[j][2] = masked_score(s[j][2] * scale, c0);
-    s[j][3] = masked_score(s[j][3] * scale, c1);
+    const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+    part[0] += ex2(fmaf(s[4 * j + 0], c, -l.x));
+    part[0] += ex2(fmaf(s[4 * j + 1], c, -l.y));
+    part[1] += ex2(fmaf(s[4 * j + 2], c, -l.x));
+    part[1] += ex2(fmaf(s[4 * j + 3], c, -l.y));
   }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(128)
-key_mass_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const float* __restrict__ key_mask, const float* __restrict__ query_mask,
-              float* __restrict__ partial, int heads, int nq, int nk, float scale) {
-  constexpr int LD = DH + 8;
-  constexpr int KSTEPS = DH / 16;
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * LD];
-  __shared__ float code[kBlockK];
-  __shared__ float colsum[4][kBlockK];  // per warp
+__global__ void __launch_bounds__(kMassThreads, 1)
+key_mass_bf16(const __grid_constant__ CUtensorMap tq, const __nv_bfloat16* __restrict__ k,
+              const uint8_t* __restrict__ key_mask, const uint8_t* __restrict__ query_mask,
+              const float* __restrict__ lse, float* __restrict__ out, int heads, int nq, int nk,
+              float c) {
+  using L = MassSmem<DH>;
+  constexpr uint64_t kSwizzle = DH == 64 ? 1 : (DH == 32 ? 2 : 3);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int ntq = (nq + kMassQ - 1) / kMassQ;
+  float* lse_s = reinterpret_cast<float*>(sm + L::kLse);  // [kMassStages][kMassQ]
+  uint8_t* flags = sm + L::kFlags;                         // [ntq]: the tile keeps a query
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bars(ntq));  // [kMassStages]: Q tile, lse in place
+  uint64_t* empty = full + kMassStages;  // [kMassStages]: the tile's pair is done with them
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / heads;
-  const float* mask_row = key_mask == nullptr ? nullptr : key_mask + (size_t)b * nk;
-  const float* qmask_row = query_mask == nullptr ? nullptr : query_mask + (size_t)b * nq;
-  const __nv_bfloat16* qb = q + (size_t)bh * nq * DH;
-  const __nv_bfloat16* kb = k + (size_t)bh * nk * DH;
-  const int r0 = blockIdx.x * kBlockQ + warp * 16 + g, r1 = r0 + 8;
+  const int key0 = blockIdx.x * kMassKeys, split = blockIdx.y, splits = gridDim.y, b = blockIdx.z;
+  const uint8_t* kmask = key_mask == nullptr ? nullptr : key_mask + (size_t)b * nk;
+  const uint8_t* qmask = query_mask == nullptr ? nullptr : query_mask + (size_t)b * nq;
+  float* orow = out + ((size_t)split * gridDim.z + b) * nk;
 
-  uint32_t qa[KSTEPS][4];  // this warp's 16 query rows as A fragments
+  if (tid == 0) {
+    for (int st = 0; st < kMassStages; ++st) {
+      mbar_init(&full[st], 1);   // lane 0 of the producer, after the warp's lse stores
+      mbar_init(&empty[st], 8);   // the warps of the pair that takes the tile
+    }
+    fence_mbar_init();
+  }
+  for (int t = warp; t < ntq; t += kMassConsumerWarps + 1) {  // a warp a query tile
+    int any = 0;
+    for (int i = lane; i < kMassQ; i += 32) any |= t * kMassQ + i < nq && kept(qmask, t * kMassQ + i);
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) flags[t] = (uint8_t)any;
+  }
+  const BatchView view = batch_view(kmask, qmask, key0, kMassKeys, nq, nk);
+  if (view.all_masked || !view.block_any) {  // every key's result is known
+    if (tid < kMassKeys && key0 + tid < nk)
+      orow[key0 + tid] = key_result(0.f, view, kmask, key0 + tid, split, heads, nk);
+    return;
+  }
+  const int items = heads * ntq;
+  const int i0 = split_begin(items, split, splits), i1 = split_begin(items, split + 1, splits);
+  // the first kept item at or after i
+  auto next_kept = [&](int i) {
+    while (i < i1 && !flags[i % ntq]) ++i;
+    return i;
+  };
+
+  if (warp == kMassConsumerWarps) {  // producer: each kept tile's Q and lse
+    constexpr int kPer = kMassQ / 32;  // queries a lane of a tile
+    // the next kept item's lse and weights, loaded while the ring is full:
+    // their latency hides behind the wait for a free stage
+    float lv[kPer];
+    bool wv[kPer];
+    auto fetch = [&](int i) {
+      if (i >= i1) return;
+      const size_t row = (size_t)(b * heads + i / ntq) * nq;
 #pragma unroll
-  for (int s = 0; s < KSTEPS; ++s) {
-    const int c = s * 16 + 2 * t;
-    qa[s][0] = r0 < nq ? ld_u32(qb + (size_t)r0 * DH + c) : 0u;
-    qa[s][1] = r1 < nq ? ld_u32(qb + (size_t)r1 * DH + c) : 0u;
-    qa[s][2] = r0 < nq ? ld_u32(qb + (size_t)r0 * DH + c + 8) : 0u;
-    qa[s][3] = r1 < nq ? ld_u32(qb + (size_t)r1 * DH + c + 8) : 0u;
+      for (int r = 0; r < kPer; ++r) {
+        const int q = (i % ntq) * kMassQ + lane + 32 * r;
+        wv[r] = q < nq && kept(qmask, q);
+        lv[r] = q < nq ? lse[row + q] : 0.f;
+      }
+    };
+    int i = next_kept(i0);
+    fetch(i);
+    for (int n = 0; i < i1; ++n) {
+      const int st = n % kMassStages;
+      if (n >= kMassStages) mbar_wait(&empty[st], ((n / kMassStages) - 1) & 1);
+      // each query's lse in base 2, +inf where it weighs 0: 2^(s c - inf) = 0
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) lse_s[st * kMassQ + lane + 32 * r] = wv[r] ? lv[r] * kLog2e : INFINITY;
+      __syncwarp();  // the lanes' stores before lane 0's arrival, which releases them
+      if (lane == 0) {  // one arrival a tile, which also expects the tile's bytes
+        mbar_expect_tx(&full[st], L::kQBuf);
+        tma_load_3d(sm + st * L::kQBuf, &tq, &full[st], 0, (i % ntq) * kMassQ, b * heads + i / ntq);
+      }
+      i = next_kept(i + 1);
+      fetch(i);
+    }
+    return;
   }
 
-  // pass 1: row max and row sum (this thread's share of the sum)
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  float s[8][4];
-  for (int k0 = 0; k0 < nk; k0 += kBlockK) {
-    __syncthreads();
-    load_k_tile_bf16<DH, 128>(ks, code, kb, mask_row, k0, nk, tid);
-    __syncthreads();
-    tile_scores_bf16<DH>(s, qa, ks, code, scale, g, t);
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+  // consumers: pair `pair` takes the kept items n = pair, pair + kMassPairs, ...; its
+  // warpgroup wg owns keys key0 + 64 wg .. + 63, this thread keys r0 and r0 +
+  // 8. A head's K rows of a warp are the wgmma's A from registers; an item's
+  // S^T is one wgmma group for each 64 queries of the tile, in turn, each
+  // summed when it is done, while the other pair's warps fill the waits.
+  const int pair = warp >> 3, wg = (warp >> 2) & 1, g = lane >> 2, t4 = lane & 3;
+  const int r0 = key0 + wg * 64 + (warp & 3) * 16 + g;
+  float acc[2] = {0.f, 0.f};
+  float s[32];
+  uint32_t ka[DH / 16][4];
+  auto load_k = [&](int h) {  // rows past nk as zeros
+    const __nv_bfloat16* kb = k + (size_t)(b * heads + h) * nk * DH;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int col = 16 * kk + 2 * t4;
+      ka[kk][0] = r0 < nk ? ld_u32(kb + (size_t)r0 * DH + col) : 0u;
+      ka[kk][1] = r0 + 8 < nk ? ld_u32(kb + (size_t)(r0 + 8) * DH + col) : 0u;
+      ka[kk][2] = r0 < nk ? ld_u32(kb + (size_t)r0 * DH + col + 8) : 0u;
+      ka[kk][3] = r0 + 8 < nk ? ld_u32(kb + (size_t)(r0 + 8) * DH + col + 8) : 0u;
     }
+  };
+  auto issue = [&](int n, int group) {  // S^T of the tile's queries 64 group .. + 63
+    const uint64_t dq = wgmma_desc(smem_addr(sm + (n % kMassStages) * L::kQBuf) + group * 64 * L::kRow,
+                                   16 * DH, kSwizzle);
+    fence_regs(s);
+    fence_regs(ka);
+    wgmma_fence();
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {  // the 4 threads of a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_rs_kmajor_n64(s, ka[kk], dq + 2 * kk, kk);  // +32 B a k-step
+    wgmma_commit();
+    fence_regs(s);
+    fence_regs(ka);
+  };
+  int i = next_kept(i0);
+  for (int p = 0; p < pair && i < i1; ++p) i = next_kept(i + 1);
+  int head = -1;
+  for (int n = pair; i < i1; n += kMassPairs) {
+    const int st = n % kMassStages;
+    if (i / ntq != head) {
+      head = i / ntq;
+      load_k(head);
     }
-    // every tile holds at least one key < nk, so the new max is finite
-    const float mn0 = fmaxf(m_run[0], mx0), mn1 = fmaxf(m_run[1], mx1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sum0 += expf(s[j][0] - mn0) + expf(s[j][1] - mn0);
-      sum1 += expf(s[j][2] - mn1) + expf(s[j][3] - mn1);
+    mbar_wait(&full[st], (n / kMassStages) & 1);
+    const float* lse2 = lse_s + st * kMassQ;
+    float part[2] = {0.f, 0.f};
+#pragma unroll 1
+    for (int group = 0; group < kMassQ / 64; ++group) {
+      issue(n, group);
+      wgmma_wait<0>();
+      fence_regs(s);
+      column_sums(s, lse2 + 64 * group, t4, c, part);
     }
-    l_run[0] = l_run[0] * expf(m_run[0] - mn0) + sum0;
-    l_run[1] = l_run[1] * expf(m_run[1] - mn1) + sum1;
-    m_run[0] = mn0;
-    m_run[1] = mn1;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // every group that read the tile is done
+    acc[0] += part[0];
+    acc[1] += part[1];
+    for (int p = 0; p < kMassPairs && i < i1; ++p) i = next_kept(i + 1);  // the pair's next item
   }
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_run[0] += __shfl_xor_sync(0xffffffffu, l_run[0], off);
-    l_run[1] += __shfl_xor_sync(0xffffffffu, l_run[1], off);
+  for (int r = 0; r < 2; ++r) {  // the four threads of a key, in a fixed order
+    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
+    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
   }
-  // each row's weight over its sum: p * query_mask = exp(s - max) * c
-  const float c0 = query_weight(qmask_row, r0, nq) / l_run[0];
-  const float c1 = query_weight(qmask_row, r1, nq) / l_run[1];
+  // pair 0's sum + pair 1's + ..., through shared memory (named barrier 1:
+  // the consumer warps; the producer warp has returned)
+  float* pair_sum = reinterpret_cast<float*>(sm + L::kPair);  // [kMassPairs - 1][kMassKeys]
+  if (pair > 0 && t4 == 0) {
+    pair_sum[(pair - 1) * kMassKeys + r0 - key0] = acc[0];
+    pair_sum[(pair - 1) * kMassKeys + r0 + 8 - key0] = acc[1];
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kMassConsumerWarps) : "memory");
+  if (pair == 0 && t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = r0 + 8 * r;
+      float sum = acc[r];
+      for (int p = 1; p < kMassPairs; ++p) sum += pair_sum[(p - 1) * kMassKeys + key - key0];
+      if (key < nk) orow[key] = key_result(sum, view, kmask, key, split, heads, nk);
+    }
+  }
+}
 
-  // pass 2: column sums of p over the block's 64 rows, one partial row
-  float* prow = partial + (size_t)(bh * gridDim.x + blockIdx.x) * nk;
-  for (int k0 = 0; k0 < nk; k0 += kBlockK) {
-    __syncthreads();  // the previous tile and its column sums are consumed
-    load_k_tile_bf16<DH, 128>(ks, code, kb, mask_row, k0, nk, tid);
-    __syncthreads();
-    tile_scores_bf16<DH>(s, qa, ks, code, scale, g, t);
-    float cs[8][2];  // columns j*8 + 2t, j*8 + 2t + 1 over rows g, g + 8
+// ------------------------------------------------------- bf16 row lse, wgmma
+template <int DH>
+struct LseSmem {
+  static constexpr int kRow = 2 * DH;
+  static constexpr int kQ = kLseQ * kRow;
+  static constexpr int kKT = kLseK * kRow;
+  static constexpr int kK = kQ;
+  static constexpr int kWords = kK + kLseStages * kKT;
+  static constexpr int kBars = 1 + 2 * kLseStages;
+  static int bytes(int ntiles) { return 1024 + kWords + 8 * ntiles + 8 * kBars; }
+};
+
+// One 64-key tile's online max and sum for this thread's two rows, kernel 1's
+// arithmetic (csrc/attention.cu:softmax_tile) without P: s the raw scores
+// (m64n64 layout), the running max m in raw units and mu = m c
+template <bool kAllValid>
+__device__ __forceinline__ void row_stats_tile(const float (&s)[32], uint32_t w_lo, uint32_t w_hi,
+                                               int t, float c, float (&m)[2], float (&mu)[2],
+                                               float (&l)[2]) {
+  uint32_t valid = 0xffffu;  // bit 2j + e: key 8j + 2t + e of the tile
+  if (!kAllValid) {
+    valid = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      cs[j][0] = expf(s[j][0] - m_run[0]) * c0 + expf(s[j][2] - m_run[1]) * c1;
-      cs[j][1] = expf(s[j][1] - m_run[0]) * c0 + expf(s[j][3] - m_run[1]) * c1;
+    for (int j = 0; j < 8; ++j) valid |= (((j < 4 ? w_lo : w_hi) >> ((j & 3) * 8 + 2 * t)) & 3u) << (2 * j);
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if ((valid >> (2 * j + e)) & 1u) {
+        mx[0] = fmaxf(mx[0], s[4 * j + e]);
+        mx[1] = fmaxf(mx[1], s[4 * j + 2 + e]);
+      }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)  // the 4 threads of a row
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+    const float m_new = fmaxf(m[r], mx[r]);
+    const float mu_new = m_new == -INFINITY ? 0.f : m_new * c;
+    alpha[r] = m[r] == -INFINITY ? 0.f : ex2(mu[r] - mu_new);
+    m[r] = m_new;
+    mu[r] = mu_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sum[i >> 1] += ((valid >> (2 * j + (i & 1))) & 1u) ? ex2(fmaf(s[4 * j + i], c, -mu[i >> 1])) : 0.f;
+  l[0] = l[0] * alpha[0] + sum[0];
+  l[1] = l[1] * alpha[1] + sum[1];
+}
+
+// lse [BH, Nq] of kernel 4 without its output: one block per (128 queries,
+// batch*head), a producer warp streaming 64-key K tiles through a TMA ring,
+// two consumer warpgroups of 64 rows; lse = -1e30 exactly on a batch with no
+// valid key. A block whose queries all weigh 0 writes nothing: the mass reads
+// no lse of such a query.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 2)
+key_mass_row_lse_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const uint8_t* __restrict__ key_mask, const uint8_t* __restrict__ query_mask,
+                      float* __restrict__ lse, int heads, int nq, int nk, float scale) {
+  using L = LseSmem<DH>;
+  constexpr uint64_t kSwizzle = DH == 64 ? 1 : (DH == 32 ? 2 : 3);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int ntiles = (nk + kLseK - 1) / kLseK;
+  uint32_t* words = reinterpret_cast<uint32_t*>(sm + L::kWords);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kWords + 8 * ntiles);
+  uint64_t* full = q_full + 1;       // [kLseStages]: the K tile has arrived
+  uint64_t* empty = full + kLseStages;  // [kLseStages]: every consumer warp is done with it
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / heads, q0 = blockIdx.x * kLseQ;
+  const uint8_t* qmask = query_mask == nullptr ? nullptr : query_mask + (size_t)b * nq;
+  if (!__syncthreads_or(tid < kLseQ && q0 + tid < nq && kept(qmask, q0 + tid))) return;
+  const bool producer = tid == kConsumerWarps * 32;
+  auto load_k = [&](int j) {
+    const int st = j % kLseStages;
+    mbar_expect_tx(&full[st], L::kKT);
+    tma_load_3d(sm + L::kK + st * L::kKT, &tk, &full[st], 0, j * kLseK, bh);
+  };
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kLseStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumerWarps);
     }
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {  // over g: the warp's 16 rows
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cs[j][0] += __shfl_xor_sync(0xffffffffu, cs[j][0], off);
-        cs[j][1] += __shfl_xor_sync(0xffffffffu, cs[j][1], off);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (producer) {  // the first copies fly while the block reads the mask
+    mbar_expect_tx(q_full, L::kQ);
+    tma_load_3d(sm, &tq, q_full, 0, q0, bh);
+    for (int j = 0; j < kLseStages && j < ntiles; ++j) load_k(j);
+  }
+
+  // the batch's key mask as bits, one warp a 32-key word
+  const uint8_t* kmask = key_mask == nullptr ? nullptr : key_mask + (size_t)b * nk;
+  int any = 0;
+  for (int w = warp; w < 2 * ntiles; w += kConsumerWarps + 1) {
+    const int key = w * 32 + lane;
+    const uint32_t bits = __ballot_sync(0xffffffffu, key < nk && kept(kmask, key));
+    if (lane == 0) words[w] = bits;
+    any |= bits != 0u;
+  }
+  // no valid key in the batch: every key in range weighs alike, so all of
+  // them count with scores scaled by 0, and lse is written as -1e30
+  const bool all_masked = !__syncthreads_or(any);
+  if (all_masked) {
+    for (int w = tid; w < 2 * ntiles; w += kThreads) {
+      const int n = min(max(nk - 32 * w, 0), 32);
+      words[w] = n == 32 ? 0xffffffffu : (1u << n) - 1u;
+    }
+    __syncthreads();
+  }
+
+  if (warp == kConsumerWarps) {  // producer: the rest of the ring
+    if (producer) {
+      for (int j = kLseStages; j < ntiles; ++j) {
+        mbar_wait(&empty[j % kLseStages], ((j / kLseStages) - 1) & 1);
+        load_k(j);
       }
     }
-    if (g == 0) {
+    return;
+  }
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const float c = all_masked ? 0.f : scale * kLog2e;
+  const uint64_t dq = wgmma_desc(smem_addr(sm + wg * 64 * L::kRow), 16 * DH, kSwizzle);
+  const uint32_t k_base = smem_addr(sm + L::kK);
+  float m[2] = {-INFINITY, -INFINITY}, mu[2] = {0.f, 0.f}, l[2] = {0.f, 0.f};
+  float s[32];
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % kLseStages;
+    mbar_wait(&full[st], (j / kLseStages) & 1);
+    const uint64_t dk = wgmma_desc(k_base + st * L::kKT, 16 * DH, kSwizzle);
+    fence_regs(s);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        colsum[warp][j * 8 + 2 * t] = cs[j][0];
-        colsum[warp][j * 8 + 2 * t + 1] = cs[j][1];
-      }
-    }
-    __syncthreads();
-    if (tid < kBlockK && k0 + tid < nk)
-      prow[k0 + tid] = ((colsum[0][tid] + colsum[1][tid]) + colsum[2][tid]) + colsum[3][tid];
+    for (int k = 0; k < DH / 16; ++k) wgmma_ss_n64(s, dq + 2 * k, dk + 2 * k, k);
+    wgmma_commit();
+    fence_regs(s);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(&empty[st]);  // the tile is read
+    const uint32_t w_lo = words[2 * j], w_hi = words[2 * j + 1];
+    if ((w_lo & w_hi) == 0xffffffffu) row_stats_tile<true>(s, w_lo, w_hi, t, c, m, mu, l);
+    else row_stats_tile<false>(s, w_lo, w_hi, t, c, m, mu, l);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+  const int r0 = q0 + wg * 64 + (warp & 3) * 16 + g;
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r0 + 8 * r < nq)
+        lse[(size_t)bh * nq + r0 + 8 * r] = all_masked ? kNeg : m[r] * scale + logf(l[r]);
   }
 }
 
 // ------------------------------------------------------------------ fp32, FMA
+// lse [BH, Nq], the online max and sum of csrc/attention.cu:attn_fwd_f32: one
+// block per (64 queries, batch*head), 4 threads a row
 template <int DH>
-__global__ void __launch_bounds__(256)
-key_mass_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ key_mask, const float* __restrict__ query_mask,
-             float* __restrict__ partial, int heads, int nq, int nk, float scale) {
+__global__ void __launch_bounds__(kF32Threads)
+key_mass_row_lse_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const uint8_t* __restrict__ key_mask, const uint8_t* __restrict__ query_mask,
+                     float* __restrict__ lse, int heads, int nq, int nk, float scale) {
   constexpr int KLD = DH + 1;       // padded K row
-  constexpr int PLD = kBlockK + 1;  // padded P row
-  constexpr int PER = kBlockK / 4;  // keys per thread
-  __shared__ float ks[kBlockK * KLD];
-  __shared__ float ps[kBlockQ * PLD];
-  __shared__ float code[kBlockK];
+  constexpr int PER = kF32K / 4;    // keys per thread
+  __shared__ float ks[kF32K * KLD];
+  __shared__ float code[kF32K];
 
   const int tid = threadIdx.x, row = tid >> 2, sub = tid & 3;
-  const int bh = blockIdx.y, b = bh / heads;
-  const int r = blockIdx.x * kBlockQ + row;
-  const float* mask_row = key_mask == nullptr ? nullptr : key_mask + (size_t)b * nk;
-  const float* qmask_row = query_mask == nullptr ? nullptr : query_mask + (size_t)b * nq;
+  const int bh = blockIdx.y, b = bh / heads, r = blockIdx.x * kF32Q + row;
+  const uint8_t* kmask = key_mask == nullptr ? nullptr : key_mask + (size_t)b * nk;
+  const uint8_t* qmask = query_mask == nullptr ? nullptr : query_mask + (size_t)b * nq;
+  if (!__syncthreads_or(sub == 0 && r < nq && kept(qmask, r))) return;
   const float* kb = k + (size_t)bh * nk * DH;
 
   float qr[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) qr[d] = r < nq ? q[((size_t)bh * nq + r) * DH + d] : 0.f;
-
-  // scores of this thread's keys sub, sub + 4, ... of the tile
-  auto load_and_score = [&](float (&s)[PER], int k0) {
+  float m_run = -INFINITY, l_run = 0.f;
+  for (int k0 = 0; k0 < nk; k0 += kF32K) {
     __syncthreads();
-    for (int idx = tid; idx < kBlockK * DH; idx += 256) {
+    for (int idx = tid; idx < kF32K * DH; idx += kF32Threads) {
       const int key = idx / DH, d = idx % DH;
       ks[key * KLD + d] = k0 + key < nk ? kb[(size_t)(k0 + key) * DH + d] : 0.f;
     }
-    if (tid < kBlockK) code[tid] = key_code(mask_row, k0 + tid, nk);
+    if (tid < kF32K) code[tid] = key_code_u8(kmask, k0 + tid, nk);
     __syncthreads();
+    float s[PER];
+    float mx = -INFINITY;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int key = sub + 4 * i;
@@ -239,97 +555,217 @@ key_mass_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < DH; ++d) acc = fmaf(qr[d], ks[key * KLD + d], acc);
       s[i] = masked_score(acc * scale, code[key]);
+      mx = fmaxf(mx, s[i]);
     }
-  };
-
-  float s[PER];
-  float m_run = -INFINITY, l_run = 0.f;
-  for (int k0 = 0; k0 < nk; k0 += kBlockK) {  // pass 1
-    load_and_score(s, k0);
-    float mx = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) mx = fmaxf(mx, s[i]);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float mn = fmaxf(m_run, mx);
+    const float mn = fmaxf(m_run, mx);  // finite: every tile holds a key < nk
+    const float alpha = expf(m_run - mn);
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < PER; ++i) sum += expf(s[i] - mn);
-    l_run = l_run * expf(m_run - mn) + sum;
+    l_run = l_run * alpha + sum;
     m_run = mn;
   }
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
-  const float c = query_weight(qmask_row, r, nq) / l_run;
-
-  float* prow = partial + (size_t)(bh * gridDim.x + blockIdx.x) * nk;
-  for (int k0 = 0; k0 < nk; k0 += kBlockK) {  // pass 2
-    load_and_score(s, k0);  // its first barrier also retires the last tile's column sums
-#pragma unroll
-    for (int i = 0; i < PER; ++i) ps[row * PLD + sub + 4 * i] = expf(s[i] - m_run) * c;
-    __syncthreads();
-    if (tid < kBlockK && k0 + tid < nk) {
-      float acc = 0.f;
-      for (int i = 0; i < kBlockQ; ++i) acc += ps[i * PLD + tid];
-      prow[k0 + tid] = acc;
-    }
-  }
+  if (sub == 0 && r < nq) lse[(size_t)bh * nq + r] = m_run + logf(l_run);
 }
 
-// out[b, key] = the sum of partial[b, :, key], rows in order
-__global__ void __launch_bounds__(kReduceThreads)
-key_mass_reduce(const float* __restrict__ partial, float* __restrict__ out, int rows, int nk) {
-  const int key = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (key >= nk) return;
-  const float* p = partial + (size_t)blockIdx.y * rows * nk + key;
+// the mass from lse: one CTA per (64 keys, split, batch), 4 threads a key,
+// each over queries sub, sub + 4, ... of every 64-query tile of its items
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads)
+key_mass_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const uint8_t* __restrict__ key_mask, const uint8_t* __restrict__ query_mask,
+             const float* __restrict__ lse, float* __restrict__ out, int heads, int nq, int nk,
+             float scale) {
+  constexpr int QLD = DH + 1;       // padded Q row
+  constexpr int PER = kF32Q / 4;    // queries per thread a tile
+  __shared__ float qs[kF32Q * QLD];
+  __shared__ float lse_s[kF32Q];
+
+  const int tid = threadIdx.x, sub = tid & 3;
+  const int key0 = blockIdx.x * kF32Keys, key = key0 + (tid >> 2);
+  const int split = blockIdx.y, splits = gridDim.y, b = blockIdx.z;
+  const uint8_t* kmask = key_mask == nullptr ? nullptr : key_mask + (size_t)b * nk;
+  const uint8_t* qmask = query_mask == nullptr ? nullptr : query_mask + (size_t)b * nq;
+  float* orow = out + ((size_t)split * gridDim.z + b) * nk;
+  const BatchView view = batch_view(kmask, qmask, key0, kF32Keys, nq, nk);
+  if (view.all_masked || !view.block_any) {
+    if (tid < kF32Keys && key0 + tid < nk)
+      orow[key0 + tid] = key_result(0.f, view, kmask, key0 + tid, split, heads, nk);
+    return;
+  }
+  const int ntq = (nq + kF32Q - 1) / kF32Q, items = heads * ntq;
+  const int i1 = split_begin(items, split + 1, splits);
+  float kr[DH];
   float acc = 0.f;
-  for (int r = 0; r < rows; ++r) acc += p[(size_t)r * nk];
-  out[(size_t)blockIdx.y * nk + key] = acc;
+  int prev = -1;
+  for (int i = split_begin(items, split, splits); i < i1; ++i) {
+    const int h = i / ntq, t = i % ntq, bh = b * heads + h;
+    __syncthreads();  // the last tile is consumed
+    for (int idx = tid; idx < kF32Q * DH; idx += kF32Threads) {
+      const int qq = idx / DH, d = idx % DH, qi = t * kF32Q + qq;
+      qs[qq * QLD + d] = qi < nq ? q[((size_t)bh * nq + qi) * DH + d] : 0.f;
+    }
+    bool w = false;
+    if (tid < kF32Q) {  // +inf where the query weighs 0: exp(s - inf) = 0
+      const int qi = t * kF32Q + tid;
+      w = qi < nq && kept(qmask, qi);
+      lse_s[tid] = w ? lse[(size_t)bh * nq + qi] : INFINITY;
+    }
+    if (!__syncthreads_or(w)) continue;  // a tile with no kept query
+    if (h != prev) {
+#pragma unroll
+      for (int d = 0; d < DH; ++d) kr[d] = key < nk ? k[((size_t)bh * nk + key) * DH + d] : 0.f;
+      prev = h;
+    }
+    float part = 0.f;
+#pragma unroll 4
+    for (int ii = 0; ii < PER; ++ii) {
+      const int qq = sub + 4 * ii;
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) dot = fmaf(kr[d], qs[qq * QLD + d], dot);
+      part += expf(fmaf(dot, scale, -lse_s[qq]));
+    }
+    acc += part;
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  if (sub == 0 && key < nk) orow[key] = key_result(acc, view, kmask, key, split, heads, nk);
+}
+
+// out[i] = the sum of partial[:, i], splits in order
+__global__ void __launch_bounds__(kReduceThreads)
+key_mass_reduce(const float* __restrict__ partial, float* __restrict__ out, int splits, int n) {
+  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (i >= n) return;
+  float acc = partial[i];
+  for (int s = 1; s < splits; ++s) acc += partial[(size_t)s * n + i];
+  out[i] = acc;
+}
+
+// -------------------------------------------------------------------- launch
+// a kernel's dynamic shared memory limit raised to kMaxSmem, once a device
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, uint64_t& raised) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || device >= 64 || ((raised >> device) & 1u)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) raised |= uint64_t{1} << device;
+  return err;
+}
+
+float inv_sqrt(int dh) { return (float)(1.0 / sqrt((double)dh)); }
+
+template <int DH>
+cudaError_t row_lse(const void* q, const void* k, const uint8_t* km, const uint8_t* qm, float* lse,
+                    int bh, int heads, int nq, int nk, int is_bf16, cudaStream_t stream) {
+  const float scale = inv_sqrt(DH);
+  if (!is_bf16) {
+    key_mass_row_lse_f32<DH><<<dim3((nq + kF32Q - 1) / kF32Q, bh), kF32Threads, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), km, qm, lse, heads, nq, nk, scale);
+    return cudaGetLastError();
+  }
+  CUtensorMap tq, tk;
+  if (!encode<DH>(&tq, q, bh, nq, kLseQ) || !encode<DH>(&tk, k, bh, nk, kLseK)) return cudaErrorInvalidValue;
+  const int smem = LseSmem<DH>::bytes((nk + kLseK - 1) / kLseK);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  static uint64_t raised = 0;
+  const cudaError_t err = allow_smem(key_mass_row_lse_bf16<DH>, raised);
+  if (err != cudaSuccess) return err;
+  key_mass_row_lse_bf16<DH><<<dim3((nq + kLseQ - 1) / kLseQ, bh), kThreads, smem, stream>>>(
+      tq, tk, km, qm, lse, heads, nq, nk, scale);
+  return cudaGetLastError();
 }
 
 template <int DH>
-cudaError_t launch(const void* q, const void* k, const float* key_mask, const float* query_mask,
-                   float* partial, float* out, int bh, int heads, int nq, int nk, int is_bf16,
-                   cudaStream_t stream) {
-  const float scale = (float)(1.0 / sqrt((double)DH));
-  const int tiles = (nq + kBlockQ - 1) / kBlockQ;
-  const dim3 grid(tiles, bh);
+cudaError_t mass(const void* q, const void* k, const uint8_t* km, const uint8_t* qm, const float* lse,
+                 float* partial, float* out, int bh, int heads, int nq, int nk, int is_bf16,
+                 int splits, cudaStream_t stream) {
+  const float scale = inv_sqrt(DH);
+  const int b = bh / heads;
+  float* dst = splits > 1 ? partial : out;
   if (is_bf16) {
-    key_mass_bf16<DH><<<grid, 128, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), key_mask,
-        query_mask, partial, heads, nq, nk, scale);
+    CUtensorMap tq;
+    if (!encode<DH>(&tq, q, bh, nq, kMassQ)) return cudaErrorInvalidValue;
+    const int smem = MassSmem<DH>::bytes((nq + kMassQ - 1) / kMassQ);
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    static uint64_t raised = 0;
+    const cudaError_t err = allow_smem(key_mass_bf16<DH>, raised);
+    if (err != cudaSuccess) return err;
+    key_mass_bf16<DH><<<dim3((nk + kMassKeys - 1) / kMassKeys, splits, b), kMassThreads, smem, stream>>>(
+        tq, static_cast<const __nv_bfloat16*>(k), km, qm, lse, dst, heads, nq, nk, scale * kLog2e);
   } else {
-    key_mass_f32<DH><<<grid, 256, 0, stream>>>(static_cast<const float*>(q),
-                                                static_cast<const float*>(k), key_mask,
-                                                query_mask, partial, heads, nq, nk, scale);
+    key_mass_f32<DH><<<dim3((nk + kF32Keys - 1) / kF32Keys, splits, b), kF32Threads, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), km, qm, lse, dst, heads, nq, nk,
+        scale);
   }
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 rgrid((nk + kReduceThreads - 1) / kReduceThreads, bh / heads);
-  key_mass_reduce<<<rgrid, kReduceThreads, 0, stream>>>(partial, out, heads * tiles, nk);
+  if (err != cudaSuccess || splits == 1) return err;
+  const int n = b * nk;
+  key_mass_reduce<<<(n + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, stream>>>(
+      partial, out, splits, n);
   return cudaGetLastError();
+}
+
+bool valid_sizes(int bh, int heads, int nq, int nk) {
+  return nq >= 1 && nk >= 1 && heads >= 1 && bh >= heads && bh % heads == 0 && bh <= 65535;
 }
 
 }  // namespace
 
-// the query rows per block, which fix the partial buffer's row count
-extern "C" int impx_attention_key_mass_block_q() { return kBlockQ; }
+// Each row's log-sum-exp, lse [BH, Nq] fp32 (what impx_mha_fwd_lse writes,
+// without the attention output), for a caller that has none
+extern "C" int impx_attention_row_lse(const void* q, const void* k, const void* key_mask,
+                                      const void* query_mask, void* lse, int bh, int heads,
+                                      int nq, int nk, int dh, int is_bf16, void* stream) {
+  const uint8_t* km = static_cast<const uint8_t*>(key_mask);
+  const uint8_t* qm = static_cast<const uint8_t*>(query_mask);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!valid_sizes(bh, heads, nq, nk) || l == nullptr) return (int)cudaErrorInvalidValue;
+  switch (dh) {
+    case 16: return (int)row_lse<16>(q, k, km, qm, l, bh, heads, nq, nk, is_bf16, st);
+    case 32: return (int)row_lse<32>(q, k, km, qm, l, bh, heads, nq, nk, is_bf16, st);
+    case 64: return (int)row_lse<64>(q, k, km, qm, l, bh, heads, nq, nk, is_bf16, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
+// The mass [B, Nk] from lse [BH, Nq]: one launch, and a second that sums the
+// splits' partial rows [splits, B, Nk] when splits > 1
 extern "C" int impx_attention_key_mass(const void* q, const void* k, const void* key_mask,
-                                       const void* query_mask, void* partial, void* out, int bh,
-                                       int heads, int nq, int nk, int dh, int is_bf16,
-                                       void* stream) {
-  const float* km = static_cast<const float*>(key_mask);
-  const float* qm = static_cast<const float*>(query_mask);
+                                       const void* query_mask, const void* lse, void* partial,
+                                       void* out, int bh, int heads, int nq, int nk, int dh,
+                                       int is_bf16, int splits, void* stream) {
+  const uint8_t* km = static_cast<const uint8_t*>(key_mask);
+  const uint8_t* qm = static_cast<const uint8_t*>(query_mask);
+  const float* l = static_cast<const float*>(lse);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nq < 1 || nk < 1 || heads < 1 || bh < heads || bh % heads || bh > 65535)
+  if (!valid_sizes(bh, heads, nq, nk) || l == nullptr || splits < 1 || splits > 65535 ||
+      (splits > 1 && p == nullptr))
     return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 16: return (int)launch<16>(q, k, km, qm, p, o, bh, heads, nq, nk, is_bf16, st);
-    case 32: return (int)launch<32>(q, k, km, qm, p, o, bh, heads, nq, nk, is_bf16, st);
-    case 64: return (int)launch<64>(q, k, km, qm, p, o, bh, heads, nq, nk, is_bf16, st);
+    case 16: return (int)mass<16>(q, k, km, qm, l, p, o, bh, heads, nq, nk, is_bf16, splits, st);
+    case 32: return (int)mass<32>(q, k, km, qm, l, p, o, bh, heads, nq, nk, is_bf16, splits, st);
+    case 64: return (int)mass<64>(q, k, km, qm, l, p, o, bh, heads, nq, nk, is_bf16, splits, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The default split: as many CTAs as the card has SMs, at least one
+// (head, query tile) item a split
+extern "C" int impx_attention_key_mass_splits(int b, int heads, int nq, int nk, int is_bf16, int sms) {
+  const int keys = is_bf16 ? kMassKeys : kF32Keys, tile = is_bf16 ? kMassQ : kF32Q;
+  const long long ctas = (long long)b * ((nk + keys - 1) / keys);
+  const long long items = (long long)heads * ((nq + tile - 1) / tile);
+  long long splits = ctas >= sms ? 1 : sms / ctas;
+  if (splits > items) splits = items;
+  return (int)(splits < 1 ? 1 : splits);
 }

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the attention forward (attention.cu):
-// mbarriers, TMA tile loads with transaction-count completion, and the
-// warpgroup matrix multiply (wgmma) with its shared-memory descriptors.
+// Hopper (sm_90a) building blocks of the attention forward (attention.cu) and
+// the attention mass (attention_mass.cu): mbarriers, TMA tile loads with
+// transaction-count completion, the warpgroup matrix multiply (wgmma) with its
+// shared-memory descriptors, and on the host the tensor maps of the TMA loads.
 #pragma once
-#include <cuda.h>  // CUtensorMap (types only: attention.cu looks the encoder up at run time)
+#include <cuda.h>  // CUtensorMap (types only: the encoder is looked up at run time)
 #include <stdint.h>
 
 #include "common.cuh"
@@ -170,11 +171,74 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (+)= A B, m64n64k16: A [64 x 16] from registers as in wgmma_rs, B
+// [16 x 64] K-major in shared memory (its 64 columns rows of 16 K values, as
+// wgmma_ss_n64's B); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_rs_kmajor_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "
+      "%36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // 2^x on the special-function unit (results below 2^-126 flush to 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+
+// ------------------------------------------------------- host: tensor maps
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [bh, n, DH] bf16 tensor as a 3-D tensor map of [rows, DH] boxes, swizzled
+// by a row's bytes
+template <int DH>
+bool encode(CUtensorMap* map, const void* ptr, int bh, int n, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {DH, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {2 * DH, (cuuint64_t)n * 2 * DH};
+  const cuuint32_t box[3] = {DH, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = DH == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory
 
 }  // namespace

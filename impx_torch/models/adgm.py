@@ -7,8 +7,9 @@ it. On a pooling iteration a keypoint survives if its row (column) mass in
 the assignment plan reaches mscore_th, or if either of its attention masses
 (summed over heads and queries, normalised) reaches the median of the
 score-surviving set; an image never pools below n_min_tokens kept keypoints.
-The masses come from the q/k states the layers carry, through the
-attention-mass kernel, so the probabilities never reach device memory.
+The masses come from the q/k states the layers carry and, on the kernel
+path, each layer's row log-sum-exp, through the attention-mass kernel, so the
+probabilities never reach device memory.
 
 Not ported yet (the training slice): pool_masks from probability tensors,
 forward_train and the ground-truth masking; EIMP under the log-domain head
@@ -45,18 +46,27 @@ class AdaGMN(DGNNS):
             raise NotImplementedError("AdaGMN (EIMP) with log_ot is not ported")
         super().__init__(config, device, seed, use_kernels)
 
-    def _key_masses(self, qk_self, qk_cross, keep0, keep1, qmask0, qmask1):
+    def _key_masses(self, qk_self, qk_cross, keep0, keep1, qmask0, qmask1, lse_self=None,
+                    lse_cross=None):
         """Normalised key masses (n00, n01, n11, n10) from the stacked q/k
         states [2B, H, N, dh], in two launches: the self state's keys are
         [image 0; image 1] under [keep0; keep1], the cross state's (source
         swapped) [image 1; image 0] under [keep1; keep0]; the queries that
         count are [qmask0; qmask1] in both (impx/models/fast.py:668-681).
-        n01 has queries in image 1 and keys in image 0; n10 the reverse."""
-        mass = attention_key_mass if self.use_kernels else attention_key_mass_reference
+        n01 has queries in image 1 and keys in image 0; n10 the reverse.
+        lse_self, lse_cross [2B, H, N]: the row lse of the layers' attention
+        over those keys, which the kernel path then does not recompute; the
+        plain path computes the masses from q and k alone."""
         b = keep0.shape[0]
         qmask = torch.cat([qmask0, qmask1], dim=0)
-        m_self = mass(*qk_self, torch.cat([keep0, keep1], dim=0), qmask)
-        m_cross = mass(*qk_cross, torch.cat([keep1, keep0], dim=0), qmask)
+
+        def mass(q, k, key_mask, lse):
+            if not self.use_kernels:
+                return attention_key_mass_reference(q, k, key_mask, qmask)
+            return attention_key_mass(q, k, key_mask, qmask, lse)
+
+        m_self = mass(*qk_self, torch.cat([keep0, keep1], dim=0), lse_self)
+        m_cross = mass(*qk_cross, torch.cat([keep1, keep0], dim=0), lse_cross)
         return (_normalise(m_self[:b]), _normalise(m_cross[b:]),
                 _normalise(m_self[b:]), _normalise(m_cross[:b]))
 

@@ -186,16 +186,20 @@ def _eimp_step(model, i: int, state: tuple, b: int, p: float, th: float, do_pool
     reference keeps discarded keypoints as queries). Then the per-iteration
     head: final_proj[i], Sinkhorn statistics and matches under the keep masks,
     and, on pooling iterations, two key-mass launches and the pooling rule.
+    On the kernel path a pooling iteration's two layers also return their
+    row lse (kernel 4), over the very q, k and key masks that the masses
+    use, so each mass is one pass; the plain path computes them from q, k.
     Returns (state, (indices0, mscores0, u, v, keep0, keep1 used))."""
     cfg = model.config
     desc, qk_self, qk_cross, keep0, keep1, full0, full1 = state
     keep = torch.cat([keep0, keep1], dim=0)
     keep_swap = torch.cat([keep1, keep0], dim=0)
     full = torch.cat([full0, full1], dim=0)
-    kw = dict(ac_fn=cfg.ac_fn, use_kernels=model.use_kernels)
-    delta, qk_self = model.gnn[2 * i](desc, desc, qk_self, keep, full, **kw)
+    kw = dict(ac_fn=cfg.ac_fn, use_kernels=model.use_kernels, with_lse=do_pool and model.use_kernels)
+    delta, qk_self, *lse_self = model.gnn[2 * i](desc, desc, qk_self, keep, full, **kw)
     desc = desc + delta
-    delta, qk_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, keep_swap, full, **kw)
+    delta, qk_cross, *lse_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, keep_swap, full,
+                                                      **kw)
     desc = desc + delta
 
     dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=i)
@@ -204,7 +208,7 @@ def _eimp_step(model, i: int, state: tuple, b: int, p: float, th: float, do_pool
     idx0, _, ms0, _ = matches_from_stats(stats["max0"], stats["idx0"], stats["idx1"], p, keep0, keep1)
     out = (idx0, ms0, stats["u"], stats["v"], keep0, keep1)
     if do_pool:
-        masses = model._key_masses(qk_self, qk_cross, keep0, keep1, full0, full1)
+        masses = model._key_masses(qk_self, qk_cross, keep0, keep1, full0, full1, *lse_self, *lse_cross)
         keep0, keep1 = model._pool_from_masses(stats["rowmass"], stats["colmass"], *masses,
                                                keep0, keep1, th, cfg.n_min_tokens)
     return (desc, qk_self, qk_cross, keep0, keep1, full0, full1), out

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from impx_torch.ops.attention import merge_heads, project_heads
-from impx_torch.ops.kernels.attention import MhaFunction, MhaLseFunction, mha_fused
+from impx_torch.ops.kernels.attention import MhaFunction, MhaLseFunction, mha_fused, mha_fused_lse
 from impx_torch.ops.mlp import dense_apply, mlp_apply
 
 
@@ -120,14 +120,17 @@ class AttentionalPropagation(nn.Module):
         self.mlp.reset_parameters(generator)
 
     def forward(self, x, source, qk, key_mask, query_mask, *, ac_fn: str, use_kernels: bool = True,
-                lse_core: bool = False, attn_dtype: torch.dtype | None = None):
+                lse_core: bool = False, attn_dtype: torch.dtype | None = None, with_lse: bool = False):
         """x, source [B, N, D] in the stream dtype; `qk` the (q, k) carried from
         the previous layer of this kind (used only by shared layers). Returns
         (delta, (q, k)) with q/k [B, H, N, dh]. use_kernels=False runs the
         plain versions of the kernels; lse_core picks route B's attention.
         attn_dtype: GM's contract (impx/ops/attention.py:114-120), q/k/v
         projected in the stream dtype and cast to it for the attention core;
-        the fast path's stream is already in the compute dtype."""
+        the fast path's stream is already in the compute dtype. with_lse
+        (inference, kernel path): the attention is kernel 4, and the return
+        is (delta, (q, k), lse) with each query row's log-sum-exp [B, H, N]
+        fp32, from which EIMP's key masses take one pass."""
         h = self.num_heads
         if self.shared:
             q, k = qk
@@ -141,6 +144,9 @@ class AttentionalPropagation(nn.Module):
             merge = a["merge"]
         if attn_dtype is not None:
             q, k, v = q.to(attn_dtype), k.to(attn_dtype), v.to(attn_dtype)
+        if with_lse:
+            out, lse = mha_fused_lse(q, k, v, key_mask)
+            return self.tail(x, out, merge, query_mask, ac_fn), (q, k), lse
         if use_kernels and not lse_core:
             out = mha_fused(q, k, v, key_mask)
         else:  # the plain versions keep the kernels' residuals: q, k, v (and o, lse)

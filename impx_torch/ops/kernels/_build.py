@@ -47,11 +47,14 @@ SIGNATURES = {
         "impx_mha_bwd_lse": [_P] * 11 + [_I] * 6 + [_P],
     },
     "attention_mass": {
-        # q, k, key_mask, query_mask, partial, out, batch*heads, heads, nq,
-        # nk, dh, is_bf16, stream
-        "impx_attention_key_mass": [_P] * 6 + [_I] * 6 + [_P],
-        # () -> query rows per block, which size the partial buffer
-        "impx_attention_key_mass_block_q": [],
+        # q, k, key_mask, query_mask (bool or null), lse, batch*heads, heads,
+        # nq, nk, dh, is_bf16, stream
+        "impx_attention_row_lse": [_P] * 5 + [_I] * 6 + [_P],
+        # q, k, key_mask, query_mask, lse, partial (null for one split), out,
+        # batch*heads, heads, nq, nk, dh, is_bf16, splits, stream
+        "impx_attention_key_mass": [_P] * 7 + [_I] * 7 + [_P],
+        # batch, heads, nq, nk, is_bf16, SMs -> the default split count
+        "impx_attention_key_mass_splits": [_I] * 6,
     },
     "log_sinkhorn": {
         # dist, bin, valid0, valid1 (bool or null), overflow rows, u, v, max0,

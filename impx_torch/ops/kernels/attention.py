@@ -38,9 +38,11 @@ Both backward kernels live in impx_torch/csrc/attention_bwd.cu.
 
 `attention_key_mass` replaces impx/ops/pallas/attention.py:attention_key_mass
 (:422, kernel `_mass_kernel` :395), which carries one [Nk] sum across a
-sequential (head, query-block) grid. Blocks on the H100 run in parallel and
-carry nothing, so impx_torch/csrc/attention_mass.cu writes one partial row
-per (head, 64-query tile) and a second launch sums them in a fixed order.
+sequential (head, query-block) grid. impx_torch/csrc/attention_mass.cu takes
+each query row's log-sum-exp, from the caller (EIMP's pooling layers run
+kernel 4 on the same q, k and key mask) or from a row-lse launch of its own,
+and sums p = exp(s - lse) over heads and queries in one pass: one CTA per
+128 keys, the sum over queries in each thread's registers, a fixed order.
 """
 from __future__ import annotations
 
@@ -351,32 +353,70 @@ def attention_key_mass_reference(q, k, key_mask=None, query_mask=None):
     return torch.einsum("bhqk,bq->bk", p, query_mask.to(torch.float32))
 
 
-def attention_key_mass(q, k, key_mask=None, query_mask=None):
+def attention_key_mass_from_lse_reference(q, k, key_mask, query_mask, lse):
+    """Plain version of the mass from each query row's log-sum-exp lse
+    [B,H,Nq] fp32 (as `mha_lse_reference` gives it): p = exp(s - lse), 0 at a
+    masked key, weighted by query_mask, summed over heads and queries. In a
+    batch with no valid key, lse is -1e30 and exp(s - lse) would be 1 a key,
+    so that batch takes the reference's uniform 1/Nk instead."""
+    p = torch.exp(_scores(q, k, key_mask) - lse[..., None])
+    if key_mask is not None:
+        none_valid = ~key_mask.bool().any(dim=1)
+        p = torch.where(none_valid[:, None, None, None], 1.0 / k.shape[2], p)
+    if query_mask is None:
+        return p.sum(dim=(1, 2))
+    return torch.einsum("bhqk,bq->bk", p, query_mask.to(torch.float32))
+
+
+def _bool_mask(mask):
+    """A mask as the mass kernels read it, one byte an entry: a contiguous
+    bool mask as it is (no device operation), any other cast to bool."""
+    return None if mask is None else mask.bool().contiguous()
+
+
+def attention_key_mass(q, k, key_mask=None, query_mask=None, lse=None, splits=None):
     """Per-key attention mass, q [B,H,Nq,dh], k [B,H,Nk,dh], masks [B,Nk] and
-    [B,Nq] -> [B, Nk] fp32. CPU tensors run `attention_key_mass_reference`;
-    CUDA tensors launch the kernels in impx_torch/csrc/attention_mass.cu (a
-    pass per 64-query tile into partial sums, then a fixed-order sum: no
-    atomics, the same bits on every run) or raise."""
+    [B,Nq] (0/1) -> [B, Nk] fp32. lse [B,H,Nq] fp32, if given, is each query
+    row's log-sum-exp over the same keys and key mask (kernel 4's second
+    output). CPU tensors run `attention_key_mass_reference`, or with lse
+    `attention_key_mass_from_lse_reference`; CUDA tensors launch
+    impx_torch/csrc/attention_mass.cu or raise: the row lse first when lse is
+    None, then the mass in one pass. `splits` (for measurement; None takes
+    the default, as many CTAs as the card has SMs) divides the (head, query
+    tile) items among CTAs, and a second launch sums their partial rows when
+    it is above 1. No atomics: the same bits on every run."""
     if q.device.type == "cpu":
-        return attention_key_mass_reference(q, k, key_mask, query_mask)
+        if lse is None:
+            return attention_key_mass_reference(q, k, key_mask, query_mask)
+        return attention_key_mass_from_lse_reference(q, k, key_mask, query_mask, lse)
     if q.device.type != "cuda":
         raise ValueError(f"no attention-mass kernel for device {q.device}")
     _check(q, k, key_mask=key_mask, query_mask=query_mask)
+    if lse is not None:
+        _check_like("lse", lse, q[..., 0], torch.float32)
     b, h, nq, dh = q.shape
     nk = k.shape[2]
-    km = None if key_mask is None else key_mask.to(torch.float32).contiguous()
-    qm = None if query_mask is None else query_mask.to(torch.float32).contiguous()
+    km, qm = _bool_mask(key_mask), _bool_mask(query_mask)
     lib = _build.load("attention_mass")
+    bf16 = int(q.dtype == torch.bfloat16)
+    if splits is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = lib.impx_attention_key_mass_splits(b, h, nq, nk, bf16, sms)
     f32 = dict(dtype=torch.float32, device=q.device)
-    partial = torch.empty((b, h * -(-nq // lib.impx_attention_key_mass_block_q()), nk), **f32)
     out = torch.empty((b, nk), **f32)
+    partial = torch.empty((splits, b, nk), **f32) if splits > 1 else None
+    sizes = (b * h, h, nq, nk, dh, bf16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         attention_key_mass.launches += 1
-        err = lib.impx_attention_key_mass(
-            q.data_ptr(), k.data_ptr(), None if km is None else km.data_ptr(),
-            None if qm is None else qm.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            b * h, h, nq, nk, dh, int(q.dtype == torch.bfloat16), stream)
+        if lse is None:
+            lse = torch.empty((b, h, nq), **f32)
+            err = lib.impx_attention_row_lse(q.data_ptr(), k.data_ptr(), _ptr(km), _ptr(qm),
+                                             lse.data_ptr(), *sizes, stream)
+            _build.check(err, "impx_attention_row_lse")
+        err = lib.impx_attention_key_mass(q.data_ptr(), k.data_ptr(), _ptr(km), _ptr(qm),
+                                          lse.data_ptr(), _ptr(partial), out.data_ptr(), *sizes,
+                                          splits, stream)
     _build.check(err, "impx_attention_key_mass")
     return out
 

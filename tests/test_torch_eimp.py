@@ -10,6 +10,8 @@ third of the keypoints are valid, scattered, and the two images differ. So
 some keypoints match, the rest can be pooled away, and every survivor fits a
 128 bucket.
 """
+import collections
+
 import numpy as np
 import pytest
 
@@ -25,6 +27,7 @@ from impx.tools.convert_torch import matcher_state_dict
 
 from impx_torch.models import AdaGMN, MatcherConfig
 from impx_torch.models.adgm import masked_median
+from impx_torch.ops.kernels import attention as kernels_attention
 from impx_torch.ops.kernels.attention import attention_key_mass
 from impx_torch.tools.convert import load_reference_state_dict, params_from_jax
 
@@ -170,6 +173,25 @@ def test_mask_only_fp32_equals_impx(mask_only_fp32, data):
     removed = [data[f"valid{i}"].sum(axis=1) - out[f"keep{i}"].numpy().sum(axis=1) for i in (0, 1)]
     assert min(removed[0].min(), removed[1].min()) > 0, removed
     assert ((out["indices0"][-1].numpy() >= 0).sum(axis=1) >= 5).all()
+
+
+def test_pooling_takes_the_row_lse_of_its_layers(weights, data, monkeypatch):
+    """The kernel path's route, through the wrappers' plain bodies on the
+    CPU: per call, the two layers of each pooling iteration (3 and 5) run the
+    lse forward (kernel 4's plain version) and the four key masses take its
+    lse (the plain mass from lse, never the two-pass one); the other eight
+    layers run kernel 1's plain version."""
+    calls = collections.Counter()
+    for name in ("mha_reference", "mha_lse_reference", "attention_key_mass_from_lse_reference",
+                 "attention_key_mass_reference"):
+        def counted(*args, _name=name, _fn=getattr(kernels_attention, name)):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(kernels_attention, name, counted)
+    model = AdaGMN(MatcherConfig(**SMALL), device="cpu")
+    model.load_state_dict(weights[1])
+    model.produce_matches(data, only_last=True, with_scores=False)
+    assert calls == {"mha_reference": 8, "mha_lse_reference": 4, "attention_key_mass_from_lse_reference": 4}
 
 
 def test_run_api_matches_impx(weights, data, mask_only_fp32):

@@ -367,41 +367,68 @@ def test_matcher_kernel_path_matches_plain_path(cuda_device, compute_dtype):
     assert ((idx >= 0).sum(dim=1) >= 45).all()  # a quarter of the 180 valid rows
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,nq,nk,dh", [(4, 128, 192, 64), (2, 100, 77, 32)])
-def test_attention_key_mass_kernel_matches_plain(cuda_device, dtype, h, nq, nk, dh):
-    """Against the plain version on the card: summation order only, so rtol
-    1e-4 and atol 1e-6; a second run on the same inputs gives the same bits
-    (no atomics)."""
+def _mass_inputs(device, dtype, h, nq, nk, dh):
+    """attention_inputs' key masks (batch 2 fully masked) and a query mask
+    with zeros."""
     q, k, _, mask = attention_inputs(h=h, nq=nq, nk=nk, dh=dh)
     qmask = np.random.RandomState(1).rand(q.shape[0], nq) > 0.3
-    q, k = (torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k))
-    mask, qmask = (torch.from_numpy(x).to(cuda_device) for x in (mask, qmask))
+    q, k = (torch.from_numpy(x).to(device, dtype) for x in (q, k))
+    return (q, k, *(torch.from_numpy(x).to(device) for x in (mask, qmask)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["lse", "standalone"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,nq,nk,dh", [(4, 128, 192, 64), (2, 100, 77, 32), (2, 300, 260, 16)])
+def test_attention_key_mass_kernel_matches_plain(cuda_device, dtype, h, nq, nk, dh, route):
+    """Against the plain version on the card, from kernel 4's row lse (the lse
+    route, EIMP's) or from the wrapper's own (standalone): summation order
+    only, so rtol 1e-4 and atol 1e-6, the fully masked batch 2 included (H *
+    kept queries / Nk on every key); a second run on the same inputs gives
+    the same bits (no atomics)."""
+    q, k, mask, qmask = _mass_inputs(cuda_device, dtype, h, nq, nk, dh)
+    lse = mha_fused_lse(q, k, k, mask)[1] if route == "lse" else None
     before = attention_key_mass.launches
-    out = attention_key_mass(q, k, mask, qmask)
-    again = attention_key_mass(q, k, mask, qmask)
+    out = attention_key_mass(q, k, mask, qmask, lse)
+    again = attention_key_mass(q, k, mask, qmask, lse)
     torch.cuda.synchronize()
     assert attention_key_mass.launches == before + 2
     assert torch.equal(out, again)
     ref = attention_key_mass_reference(q, k, mask, qmask)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(out[2], torch.full_like(out[2], h * qmask[2].sum().item() / nk), rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_key_mass_splits_agree(cuda_device, dtype):
+    """Any split of the (head, query tile) items gives the plain version's
+    mass, each split count the same bits twice; more splits than items leave
+    some empty."""
+    q, k, mask, qmask = _mass_inputs(cuda_device, dtype, 4, 300, 260, 32)
+    lse = mha_fused_lse(q, k, k, mask)[1]
+    ref = attention_key_mass_reference(q, k, mask, qmask)
+    for splits in (1, 2, 3, 8, 40):
+        out = attention_key_mass(q, k, mask, qmask, lse, splits=splits)
+        assert torch.equal(out, attention_key_mass(q, k, mask, qmask, lse, splits=splits)), splits
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("compaction", [(), ((4, 128),)], ids=["mask-only", "compacted"])
 def test_adagmn_kernel_path_matches_plain_path(cuda_device, compaction):
-    """EIMP at fp32 on the card: 12 attention launches, 6 Sinkhorn calls and 4
-    mass launches (2 at each of the pooling iterations 3 and 5) per call."""
+    """EIMP at fp32 on the card, per call: 8 launches of kernel 1 and 4 of
+    kernel 4 (the two layers of each of the pooling iterations 3 and 5, whose
+    row lse the masses take), 6 Sinkhorn calls and 4 mass launches."""
     cfg = MatcherConfig(descriptor_dim=64, keypoint_encoder=(32, 64), n_layers=6, num_heads=4,
                         norm_fn="in", n_min_tokens=16, compaction=compaction)
     model = AdaGMN(cfg, device=cuda_device)
     model.bin_score.data.fill_(6.0)  # unmatched rows' mass to the dustbin: pooling drops them
     data = overlap_pairs(np.random.RandomState(0), 2, 256, 64, valid_share=0.35)
-    kernels = (mha_fused, sinkhorn_fused_stats, attention_key_mass)
+    kernels = (mha_fused, mha_fused_lse, sinkhorn_fused_stats, attention_key_mass)
     before = [fn.launches for fn in kernels]
     out = model.produce_matches(data, only_last=True, with_scores=False)
-    assert [fn.launches - n for fn, n in zip(kernels, before)] == [12, 6, 4]
+    assert [fn.launches - n for fn, n in zip(kernels, before)] == [8, 4, 6, 4]
     model.use_kernels = False
     ref = model.produce_matches(data, only_last=True, with_scores=False)
     valid0 = torch.from_numpy(data["valid0"]).to(cuda_device)
