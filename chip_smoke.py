@@ -56,7 +56,17 @@ bf16, 4 pairs of 2048 keypoints): launches per call, agreement with the plain
 path, pairs_per_s and a profile; (15) SuperGlue at its published configuration
 (9 layers, D = 256, 100 Sinkhorn iterations, batch norm from random running
 statistics, weights carried through the reference SuperGlue layout), the same
-checks. The line before the last lists the kernels as JSON; the last line is
+checks; (16) the eval CLI's loop, impx_torch.eval.eval_imp.evaluate, at the
+YFCC eval config (16 synthetic pairs of 2000 keypoints, bucket 2048, batch 4,
+15 layers, D = 256, random weights carried through the reference layout, the
+on-device pose backend): the backend's pose recovery on each pair's true
+correspondences with 30% outliers; IMP at fp32 (the CLI's default) and bf16
+on the kernel and the plain path (launches per batch, indices0 agreement,
+equal pose errors on equal match sets) and EIMP mask-only at bf16;
+pairs_per_s of the loop and its split (matcher, device pose, host metrics),
+a profiled batch of the pose stage and of the fp32 matcher with kernel 1's
+fp32 and kernel 2's time a launch beside their bounds. The line before the
+last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
 """
@@ -71,6 +81,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 outside them, HBM
@@ -991,6 +1002,259 @@ def time_eimp(dev, models, mods, err, launches):
             "bound_by": m_by, "library_ms": None}
 
 
+# ---------------------------------------------------------------- the eval path
+# configs/yfcc_eval_gm.yaml: SuperPoint at 2000 keypoints (bucket round_up(2000,
+# 128) = 2048), the evaluator's inlier_th; YFCC's pose threshold is 1 pixel
+# (impx_torch/eval/eval_imp.py:main). The values are written out here: the
+# phase reads no YAML and no HDF5 (the card's machine has no h5py).
+EVAL_PAIRS, EVAL_BATCH, EVAL_KPT = 16, 4, 2000
+EVAL_CONFIG = {"rescale": 1600, "inlier_th": 0.005}
+EVAL_ERROR_PX = 1.0
+# synthesize_pair's descriptors have unit norm; random weights then match
+# almost no true pair (tests/test_torch_eval.py). At 16x, unit variance an
+# entry as the main path's pairs, they match every true pair at N = 256.
+EVAL_DESC_SCALE = 16.0
+POSE_EQUAL_DEG = 1e-3             # pose errors of equal match sets, kernel vs plain path
+# pose recovery from true correspondences plus random pairings of outlier
+# keypoints (30% of the set), at tests/test_ransac.py:25-45's limits, held on
+# every pair with at least RECOVERY_MIN_TRUE true correspondences. A pair whose
+# views overlap little has fewer, bunched in a corner of the image: one with 320
+# gives translation errors of 1.35-3.59 deg under impx's estimate_pose_jax
+# (three keys) and the port alike, so those pairs are printed, not held.
+RECOVERY_OUTLIER_SHARE = 0.3
+RECOVERY_DEG, RECOVERY_RECALL_MIN, RECOVERY_ADMIT_MAX = 1.5, 0.8, 0.1
+RECOVERY_MIN_TRUE = 500
+
+
+class SyntheticReader:
+    """StandardReader's interface (num_kpt, __len__, run(index)) over seeded
+    pairs of impx_torch.data.synthetic at the YFCC eval widths (256-wide
+    descriptors, 640 x 480, about 1000 true correspondences and 1000 outliers a
+    side): run returns StandardReader.run's dict, t L2-normalised, keypoints
+    truncated to num_kpt; descriptors scaled by EVAL_DESC_SCALE."""
+
+    def __init__(self, n_pairs: int, num_kpt: int, seed: int, n_inliers: int = 1000, n_outliers: int = 1000):
+        from impx_torch.data.synthetic import synthesize_pair
+
+        rs = np.random.RandomState(seed)
+        self.pairs = [synthesize_pair(rs, n_inliers=n_inliers, n_outliers0=n_outliers,
+                                      n_outliers1=n_outliers, desc_dim=D, image_size=(480, 640))
+                      for _ in range(n_pairs)]
+        self.num_kpt = num_kpt
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def run(self, index: int) -> dict:
+        p, k = self.pairs[index], self.num_kpt
+        t = p["T"] / (p["T"] ** 2).sum() ** 0.5
+        return {"index": index, "K1": p["K1"], "K2": p["K2"], "R": p["R"], "t": t,
+                "x1": p["kpt1"][:k], "x2": p["kpt2"][:k],
+                "desc1": EVAL_DESC_SCALE * p["desc1"][:k], "desc2": EVAL_DESC_SCALE * p["desc2"][:k],
+                "e": p["e"], "f": p["f"], "r_gt": p["R"], "t_gt": t,
+                "img_size1": tuple(p["img_size1"]), "img_size2": tuple(p["img_size2"])}
+
+
+class EvalArgs:
+    """evaluate's arguments as the CLI gives them, with the device pose backend."""
+    max_pairs, bucket, eval_batch, pose_backend = -1, -1, EVAL_BATCH, "device"
+
+
+def pose_recovery(dev, reader):
+    """The device backend on each pair's true correspondences plus random
+    pairings of outlier keypoints (RECOVERY_OUTLIER_SHARE of the set), at the
+    eval threshold, one generator a pair. Fails unless every pair with at
+    least RECOVERY_MIN_TRUE true correspondences meets the limits (and they
+    are at least half the pairs). Returns the first EVAL_BATCH pairs' (x0, x1 normalized numpy,
+    threshold, index)."""
+    from impx_torch.eval.evaluator import pair_generator
+    from impx_torch.geometry.pose import angle_error_mat, angle_error_vec
+    from impx_torch.ransac.pose_solver import _norm_threshold, estimate_pose_device
+
+    rs = np.random.RandomState(21)
+    rows, inputs = [], []
+    for i, p in enumerate(reader.pairs):
+        gt = p["gt_matches"]
+        n_in = len(gt)
+        n_out = int(round(n_in * RECOVERY_OUTLIER_SHARE / (1 - RECOVERY_OUTLIER_SHARE)))
+        out0 = np.setdiff1d(np.arange(len(p["kpt1"])), gt[:, 0])
+        out1 = np.setdiff1d(np.arange(len(p["kpt2"])), gt[:, 1])
+        i0 = np.concatenate([gt[:, 0], rs.choice(out0, n_out)])
+        i1 = np.concatenate([gt[:, 1], rs.choice(out1, n_out)])
+        norm = lambda x, K: (x[:, :2] - K[:2, 2]) / np.array([K[0, 0], K[1, 1]])  # noqa: E731
+        n0, n1 = norm(p["kpt1"][i0], p["K1"]), norm(p["kpt2"][i1], p["K2"])
+        x0 = torch.tensor(n0, dtype=torch.float32, device=dev)
+        x1 = torch.tensor(n1, dtype=torch.float32, device=dev)
+        thresh = _norm_threshold(EVAL_ERROR_PX, p["K1"], p["K2"])
+        out = estimate_pose_device(pair_generator(dev, 0, i), x0, x1,
+                                   torch.ones(len(i0), dtype=torch.bool, device=dev), thresh)
+        err_R = float(angle_error_mat(torch.tensor(p["R"], dtype=torch.float32), out["R"].cpu()))
+        err_t = float(angle_error_vec(torch.tensor(p["T"], dtype=torch.float32), out["t"].cpu()))
+        inl = out["inliers"].cpu()
+        rows.append((n_in, err_R, err_t, inl[:n_in].float().mean().item(), inl[n_in:].float().mean().item()))
+        if len(inputs) < EVAL_BATCH:
+            inputs.append((n0, n1, thresh, i))
+    held = [r for r in rows if r[0] >= RECOVERY_MIN_TRUE]
+    say(f"eval pose recovery, threshold {EVAL_ERROR_PX} px, true correspondences plus "
+        f"{RECOVERY_OUTLIER_SHARE:.0%} outliers, per pair (true, rotation deg, translation deg, recall, "
+        f"admission): {[(n, round(r, 4), round(t, 4), round(c, 4), round(a, 4)) for n, r, t, c, a in rows]}")
+    worst = [max(r[1] for r in held), max(r[2] for r in held), min(r[3] for r in held), max(r[4] for r in held)]
+    say(f"eval pose recovery over the {len(held)} of {len(rows)} pairs with at least {RECOVERY_MIN_TRUE} true "
+        f"correspondences: worst rotation error {worst[0]:.4f} deg, translation {worst[1]:.4f} deg (max "
+        f"{RECOVERY_DEG}), inlier recall {worst[2]:.4f} (min {RECOVERY_RECALL_MIN}), outlier admission "
+        f"{worst[3]:.4f} (max {RECOVERY_ADMIT_MAX})")
+    if (len(held) < len(rows) // 2 or worst[0] >= RECOVERY_DEG or worst[1] >= RECOVERY_DEG
+            or worst[2] <= RECOVERY_RECALL_MIN or worst[3] >= RECOVERY_ADMIT_MAX):
+        fail("the device pose backend did not recover the pose on every pair it is held on")
+    return inputs
+
+
+@contextlib.contextmanager
+def recording_eval(eval_imp, model):
+    """Records, for one `evaluate` run, each pair's (indices0, number of
+    keypoints, pose error), each matcher call's CUDA events, and the host
+    seconds of each pair's device pose and of its whole scoring."""
+    rec = {"pairs": [], "matcher": [], "pose_s": 0.0, "score_s": 0.0}
+    score, pose, produce = eval_imp._score_pair, eval_imp.device_pose, model.produce_matches
+
+    def produce_timed(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = produce(*a, **k)
+        end.record()
+        rec["matcher"].append((start, end))
+        return out
+
+    def pose_timed(*a, **k):
+        t0 = time.perf_counter()
+        out = pose(*a, **k)     # ends in a copy to the host
+        rec["pose_s"] += time.perf_counter() - t0
+        return out
+
+    def score_recorded(info, x0, x1, matches, bucket, pose_errors, *a, **k):
+        t0 = time.perf_counter()
+        score(info, x0, x1, matches, bucket, pose_errors, *a, **k)
+        rec["score_s"] += time.perf_counter() - t0
+        rec["pairs"].append((matches.copy(), len(info["x1"]), pose_errors[-1]))
+
+    eval_imp._score_pair, eval_imp.device_pose, model.produce_matches = score_recorded, pose_timed, produce_timed
+    try:
+        yield rec
+    finally:
+        eval_imp._score_pair, eval_imp.device_pose = score, pose
+        del model.produce_matches
+
+
+def eval_run(label, eval_imp, model, reader, kernels, want):
+    """`evaluate` over the reader with the device pose backend (launch counts
+    set to 0 just before, read just after; `want` per batch, the rest 0).
+    Prints pairs/s, the split and the metrics; returns the recorded pairs."""
+    from impx_torch.data.reader import round_up
+
+    n_batches = -(-len(reader) // EVAL_BATCH)
+    for fn in kernels.values():
+        fn.launches = 0
+    with recording_eval(eval_imp, model) as rec:
+        t0 = time.perf_counter()
+        res = eval_imp.evaluate(model, reader, EVAL_ERROR_PX, EVAL_CONFIG, EvalArgs())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    expect = {**dict.fromkeys(kernels, 0), **{k: n * n_batches for k, n in want.items()}}
+    matcher_ms = [s.elapsed_time(e) for s, e in rec["matcher"]]
+    n = len(rec["pairs"])
+    say(f"eval {label}: pairs_per_s {n / wall:.2f} over {n} pairs (evaluate {wall:.3f} s, batch {EVAL_BATCH}, "
+        f"bucket {round_up(reader.num_kpt, 128)}); matcher {statistics.median(matcher_ms):.3f} ms a batch "
+        f"(median of {len(matcher_ms)}, CUDA events); device pose {1e3 * rec['pose_s'] / n:.3f} ms a pair; "
+        f"host metrics {1e3 * (rec['score_s'] - rec['pose_s']) / n:.3f} ms a pair; reader, feed and the "
+        f"rest {1e3 * (wall - rec['score_s']) / n_batches - statistics.median(matcher_ms):.3f} ms a batch")
+    say(f"eval {label} launches over {n_batches} batches: {launches}")
+    if launches != expect:
+        fail(f"eval {label} did not run through the kernels as expected: {launches}, want {expect}")
+    errs = [p[2] for p in rec["pairs"]]
+    say(f"eval {label} (random weights, not an accuracy figure): AUC@5/10/20 "
+        f"{res['auc'][5]:.2f}/{res['auc'][10]:.2f}/{res['auc'][20]:.2f}, precision {res['precision']:.2f}, "
+        f"matching score {res['matching_score']:.2f}; matches a pair {[int((p[0] > -1).sum()) for p in rec['pairs']]}; "
+        f"pairs with a pose {sum(e < float('inf') for e in errs)} of {n}")
+    if n != len(reader) or not all(e == e for e in errs):
+        fail(f"eval {label}: {n} pairs scored of {len(reader)}, or a NaN pose error")
+    return rec["pairs"]
+
+
+def compare_eval_paths(label, kernel_pairs, plain_pairs):
+    """indices0 agreement over valid rows (E2E_AGREE_MIN), and equal pose
+    errors (POSE_EQUAL_DEG) on every pair whose two match sets are equal:
+    both draw from the same per-pair generator."""
+    same_rows = sum(int((k[0][:k[1]] == p[0][:p[1]]).sum()) for k, p in zip(kernel_pairs, plain_pairs))
+    rows = sum(k[1] for k in kernel_pairs)
+    equal_sets = [(k[2], p[2]) for k, p in zip(kernel_pairs, plain_pairs) if np.array_equal(k[0], p[0])]
+    diffs = [0.0 if a == b else abs(a - b) for a, b in equal_sets]
+    worst = max(diffs, default=0.0)
+    say(f"eval {label} kernel vs plain path: indices0 agreement {same_rows / rows:.4f} (min {E2E_AGREE_MIN}) "
+        f"over valid rows; {len(equal_sets)} of {len(kernel_pairs)} pairs with equal match sets, their pose "
+        f"errors differ by at most {worst:.3e} deg (max {POSE_EQUAL_DEG})")
+    if same_rows / rows < E2E_AGREE_MIN or not worst <= POSE_EQUAL_DEG:
+        fail(f"eval {label}: the kernel path disagrees with the plain path")
+
+
+def eval_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict):
+    """The eval CLI's loop (impx_torch.eval.eval_imp.evaluate) at the YFCC eval
+    config with the device pose backend: IMP at fp32 (the CLI's default) and
+    bf16 on the kernel and the plain path, EIMP mask-only at bf16; the pose
+    backend's recovery on true correspondences; one profiled batch of the pose
+    stage and of the fp32 matcher."""
+    from impx_torch.data.reader import round_up
+    from impx_torch.eval import eval_imp
+    from impx_torch.eval.evaluator import device_pose, pair_generator
+    from impx_torch.models.fast import _eimp_do_pool
+
+    t_phase = time.perf_counter()
+    reader = SyntheticReader(EVAL_PAIRS, EVAL_KPT, seed=20)
+    recovery_inputs = pose_recovery(dev, reader)
+    fp32_model = None
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype=dtype)
+        imp_want = {"mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1}
+        model = carried_model(DGNNS, cfg, dev, reference_layout, load_reference_state_dict)
+        kernel_pairs = eval_run(f"IMP {dtype} kernel path", eval_imp, model, reader, kernels, imp_want)
+        model.use_kernels = False
+        plain_pairs = eval_run(f"IMP {dtype} plain path", eval_imp, model, reader, kernels, {})
+        model.use_kernels = True
+        compare_eval_paths(f"IMP {dtype}", kernel_pairs, plain_pairs)
+        if dtype == "float32":
+            fp32_model = model
+    cfg = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="bfloat16")
+    model = carried_model(AdaGMN, cfg, dev, reference_layout, load_reference_state_dict)
+    pools = sum(_eimp_do_pool(cfg))   # a pooling iteration's two layers run kernel 4
+    eval_run("EIMP mask-only bfloat16 kernel path", eval_imp, model, reader, kernels,
+             {"mha_fused": 2 * (cfg.n_layers - pools), "mha_fused_lse": 2 * pools,
+              "sinkhorn_fused_stats": cfg.n_layers, "attention_key_mass": 2 * pools})
+    del model
+
+    # one profiled batch of the pose stage: device operations a pair, idle share
+    profile_calls(f"eval device pose ({EVAL_BATCH} pairs, one call a pair)",
+                  lambda a: device_pose(*a[:3], dev, pair_generator(dev, 0, a[3])), recovery_inputs)
+    # the fp32 matcher (the CLI's default dtype): kernel 1's fp32 and kernel 2's time a launch
+    feeds = []
+    for start in range(0, EVAL_BATCH * EVAL_BATCH, EVAL_BATCH):
+        batch = [eval_imp._pair_feed_np(reader.run(i % len(reader)), round_up(EVAL_KPT, 128))[0]
+                 for i in range(start, start + EVAL_BATCH)]
+        feeds.append({k: torch.from_numpy(np.stack([f[k] for f in batch])).to(dev) for k in batch[0]})
+    groups = profile_calls(f"eval IMP float32 produce_matches B={EVAL_BATCH} N={round_up(EVAL_KPT, 128)}",
+                           lambda d: fp32_model.produce_matches(d, only_last=True, with_scores=False), feeds)
+    v0, v1 = feeds[0]["valid0"], feeds[0]["valid1"]
+    n = v0.shape[1]
+    q = torch.empty((2 * EVAL_BATCH, H, n, D // H), device=dev)
+    a_bound, a_by, _ = attention_bound(q, torch.cat([v0, v1]))
+    s_bound, s_by, _ = sinkhorn_bound(torch.empty((EVAL_BATCH, n, n), device=dev), v0, v1)
+    if groups is not None:
+        (a_ms, a_n), (s_ms, s_n) = groups[KERNEL_GROUPS[0][0]], groups[KERNEL_GROUPS[4][0]]
+        say(f"profile eval IMP float32: kernel 1 (attn_fwd_f32) {a_ms / max(a_n, 1):.4f} ms a launch over "
+            f"{a_n:.0f} launches, bound {a_bound:.4f} ms ({a_by}); kernel 2 (fp32 dist) {s_ms / max(s_n, 1):.4f} "
+            f"ms a launch over {s_n:.0f}, bound {s_bound:.4f} ms ({s_by})")
+    say(f"eval phase {time.perf_counter() - t_phase:.1f} s")
+
+
 # ---------------------------------------------------------------- training kernels
 def work_pairs(q, mask) -> float:
     """(query, key) pairs the attention backward needs: every query against
@@ -1559,6 +1823,7 @@ def main() -> int:
     superglue_path(dev, SuperGlue, MatcherConfig, load_superglue_state_dict, kernels)
     rows.append(time_log_sinkhorn(dev, *log_fns, errs["log_sinkhorn_fused_stats"],
                                   log_launches["log_sinkhorn_fused_stats"]))
+    eval_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,14 @@ A port of `impx` (JAX/Pallas) that mirrors its module layout:
             as nn.Modules, their forwards and the training loss)
   ops/      norms, mlp, attention, sinkhorn, matching (plain tensor functions)
   ops/kernels/  the CUDA kernels' wrappers, each beside its plain version
-  geometry/ keypoints
+  geometry/ keypoints, epipolar, pose (errors, AUC), triangulation
+  ransac/   eight_point, ransac, pose_solver (the device and cv2 pose backends)
+  data/     reader (the standard HDF5 dump), synthetic (seeded two-view pairs)
+  eval/     evaluator (pose AUC, FM bench), eval_imp (the eval CLI),
+            eval_full, pipeline
   train/    step (Adam, LR schedule, NaN guard), trainer
-  tools/    convert (weights from the JAX pytree or the reference state_dict)
+  tools/    convert (weights from the JAX pytree, the reference state_dict or
+            a reference checkpoint file)
   csrc/     the CUDA C++ sources, built at first use by ops/kernels/_build.py
 
 The package imports torch and never jax. Entry points run on the CUDA device

@@ -1,0 +1,333 @@
+"""Main eval CLI, the non-iterative path (impx/eval/eval_imp.py).
+
+Usage:
+  python -m impx_torch.eval.eval_imp --matching_method IMP --dataset yfcc \\
+      --feature_type spp [--pose_backend cv2|device] [--config_path ...] \\
+      [--weight_path ...] [--device cpu]
+
+Each batch of `--eval_batch` pairs, padded to one keypoint bucket, goes
+through the matcher in one `produce_matches` call (the CUDA kernels on the
+card, their plain versions with --device cpu); each pair's matches are then
+scored on the host: epipolar precision and matching score against the
+ground-truth E, and the pose error of the pose estimated from the matches by
+`--pose_backend`. impx's non-iterative path ignores that flag and always runs
+cv2 (impx/eval/eval_imp.py:171); here it is honoured, and 'cv2' stays the
+default. The device backend draws from a generator per pair, seeded from
+(seed, pair index).
+
+h5py (the reader), yaml (the config) and cv2 (the cv2 backend) are imported
+only where they are used: the module imports without them.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os.path as osp
+import time
+
+import numpy as np
+
+from impx_torch.data.reader import pad_features, round_up
+from impx_torch.device import resolve_device
+from impx_torch.eval.evaluator import device_pose, pair_generator, pose_backend
+from impx_torch.geometry import pose as pose_metrics
+from impx_torch.geometry.epipolar import compute_epi_inlier_np
+from impx_torch.geometry.pose import compute_pose_error_np
+from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
+from impx_torch.ransac.pose_solver import _norm_threshold, estimate_pose
+
+# impx's flags whose paths are not ported yet, and the ROADMAP item of each
+UNPORTED = {
+    "use_iterative": "A9 (the iterative match-pose loop)",
+    "use_uncertainty": "A9 (the iterative match-pose loop)",
+    "checkpoint_backend": "A9 (the iterative loop's checkpoint pose solver)",
+    "data_parallel": "A11 (data parallelism)",
+    "use_dual_softmax": "A6 (the dual-softmax head)",
+}
+
+parser = argparse.ArgumentParser(
+    description="IMP / EIMP evaluation on the H100 (impx_torch)",
+    epilog="impx's --attn_impl has no counterpart: the port picks the attention by "
+           "device, the CUDA kernels on the card and their plain PyTorch versions on the "
+           "CPU (--device cpu).")
+parser.add_argument("--matching_method", type=str, default="IMP",
+                    choices=["IMP", "IMP_geo", "EIMP", "EIMP_geo"])
+parser.add_argument("--dataset", type=str, default="scannet")
+parser.add_argument("--feature_type", type=str, default="spp")
+parser.add_argument("--pose_backend", type=str, default="cv2", choices=["cv2", "device", "jax"],
+                    help="cv2 = host USAC_MAGSAC (the published protocol); device = "
+                         "eight-point RANSAC on the matcher's device ('jax' is a synonym)")
+parser.add_argument("--config_path", type=str, default=None)
+parser.add_argument("--weight_path", type=str, default=None)
+parser.add_argument("--weight_root", type=str, default="weights")
+parser.add_argument("--max_pairs", type=int, default=-1)
+parser.add_argument("--layers", type=int, default=15,
+                    help="matcher iterations (15 = the published eval config; "
+                         "smaller values are for CPU smoke runs only)")
+parser.add_argument("--bucket", type=int, default=-1, help="keypoint padding bucket")
+parser.add_argument("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+parser.add_argument("--eval_batch", type=int, default=4, help="pairs per matcher call")
+parser.add_argument("--compaction", type=str, default="",
+                    help="EIMP bucketed compaction schedule 'it:bucket[,it:bucket]' "
+                         "(e.g. '4:1024'); a pair whose survivors overflow a bucket is "
+                         "re-run mask-only")
+parser.add_argument("--device", type=str, default=None,
+                    help="the matcher's device (default: the CUDA card; 'cpu' runs the "
+                         "kernels' plain versions)")
+parser.add_argument("--use_dual_softmax", action="store_true", default=False,
+                    help="not ported yet (ROADMAP A6)")
+parser.add_argument("--use_iterative", action="store_true", default=False,
+                    help="not ported yet (ROADMAP A9)")
+parser.add_argument("--use_uncertainty", action="store_true", default=False,
+                    help="not ported yet (ROADMAP A9)")
+parser.add_argument("--checkpoint_backend", type=str, default=None, choices=["jax", "cv2"],
+                    help="not ported yet (ROADMAP A9)")
+parser.add_argument("--data_parallel", action="store_true", default=False,
+                    help="not ported yet (ROADMAP A11)")
+
+# reference weight-name table (reference eval/eval_imp.py:274-329)
+WEIGHT_TABLE = {
+    "IMP_geo": {"spp": {"scannet": "imp_geo_spp_scannet.pth", "yfcc": "imp_geo_spp_yfcc.pth"},
+                "sift": {"scannet": "imp_geo_sift.pth", "yfcc": "imp_geo_sift.pth"}},
+    "IMP": {"spp": {"scannet": "imp_spp.pth", "yfcc": "imp_spp.pth"},
+            "sift": {"scannet": "imp_sift.pth", "yfcc": "imp_sift.pth"}},
+    "EIMP": {"spp": {"scannet": "eimp_spp.pth", "yfcc": "eimp_spp.pth"},
+             "sift": {"scannet": "eimp_sift.pth", "yfcc": "eimp_sift.pth"}},
+    "EIMP_geo": {"spp": {"scannet": "eimp_geo_spp_scannet.pth", "yfcc": "eimp_geo_spp_yfcc.pth"},
+                 "sift": {"scannet": "eimp_geo_sift.pth", "yfcc": "eimp_geo_sift.pth"}},
+}
+
+
+def refuse_unported(args) -> None:
+    """NotImplementedError, naming its ROADMAP item, for an unported flag that is set."""
+    for name, item in UNPORTED.items():
+        if getattr(args, name, None):
+            raise NotImplementedError(f"--{name} is not ported yet: ROADMAP {item}")
+
+
+def _normalize_keypoints_np(kpts, height, width, scale=0.7):
+    size = np.array([width, height], np.float32)
+    return (kpts - size / 2.0) / (size.max() * scale)
+
+
+def _normalize_intrinsic_np(x, K):
+    K = np.asarray(K)
+    return (x - K[:2, 2]) / np.array([K[0, 0], K[1, 1]])
+
+
+def parse_compaction(spec: str) -> tuple:
+    """'4:1024,8:512' -> ((4, 1024), (8, 512))."""
+    if not spec:
+        return ()
+    return tuple(tuple(int(v) for v in part.split(":")) for part in spec.split(","))
+
+
+def build_model(matching_method: str, feature: str, use_sinkhorn: bool = True, n_layers: int = 15,
+                compute_dtype: str = "float32", compaction: tuple = (), device=None):
+    """DGNNS (IMP) or AdaGMN (EIMP) at MatcherConfig.eval_config, with random
+    weights from seed 0 until `load_params`. use_sinkhorn=False (the
+    dual-softmax head) raises NotImplementedError."""
+    if not use_sinkhorn:
+        raise NotImplementedError(f"--use_dual_softmax is not ported yet: ROADMAP {UNPORTED['use_dual_softmax']}")
+    cfg = dataclasses.replace(MatcherConfig.eval_config(feature, n_layers=n_layers),
+                              compute_dtype=compute_dtype, compaction=tuple(compaction))
+    cls = AdaGMN if matching_method.startswith("EIMP") else DGNNS
+    return cls(cfg, device=device)
+
+
+def load_params(model, weight_file: str | None) -> None:
+    """Load a reference checkpoint into `model` if the file exists; else keep
+    its random weights (synthetic / development runs)."""
+    if weight_file and osp.isfile(weight_file):
+        from impx_torch.tools.convert import load_matcher_checkpoint
+
+        print(f"Loading converted torch weights from {weight_file}")
+        model.load_state_dict(load_matcher_checkpoint(weight_file, model.config, model.sharing))
+        return
+    print("WARNING: no weights found — using random init (synthetic/dev mode)")
+
+
+def _pair_feed_np(info, bucket):
+    x0, d0, v0 = pad_features(info["x1"], info["desc1"], bucket)
+    x1, d1, v1 = pad_features(info["x2"], info["desc2"], bucket)
+    h0, w0 = info.get("img_size1", (480, 640))
+    h1, w1 = info.get("img_size2", (480, 640))
+    return {
+        "descriptors0": d0, "descriptors1": d1,
+        "norm_keypoints0": _normalize_keypoints_np(x0[:, :2], h0, w0),
+        "norm_keypoints1": _normalize_keypoints_np(x1[:, :2], h1, w1),
+        "scores0": x0[:, 2], "scores1": x1[:, 2],
+        "valid0": v0, "valid1": v1,
+    }, x0, x1
+
+
+def _score_pair(info, x0, x1, matches, bucket, pose_errors, precisions, matching_scores, error_th,
+                backend: str = "cv2", device=None, generator=None):
+    """Append one pair's pose error (max of the rotation and translation
+    angles, inf without a pose), precision and matching score. backend
+    'device' estimates the pose on `device`, drawing from `generator`."""
+    K0, K1 = info["K1"], info["K2"]
+    valid = matches > -1
+    mkpts0 = x0[valid, :2]
+    mkpts1 = x1[np.clip(matches[valid], 0, bucket - 1), :2]
+    T_0to1 = np.hstack([info["r_gt"], info["t_gt"].reshape(3, 1)])
+
+    norm_m0 = _normalize_intrinsic_np(mkpts0, K0)
+    norm_m1 = _normalize_intrinsic_np(mkpts1, K1)
+    if len(norm_m0) > 0:
+        correct = compute_epi_inlier_np(norm_m0, norm_m1, info["e"], 0.005)
+        precision = float(correct.mean())
+        matching_score = float(correct.sum() / max(len(info["x1"]), 1))
+    else:
+        precision = matching_score = 0.0
+
+    pose = None
+    if len(mkpts0) >= 5:
+        if backend == "device":
+            pose = device_pose(norm_m0, norm_m1, _norm_threshold(error_th, K0, K1), device, generator)
+        else:
+            ret = estimate_pose(mkpts0, mkpts1, K0, K1, error_th)
+            pose = None if ret is None else ret[1:3]
+    if pose is None:
+        err_t = err_R = np.inf
+    else:
+        err_t, err_R = compute_pose_error_np(T_0to1, *pose)
+    pose_errors.append(max(err_R, err_t))
+    precisions.append(precision)
+    matching_scores.append(matching_score)
+
+
+def _print_progress(index, n_pairs, thresholds, pose_errors, precisions, matching_scores, t_device):
+    aucs = [100 * a for a in pose_metrics.pose_auc(pose_errors, thresholds)]
+    print(f"[{index}/{n_pairs}] AUC@5/10/20/50: "
+          f"{aucs[0]:.2f}/{aucs[1]:.2f}/{aucs[2]:.2f}/{aucs[3]:.2f} "
+          f"Prec {100 * np.mean(precisions):.2f} "
+          f"MScore {100 * np.mean(matching_scores):.2f} "
+          f"({t_device / max(index, 1) * 1000:.1f} ms/pair device)")
+
+
+def evaluate(model, reader, error_th: float, eval_config: dict, args) -> dict:
+    """The non-iterative eval loop over `reader` (StandardReader's interface:
+    num_kpt, __len__, run(index)): batches of args.eval_batch pairs (the last
+    padded by repeating its last pair) through `model.produce_matches`, then
+    each pair scored by `_score_pair` with args.pose_backend on the model's
+    device. Under EIMP compaction, a pair whose survivors overflowed a bucket
+    is re-run through a mask-only copy of the model.
+
+    args: max_pairs, bucket (<= 0: round_up(num_kpt, 128)), eval_batch,
+    pose_backend; the unported flags of UNPORTED raise. eval_config: seed
+    (0) seeds each pair's generator."""
+    refuse_unported(args)
+    backend = pose_backend(getattr(args, "pose_backend", "cv2"))
+    seed = eval_config.get("seed", 0)
+    thresholds = [5, 10, 20, 50]
+    pose_errors, precisions, matching_scores = [], [], []
+    n_pairs = len(reader) if args.max_pairs < 0 else min(args.max_pairs, len(reader))
+    bucket = args.bucket if args.bucket > 0 else round_up(reader.num_kpt, 128)
+    eb = max(1, getattr(args, "eval_batch", 4))
+
+    def produce(m, batch):
+        return m.produce_matches(batch, p=0.2, only_last=True, with_scores=False)
+
+    t_start = time.time()
+    t_device = 0.0
+    index = 0
+    n_overflow_pairs = 0
+    fallback = None  # the mask-only model, built on the first overflow
+    while index < n_pairs:
+        infos, x0s, x1s, feeds = [], [], [], []
+        for _ in range(min(eb, n_pairs - index)):
+            info = reader.run(index)
+            feed, x0, x1 = _pair_feed_np(info, bucket)
+            infos.append(info)
+            x0s.append(x0)
+            x1s.append(x1)
+            feeds.append(feed)
+            index += 1
+        while len(feeds) < eb:  # pad the last batch
+            feeds.append(feeds[-1])
+        batch = {k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
+        t0 = time.time()
+        out = produce(model, batch)
+        matches_b = out["indices0"][-1].cpu().numpy()
+        # compaction overflow: re-run the affected pairs mask-only (which keeps
+        # every survivor), so a tight schedule never silently loses matches
+        if "overflow0" in out:
+            ovf = (out["overflow0"] + out["overflow1"]).cpu().numpy()
+            bad = np.flatnonzero(ovf[:len(infos)] > 0)
+            if len(bad):
+                n_overflow_pairs += len(bad)
+                print(f"WARNING: compaction overflow on pairs "
+                      f"{(index - len(infos) + bad).tolist()} "
+                      f"(dropped {ovf[bad].tolist()} survivors) — re-running mask-only")
+                if fallback is None:
+                    fallback = type(model)(dataclasses.replace(model.config, compaction=()),
+                                           device=model.device, use_kernels=model.use_kernels)
+                    fallback.load_state_dict(model.state_dict())
+                matches_b[bad] = produce(fallback, batch)["indices0"][-1].cpu().numpy()[bad]
+        t_device += time.time() - t0
+        for bi, info in enumerate(infos):
+            pair = index - len(infos) + bi
+            generator = pair_generator(model.device, seed, pair) if backend == "device" else None
+            _score_pair(info, x0s[bi], x1s[bi], matches_b[bi], bucket, pose_errors, precisions,
+                        matching_scores, error_th, backend=backend, device=model.device,
+                        generator=generator)
+        if index % 100 < eb or index >= n_pairs:
+            _print_progress(index, n_pairs, thresholds, pose_errors, precisions, matching_scores,
+                            t_device)
+    aucs = [100 * a for a in pose_metrics.pose_auc(pose_errors, thresholds)]
+    results = {
+        "auc": dict(zip(thresholds, aucs)),
+        "precision": 100 * float(np.mean(precisions)),
+        "matching_score": 100 * float(np.mean(matching_scores)),
+        "mean_stop_iteration": float(model.config.n_layers),
+        "pairs_per_sec_device": (len(pose_errors) / t_device) if t_device > 0 else 0.0,
+        "total_time": time.time() - t_start,
+    }
+    if model.config.compaction:
+        results["compaction_overflow_pairs"] = n_overflow_pairs
+    return results
+
+
+def main(argv=None):
+    args = parser.parse_args(argv)
+    refuse_unported(args)
+    feat = args.feature_type
+    error_th = 3 if args.dataset == "scannet" else 1
+
+    config_path = args.config_path
+    if not config_path:
+        config_path = f"configs/{args.dataset}_eval_gm{'' if feat == 'spp' else '_sift'}.yaml"
+        if not osp.isfile(config_path):
+            raise SystemExit(f"no config found at {config_path}; pass --config_path")
+    import yaml
+
+    with open(config_path) as f:
+        config = yaml.safe_load(f)
+    read_config = config["reader"]
+    eval_config = config["evaluator"]
+
+    model = build_model(args.matching_method, feat, n_layers=args.layers,
+                        compute_dtype=args.compute_dtype,
+                        compaction=parse_compaction(args.compaction),
+                        device=resolve_device(args.device))
+    weight_file = args.weight_path or osp.join(
+        args.weight_root, WEIGHT_TABLE[args.matching_method][feat][args.dataset])
+    load_params(model, weight_file)
+
+    from impx_torch.data.reader import StandardReader
+
+    reader = StandardReader(read_config)
+    try:
+        results = evaluate(model, reader, error_th, eval_config, args)
+    finally:
+        reader.close()
+    print(f"Results of {args.matching_method} on {args.dataset} "
+          f"(iterative=False, pose={pose_backend(args.pose_backend)}, device={model.device}):")
+    for k, v in results.items():
+        print(f"  {k}: {v}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

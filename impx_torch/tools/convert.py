@@ -4,7 +4,8 @@ layouts.
 `params_from_jax` takes impx's params pytree with numpy leaves (for example
 `jax.tree.map(np.asarray, params)`), SuperGlue's included (sharing=False);
 `load_reference_state_dict` takes the reference PyTorch module layout that
-the published imp_spp.pth uses, and `load_superglue_state_dict` SuperGlue's
+the published imp_spp.pth uses (`load_matcher_checkpoint` reads it from a
+.pth file), and `load_superglue_state_dict` SuperGlue's
 (magicleap/SuperGluePretrainedNetwork, as impx/models/superglue.py:
 convert_superglue_matcher reads it). All return a state_dict of the port's
 layout, for `load_state_dict`:
@@ -128,3 +129,13 @@ def _from_reference(state: Mapping, config: MatcherConfig, sharing: bool, final_
         conv(f"final_proj.{i}", src)
     sd["bin_score"] = _t(state["bin_score"]).reshape(())
     return sd
+
+
+def load_matcher_checkpoint(path: str, config: MatcherConfig, sharing: bool) -> dict:
+    """A reference .pth checkpoint ({'model': state_dict, ...} or a bare
+    state_dict) -> the port's state_dict, for `load_state_dict`
+    (impx/tools/convert_torch.py:load_matcher_checkpoint). Read with
+    weights_only=True: tensors, numbers and containers, no arbitrary objects."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state = ckpt["model"] if "model" in ckpt else ckpt
+    return load_reference_state_dict(state, config, sharing)

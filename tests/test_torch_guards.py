@@ -43,7 +43,10 @@ def test_no_jax_or_impx_import_statically(path):
 
 
 def test_no_jax_or_impx_import_at_run_time():
-    code = ("import sys, impx_torch.models, impx_torch.tools.convert, impx_torch.train.trainer; "
+    code = ("import sys, impx_torch.models, impx_torch.tools.convert, impx_torch.train.trainer, "
+            "impx_torch.data.reader, impx_torch.data.synthetic, impx_torch.geometry, "
+            "impx_torch.ransac.pose_solver, impx_torch.eval.evaluator, impx_torch.eval.eval_imp, "
+            "impx_torch.eval.eval_full, impx_torch.eval.pipeline; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'impx')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -286,3 +289,86 @@ def test_sinkhorn_wrappers_raise_when_the_launch_reports_an_error(monkeypatch, k
     with pytest.raises(RuntimeError, match=f"CUDA error {schedule_err or launch_err}"):
         module._launch(dist, torch.ones(1), 20, mask0, mask1, 0)
     assert fn.launches == before + (0 if schedule_err else 1)
+
+
+def test_eval_path_imports_and_runs_without_cv2_h5py_yaml():
+    """The eval modules import without OpenCV, h5py and PyYAML (the card's
+    machine has no h5py), and the device pose backend runs."""
+    code = ("import sys\n"
+            "sys.modules['cv2'] = sys.modules['h5py'] = sys.modules['yaml'] = None\n"
+            "import numpy as np, torch\n"
+            "import impx_torch.eval.eval_imp, impx_torch.eval.eval_full, impx_torch.eval.pipeline\n"
+            "from impx_torch.ransac.pose_solver import estimate_pose_device\n"
+            "rs = np.random.RandomState(0)\n"
+            "X = rs.randn(64, 3) * [2, 2, 1] + [0, 0, 6]\n"
+            "x0 = torch.tensor(X[:, :2] / X[:, 2:], dtype=torch.float32)\n"
+            "X1 = X + [0.5, 0.0, 0.1]\n"
+            "x1 = torch.tensor(X1[:, :2] / X1[:, 2:], dtype=torch.float32)\n"
+            "out = estimate_pose_device(torch.Generator().manual_seed(0), x0, x1,\n"
+            "                           torch.ones(64, dtype=torch.bool), 1e-3, num_hypotheses=64)\n"
+            "assert int(out['num_inliers']) > 60, out['num_inliers']\n"
+            "bad = sorted(m for m in ('cv2', 'h5py', 'yaml') if sys.modules.get(m) is not None)\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("flag,item", [(["--use_iterative"], "A9"), (["--use_uncertainty"], "A9"),
+                                       (["--checkpoint_backend", "cv2"], "A9"),
+                                       (["--data_parallel"], "A11"), (["--use_dual_softmax"], "A6")],
+                         ids=lambda v: v if isinstance(v, str) else v[0])
+def test_unported_eval_flags_raise(flag, item):
+    """Each unported flag of the eval CLI raises, naming its ROADMAP item,
+    before any data or weights are read; evaluate refuses it too."""
+    from impx_torch.eval import eval_imp
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
+        eval_imp.main(["--device", "cpu", "--config_path", "/nonexistent.yaml", *flag])
+    args = eval_imp.parser.parse_args(["--device", "cpu", *flag])
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
+        eval_imp.evaluate(None, None, 1.0, {}, args)
+
+
+def test_dual_softmax_model_raises():
+    from impx_torch.eval.eval_imp import build_model
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A6 "):
+        build_model("IMP", "spp", use_sinkhorn=False, n_layers=2, device="cpu")
+
+
+def test_five_point_sampling_raises():
+    from impx_torch.ransac.pose_solver import estimate_pose_device
+    from impx_torch.ransac.ransac import essential_ransac_from_samples, estimate_essential_ransac
+
+    x = torch.rand(16, 2)
+    valid = torch.ones(16, dtype=torch.bool)
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        estimate_essential_ransac(g, x, x, valid, 1e-3, sample_size=5)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        estimate_pose_device(g, x, x, valid, 1e-3, sample_size=5)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        essential_ransac_from_samples(torch.zeros((4, 5), dtype=torch.long), x, x, valid, 1e-3)
+
+
+@pytest.mark.parametrize("backend", ["jax", "device"])
+def test_device_fundamental_backend_raises(backend):
+    from impx_torch.eval.evaluator import FMBenchEval
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        FMBenchEval({"f_backend": backend, "inlier_th": 1.0})
+
+
+@pytest.mark.parametrize("backend", ["device", "jax"])
+def test_device_pose_backend_needs_cuda_unless_a_device_is_named(monkeypatch, backend):
+    from impx_torch.eval.evaluator import AucEval
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AucEval({"pose_backend": backend, "inlier_th": 0.005})
+    assert AucEval({"pose_backend": backend}, device="cpu").device == torch.device("cpu")
+    assert AucEval({"pose_backend": "cv2"}).device is None
+    with pytest.raises(ValueError, match="pose_backend"):
+        AucEval({"pose_backend": "magsac"})
