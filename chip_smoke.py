@@ -65,8 +65,21 @@ on the kernel and the plain path (launches per batch, indices0 agreement,
 equal pose errors on equal match sets) and EIMP mask-only at bf16;
 pairs_per_s of the loop and its split (matcher, device pose, host metrics),
 a profiled batch of the pose stage and of the fp32 matcher with kernel 1's
-fp32 and kernel 2's time a launch beside their bounds. The line before the
-last lists the kernels as JSON; the last line is
+fp32 and kernel 2's time a launch beside their bounds; (17) the iterative
+match-pose loop with early stopping through evaluate --use_iterative at the
+same config and pairs (five-point checkpoint solver, 4096 minimal sets a
+checkpoint): the checkpoint solver's pose recovery on true correspondences
+with 30% outliers; IMP fp32 pair by pair (IterativeMatcher.run), IMP fp32
+and bf16 in batches of 4 (BatchedIterativeMatcher.run_batch), EIMP with
+uncertainty pooling (kernel 4's row lse to kernel 6) and the cv2 checkpoints,
+each on the kernel and the plain path: launches against the layer steps each
+loop ran, no plain body on the kernel path, no synchronising operation
+inside a checkpoint, indices0 agreement at every checkpoint, equal poses from
+equal compacted sets, serial against batched, early exit at
+pose_stop_deg=180 launching kernel 1 only for the layers run, the checkpoint
+solve's device operations at 1 and 4 pairs, and the split of a checkpoint's
+time. The line before the last lists the kernels as JSON (with each kernel's
+launches over phase 17's kernel-path runs); the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
 """
@@ -1255,6 +1268,465 @@ def eval_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_d
     say(f"eval phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- the iterative loop
+# impx/eval/eval_imp.py's iterative defaults: 4096 minimal sets a checkpoint
+# (five-point), matches at 0.1, 25 of them for a pose, a stop at 1.5 degrees
+ITER_LAYERS = 15
+ITER_HYPOTHESES = 4096
+ITER_SERIAL_PAIRS, ITER_EIMP_PAIRS, ITER_CV2_PAIRS = 8, 8, 4
+ITER_EIMP_BIN_SCORE = 4.0          # pooling drops keypoints at random weights, matches remain
+ITER_SERIAL_DEG = 0.5              # serial vs batched pose, fp32 (matcher sums of another batch shape)
+ITER_OPS_RATIO_MAX = 1.5           # device operations of the batched checkpoint solve, P = 4 over P = 1
+ITER_PLAIN = ("mha_reference", "mha_lse_reference", "attention_key_mass_reference",
+              "attention_key_mass_from_lse_reference")
+
+
+class IterArgs:
+    """evaluate's arguments for the iterative loop, as the CLI gives them."""
+
+    def __init__(self, max_pairs: int, eval_batch: int, checkpoint_backend: str = "jax",
+                 use_uncertainty: bool = False):
+        self.max_pairs, self.bucket, self.eval_batch, self.pose_backend = max_pairs, -1, eval_batch, "device"
+        self.use_iterative, self.use_uncertainty = True, use_uncertainty
+        self.checkpoint_backend, self.ransac_hypotheses = checkpoint_backend, ITER_HYPOTHESES
+
+
+def recording_matcher(BatchedIterativeMatcher):
+    """BatchedIterativeMatcher recording, into its class's `rec`, each loop's
+    outputs, each checkpoint's indices0, keep mask and poses, each pose
+    solve's inputs and generator states, the keep counts after each pool, and
+    CUDA events around the layer steps, the score and matches, the pose solve
+    and the pooling."""
+
+    class Recorder(BatchedIterativeMatcher):
+        rec: dict = {}
+
+        def _timed(self, kind, fn, *a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            self.rec["events"].setdefault(kind, []).append((start, end))
+            return out
+
+        def _loop(self, *a, **k):
+            self.rec["batch"] += 1
+            self.rec["steps"][self.rec["batch"]] = 0
+            out = super()._loop(*a, **k)
+            self.rec["loops"].append({k: v.clone() for k, v in out.items()})
+            return out
+
+        def _run_cv2(self, *a, **k):
+            self.rec["batch"] += 1
+            self.rec["steps"][self.rec["batch"]] = 0
+            out = super()._run_cv2(*a, **k)
+            self.rec["loops"].append({"stopped_at": torch.tensor([out["stopped_at"]])})
+            return out
+
+        def _step(self, *a, **k):
+            self.rec["steps"][self.rec["batch"]] += 1
+            return self._timed("layer steps", super()._step, *a, **k)
+
+        def _match_at(self, ni, desc, keep0, keep1):
+            self.ni = ni
+            out = self._timed("score and matches", super()._match_at, ni, desc, keep0, keep1)
+            self.rec["checkpoints"][(self.rec["batch"], ni)] = (out[1].clone(), keep0.clone())
+            return out
+
+        def _solve_pose(self, generators, *a, **k):
+            states = [g.get_state() for g in generators]
+            out = self._timed("pose solve", super()._solve_pose, generators, *a, **k)
+            inputs = tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)
+            self.rec["solves"][(self.rec["batch"], self.ni)] = (inputs, states, out["R"].clone(), out["t"].clone())
+            return out
+
+        def _check(self, *a, **k):
+            self.rec["checks"] += 1
+            out = super()._check(*a, **k)
+            self.rec["has_pose"].append(out[0]["has_pose"].clone())
+            return out
+
+        def _pool(self, *a, **k):
+            out = self._timed("pooling", super()._pool, *a, **k)
+            self.rec["keep"].append(torch.stack([out[0].sum(1), out[1].sum(1)]))
+            return out
+
+    return Recorder
+
+
+def new_record() -> dict:
+    return {"batch": -1, "steps": {}, "events": {}, "loops": [], "checkpoints": {}, "solves": {}, "checks": 0,
+            "keep": [], "has_pose": [], "pairs": []}
+
+
+def checkpoint_syncs(IterativeMatcher, model, feed, norm_thresh, generator) -> list:
+    """The synchronising operations (torch.cuda.set_sync_debug_mode) of one
+    pair's loop: inside each checkpoint, a list of the Python stack (its last
+    frames) at which each warning surfaced; and the count outside them (the
+    loop's one read a checkpoint, its input copies and its output). Run after
+    the loop has run once in the process, so that one-time set-up is done."""
+    import traceback
+    import warnings
+
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1] if "warnings" not in f.filename][-5:]
+            sites[-1].append(" <- ".join(f"{f.filename.split('/')[-1]}:{f.lineno} {f.name}" for f in reversed(frames)))
+
+    class Counting(IterativeMatcher):
+        def _check(self, *a, **k):
+            sites.append([])
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = show
+                return super()._check(*a, **k)
+
+    # the mode is switched outside the checkpoints: the switch to "warn" can
+    # surface a warning of its own before the first one
+    with warnings.catch_warnings(record=True) as outside:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            Counting(model, norm_thresh=norm_thresh, num_hypotheses=ITER_HYPOTHESES).run(feed, generator)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites, sum("synchroniz" in str(w.message) for w in outside)
+
+
+def iterative_run(label, eval_imp, model, reader, kernels, args, Recorder, ka):
+    """evaluate with --use_iterative over the reader (launch counts set to 0
+    just before, read just after; the plain bodies counted), through the
+    recording matcher. Checks the launches against the layer steps the loop
+    ran (kernel 1 on every layer step, kernels 4 and 6 on the checkpoint
+    layers and their pools under uncertainty, nothing else), the steps
+    against each batch's last stop iteration, no plain body on the kernel
+    path, and a finite pose error for every pair. Prints pairs/s, the stop
+    iterations, the split of a checkpoint and the metrics; returns the record."""
+    import collections
+
+    rec = new_record()
+    Recorder.rec = rec
+    score, matcher_cls = eval_imp._score_pair, eval_imp.BatchedIterativeMatcher
+
+    def score_recorded(info, x0, x1, matches, bucket, pose_errors, *a, **k):
+        score(info, x0, x1, matches, bucket, pose_errors, *a, **k)
+        rec["pairs"].append((matches.copy(), len(info["x1"]), pose_errors[-1]))
+
+    for fn in kernels.values():
+        fn.launches = 0
+    eval_imp._score_pair, eval_imp.BatchedIterativeMatcher = score_recorded, Recorder
+    try:
+        with counting_plain_bodies(ka, ITER_PLAIN) as plain_calls:
+            t0 = time.perf_counter()
+            res = eval_imp.evaluate(model, reader, EVAL_ERROR_PX, EVAL_CONFIG, args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        eval_imp._score_pair, eval_imp.BatchedIterativeMatcher = score, matcher_cls
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    steps = sum(rec["steps"].values())
+    pools = len(rec["keep"])
+    checks = rec["checks"] if args.checkpoint_backend != "cv2" else len(rec["checkpoints"])
+    n = len(rec["pairs"])
+    stops = [int(x) for loop in rec["loops"] for x in loop["stopped_at"].tolist()]
+    last = [max(loop["stopped_at"].tolist()) for loop in rec["loops"]]
+    ms = {kind: sum(s.elapsed_time(e) for s, e in ev) for kind, ev in rec["events"].items()}
+    say(f"iterative {label}: pairs_per_s {n / wall:.2f} over {n} pairs (evaluate {wall:.3f} s, batch "
+        f"{args.eval_batch}, {len(rec['loops'])} loops, {steps} layer steps, {checks} checkpoints); stop "
+        f"iterations mean {np.mean(stops[:n]):.2f}, histogram {dict(sorted(collections.Counter(stops[:n]).items()))}")
+    say(f"iterative {label}: ms a checkpoint (CUDA events, summed over the run / {max(checks, 1)} checkpoints): "
+        + ", ".join(f"{kind} {ms[kind] / max(checks, 1):.3f}" for kind in
+                    ("layer steps", "score and matches", "pose solve", "pooling") if kind in ms)
+        + (f"; keep counts after the last pool {rec['keep'][-1].tolist()}" if rec["keep"] else ""))
+    say(f"iterative {label} launches: {launches}; plain bodies called {plain_calls}")
+    if model.use_kernels:
+        want = dict.fromkeys(kernels, 0)
+        lse_layers = 2 * checks if args.use_uncertainty else 0
+        want.update(mha_fused=2 * steps - lse_layers, mha_fused_lse=lse_layers,
+                    attention_key_mass=2 * pools if args.use_uncertainty else 0)
+        if launches != want or any(plain_calls.values()):
+            fail(f"iterative {label} did not run through the kernels as expected: {launches}, want {want}, "
+                 f"plain bodies {plain_calls}")
+    if [rec["steps"][b] for b in sorted(rec["steps"])] != last:
+        fail(f"iterative {label}: layer steps a loop {list(rec['steps'].values())} are not the last stop "
+             f"iterations {last}")
+    errs = [p[2] for p in rec["pairs"]]
+    say(f"iterative {label} (random weights, not an accuracy figure): AUC@5/10/20 "
+        f"{res['auc'][5]:.2f}/{res['auc'][10]:.2f}/{res['auc'][20]:.2f}, precision {res['precision']:.2f}, "
+        f"matching score {res['matching_score']:.2f}, mean_stop_iteration {res['mean_stop_iteration']:.2f}; "
+        f"matches a pair {[int((p[0] > -1).sum()) for p in rec['pairs']]}")
+    if n != min(args.max_pairs, len(reader)) or not all(e == e for e in errs):
+        fail(f"iterative {label}: {n} pairs scored, or a NaN pose error")
+    rec.update(launches=launches, wall=wall, stops=stops[:n], ms=ms)
+    return rec
+
+
+def compare_iterative(label, kernel, plain, replay, max_replays: int = 4):
+    """Kernel path against plain path of one loop: indices0 agreement over the
+    valid rows of every checkpoint both reached (E2E_AGREE_MIN); at up to
+    max_replays checkpoints where both handed the solver equal match sets,
+    the checkpoint solve run again on the same inputs with each pair's
+    generator restored to its state there (`replay`), which must give the
+    recorded poses bit for bit; and, printed, how far the two paths' poses
+    differ there (their match scores differ by the matcher's rounding, which
+    moves the score-weighted draws). Returns the replays."""
+    agree = []
+    for key, (idx, keep) in kernel["checkpoints"].items():
+        if key in plain["checkpoints"]:
+            pidx = plain["checkpoints"][key][0]
+            agree.append(((idx == pidx) & keep).sum().item() / max(keep.sum().item(), 1))
+    replays, exact, cross = 0, True, 0.0
+    for key, (inputs, states, R, t) in kernel["solves"].items():
+        if key not in plain["solves"] or replays >= max_replays:
+            continue
+        _, _, pR, pt = plain["solves"][key]
+        same = (inputs[2] == plain["solves"][key][0][2]).all(1)
+        if not bool(same.all()):
+            continue
+        out = replay(inputs, states)
+        exact &= torch.equal(out["R"], R) and torch.equal(out["t"], t)
+        cross = max(cross, pose_diff64(R, t, pR, pt).max().item())
+        replays += 1
+    say(f"iterative {label} kernel vs plain path: indices0 agreement over valid rows, per checkpoint, min "
+        f"{min(agree, default=1.0):.4f} mean {np.mean(agree) if agree else 1.0:.4f} over {len(agree)} checkpoints "
+        f"(min {E2E_AGREE_MIN}); {replays} checkpoint solves with equal match sets replayed from the restored "
+        f"generators: poses equal bit for bit {exact}; the two paths' poses there differ by at most {cross:.3e} deg")
+    if min(agree, default=1.0) < E2E_AGREE_MIN or not exact:
+        fail(f"iterative {label}: the kernel path disagrees with the plain path, or a replayed solve differs")
+    return replays
+
+
+def pose_diff64(R1, t1, R2, t2):
+    """The loop's pose difference in degrees, in float64: in float32 its
+    arccos reads about 0.06 degrees between equal poses."""
+    from impx_torch.eval.iterative import _pose_diff_deg
+
+    return _pose_diff_deg(R1.double(), t1.double(), R2.double(), t2.double())
+
+
+def checkpoint_recovery(dev, reader):
+    """The checkpoint solver (estimate_pose_from_matches, four pairs a batched
+    call, ITER_HYPOTHESES minimal sets) on each pair's true correspondences
+    plus random pairings of outlier keypoints (RECOVERY_OUTLIER_SHARE), as a
+    matcher hands them over with random scores; held at phase 16's limits on
+    every pair with at least RECOVERY_MIN_TRUE true correspondences."""
+    from impx_torch.eval.evaluator import pair_generator
+    from impx_torch.geometry.pose import angle_error_mat, angle_error_vec
+    from impx_torch.ransac.pose_solver import _norm_threshold, estimate_pose_from_matches, prior_essential
+
+    rs = np.random.RandomState(22)
+    feeds = []
+    for i, p in enumerate(reader.pairs):
+        gt, n0, n1 = p["gt_matches"], min(len(p["kpt1"]), EVAL_KPT), min(len(p["kpt2"]), EVAL_KPT)
+        gt = gt[(gt[:, 0] < n0) & (gt[:, 1] < n1)]
+        n_out = int(round(len(gt) * RECOVERY_OUTLIER_SHARE / (1 - RECOVERY_OUTLIER_SHARE)))
+        out0 = rs.choice(np.setdiff1d(np.arange(n0), gt[:, 0]), n_out, replace=False)
+        idx = np.full(EVAL_KPT, -1)
+        idx[gt[:, 0]] = gt[:, 1]
+        idx[out0] = rs.choice(np.setdiff1d(np.arange(n1), gt[:, 1]), n_out)
+        norm = lambda x, K: ((x[:EVAL_KPT, :2] - K[:2, 2]) / np.array([K[0, 0], K[1, 1]])).astype(np.float32)  # noqa: E731
+        pad = lambda x: np.pad(x, ((0, EVAL_KPT - len(x)), (0, 0)))  # noqa: E731
+        feeds.append((pad(norm(p["kpt1"], p["K1"])), pad(norm(p["kpt2"], p["K2"])), idx,
+                      np.where(idx > -1, rs.uniform(0.2, 1.0, EVAL_KPT), 0.0).astype(np.float32),
+                      _norm_threshold(EVAL_ERROR_PX, p["K1"], p["K2"]), len(gt), gt[:, 0], out0))
+    rows = []
+    for s in range(0, len(feeds), EVAL_BATCH):
+        part = feeds[s:s + EVAL_BATCH]
+        st = lambda k: torch.tensor(np.stack([f[k] for f in part]), device=dev)  # noqa: E731
+        P = len(part)
+        eye = torch.eye(3, device=dev).expand(P, 3, 3)
+        out = estimate_pose_from_matches([pair_generator(dev, 0, s + i) for i in range(P)], st(0), st(1), st(2),
+                                         st(3), torch.tensor([f[4] for f in part], device=dev),
+                                         num_hypotheses=ITER_HYPOTHESES,
+                                         E_init=prior_essential(eye, torch.zeros(P, 3, device=dev),
+                                                                torch.zeros(P, dtype=torch.bool, device=dev)))
+        for i, f in enumerate(part):
+            p = reader.pairs[s + i]
+            err_R = float(angle_error_mat(torch.tensor(p["R"], dtype=torch.float32), out["R"][i].cpu()))
+            err_t = float(angle_error_vec(torch.tensor(p["T"], dtype=torch.float32), out["t"][i].cpu()))
+            inl = out["inliers"][i].cpu().numpy()
+            rows.append((f[5], err_R, err_t, inl[f[6]].mean(), inl[f[7]].mean()))
+    held = [r for r in rows if r[0] >= RECOVERY_MIN_TRUE]
+    worst = [max(r[1] for r in held), max(r[2] for r in held), min(r[3] for r in held), max(r[4] for r in held)]
+    say(f"iterative checkpoint solver recovery, {ITER_HYPOTHESES} minimal sets, threshold {EVAL_ERROR_PX} px, "
+        f"per pair (true, rotation deg, translation deg, recall, admission): "
+        f"{[(n, round(r, 4), round(t, 4), round(c, 4), round(a, 4)) for n, r, t, c, a in rows]}")
+    say(f"iterative checkpoint solver recovery over the {len(held)} of {len(rows)} pairs with at least "
+        f"{RECOVERY_MIN_TRUE} true correspondences: worst rotation {worst[0]:.4f} deg, translation {worst[1]:.4f} "
+        f"deg (max {RECOVERY_DEG}), recall {worst[2]:.4f} (min {RECOVERY_RECALL_MIN}), admission {worst[3]:.4f} "
+        f"(max {RECOVERY_ADMIT_MAX})")
+    if (len(held) < len(rows) // 2 or worst[0] >= RECOVERY_DEG or worst[1] >= RECOVERY_DEG
+            or worst[2] <= RECOVERY_RECALL_MIN or worst[3] >= RECOVERY_ADMIT_MAX):
+        fail("the checkpoint solver did not recover the pose on every pair it is held on")
+
+
+def iterative_path(dev, kernels, ka, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict) -> dict:
+    """Phase 17: the iterative match-pose loop with early stopping through the
+    eval CLI's evaluate (IterativeMatcher.run pair by pair,
+    BatchedIterativeMatcher.run_batch, the cv2 checkpoints) at
+    eval_config('spp', 15), on the kernel and the plain path. Returns each
+    kernel's launches over the phase's kernel-path runs."""
+    from impx_torch.data.reader import round_up
+    from impx_torch.eval import eval_imp
+    from impx_torch.eval.evaluator import pair_generator
+    from impx_torch.eval.iterative import BatchedIterativeMatcher, IterativeMatcher
+
+    t_phase = time.perf_counter()
+    Recorder = recording_matcher(BatchedIterativeMatcher)
+    reader = SyntheticReader(EVAL_PAIRS, EVAL_KPT, seed=20)
+    checkpoint_recovery(dev, reader)
+    total = dict.fromkeys(kernels, 0)
+    base = MatcherConfig.eval_config("spp", ITER_LAYERS)
+    models = {dt: carried_model(DGNNS, dataclasses.replace(base, compute_dtype=dt), dev, reference_layout,
+                                load_reference_state_dict) for dt in ("float32", "bfloat16")}
+    runs = {}
+
+    def replay(inputs, states):
+        """The checkpoint solve again on recorded inputs, each pair's generator
+        restored to its recorded state."""
+        gens = [torch.Generator(device=dev) for _ in states]
+        for g, state in zip(gens, states):
+            g.set_state(state)
+        solver = IterativeMatcher(models["float32"], norm_thresh=0.0, num_hypotheses=ITER_HYPOTHESES)
+        return solver._solve_pose(gens, *inputs)
+
+    def both(label, model, args):
+        kernel = iterative_run(f"{label} kernel path", eval_imp, model, reader, kernels, args, Recorder, ka)
+        for k, v in kernel["launches"].items():
+            total[k] += v
+        model.use_kernels = False
+        plain = iterative_run(f"{label} plain path", eval_imp, model, reader, kernels, args, Recorder, ka)
+        model.use_kernels = True
+        runs[label] = (kernel, plain)
+        return kernel, plain
+
+    # serial, device checkpoints, fp32 (the CLI's default dtype)
+    serial, serial_plain = both("IMP float32 serial", models["float32"], IterArgs(ITER_SERIAL_PAIRS, 1))
+    bucket = round_up(EVAL_KPT, 128)
+    feed, _, _, nt = eval_imp._iterative_feed(reader.run(0), bucket, EVAL_ERROR_PX, False)
+    feed = {k: (v[None] if k in eval_imp.MATCHER_FEED else v) for k, v in feed.items()}
+    sites, outside = checkpoint_syncs(IterativeMatcher, models["float32"], feed, nt, pair_generator(dev, 0, 0))
+    syncs = [len(c) for c in sites]
+    say(f"iterative IMP float32 pair 0: synchronising operations inside each checkpoint "
+        f"(torch.cuda.set_sync_debug_mode) {syncs}; {outside} outside them (the mode switch, the input "
+        f"copies, one read a checkpoint, the output)")
+    for c in sum(sites, []):
+        say(f"iterative synchronising operation: {c}")
+    replays = compare_iterative("IMP float32 serial", serial, serial_plain, replay)
+    for dt in ("float32", "bfloat16"):
+        kernel, plain = both(f"IMP {dt} batched", models[dt], IterArgs(EVAL_PAIRS, EVAL_BATCH))
+        replays += compare_iterative(f"IMP {dt} batched", kernel, plain, replay)
+    if not replays:
+        fail("no checkpoint saw equal match sets on both paths: the replay check did not bite")
+    # serial against batched at fp32: the same stop iteration and pose a pair
+    batched = runs["IMP float32 batched"][0]
+    sR = torch.cat([loop["R"] for loop in serial["loops"]])
+    st = torch.cat([loop["t"] for loop in serial["loops"]])
+    bR = torch.cat([loop["R"] for loop in batched["loops"]])[:len(sR)]
+    bt = torch.cat([loop["t"] for loop in batched["loops"]])[:len(st)]
+    diff = pose_diff64(sR, st, bR, bt)
+    say(f"iterative IMP float32 serial vs batched: stop iterations {serial['stops']} and "
+        f"{batched['stops'][:len(serial['stops'])]}; poses differ by at most {diff.max().item():.3e} deg "
+        f"(max {ITER_SERIAL_DEG})")
+    if serial["stops"] != batched["stops"][:len(serial["stops"])] or diff.max().item() > ITER_SERIAL_DEG:
+        fail("the serial and the batched loop disagree")
+    s_ms = [s.elapsed_time(e) for s, e in serial["events"]["pose solve"]]
+    b_ms = [s.elapsed_time(e) for s, e in batched["events"]["pose solve"]]
+    say(f"iterative checkpoint solve (CUDA events, median): P = 1 {statistics.median(s_ms):.3f} ms, P = "
+        f"{EVAL_BATCH} {statistics.median(b_ms):.3f} ms against P x serial {EVAL_BATCH * statistics.median(s_ms):.3f} ms")
+
+    # EIMP with uncertainty: pools after each checkpoint, kernel 4's row lse to kernel 6
+    eimp = carried_model(AdaGMN, base, dev, reference_layout, load_reference_state_dict,
+                         randomize=lambda m: m.bin_score.data.fill_(ITER_EIMP_BIN_SCORE))
+    kernel, plain = both("EIMP float32 uncertainty batched", eimp,
+                         IterArgs(ITER_EIMP_PAIRS, EVAL_BATCH, use_uncertainty=True))
+    compare_iterative("EIMP float32 uncertainty batched", kernel, plain, replay)
+    if not kernel["launches"]["attention_key_mass"]:
+        fail("the uncertainty loop never pooled")
+    # the reference protocol's checkpoints: host cv2 on pixel coordinates
+    both("IMP float32 cv2 checkpoints", models["float32"], IterArgs(ITER_CV2_PAIRS, 1, checkpoint_backend="cv2"))
+    compare_iterative("IMP float32 cv2 checkpoints", *runs["IMP float32 cv2 checkpoints"], replay)
+
+    # early exit: pose_stop_deg=180 stops at the second checkpoint with a pose
+    model = models["float32"]
+    for i in range(2):
+        feed, _, _, nt = eval_imp._iterative_feed(reader.run(i), bucket, EVAL_ERROR_PX, False)
+        feed = {k: (v[None] if k in eval_imp.MATCHER_FEED else v) for k, v in feed.items()}
+        Recorder.rec = new_record()
+        m = Recorder(model, norm_thresh=nt, num_hypotheses=ITER_HYPOTHESES, pose_stop_deg=180.0)
+        for fn in kernels.values():
+            fn.launches = 0
+        out = m.run(feed, pair_generator(dev, 0, i))
+        torch.cuda.synchronize()
+        with_pose = [ni for ni, hp in zip(m.valid_its, Recorder.rec["has_pose"]) if bool(hp[0])]
+        want = with_pose[1] + 1 if len(with_pose) > 1 else model.config.n_layers
+        say(f"iterative early exit (pose_stop_deg 180), pair {i}: stopped_at {out['stopped_at']} (checkpoints with a "
+            f"pose {with_pose}), mha_fused launches {mha_fused_launches(kernels)} for {out['stopped_at']} of "
+            f"{model.config.n_layers} iterations")
+        if out["stopped_at"] != want or mha_fused_launches(kernels) != 2 * out["stopped_at"] or want >= ITER_LAYERS:
+            fail("early exit did not stop at the second checkpoint with a pose, or ran layers after it")
+
+    # device operations of one checkpoint solve, P = 1 and P = EVAL_BATCH
+    inputs = next(iter(batched["solves"].values()))[0]
+    x0n, x1n, idx0, ms0, thr, E_init = inputs[:6]
+    solve = lambda P: lambda _: IterativeMatcher._solve_pose(  # noqa: E731
+        m, [pair_generator(dev, 0, i) for i in range(P)], x0n[:P], x1n[:P], idx0[:P], ms0[:P], thr[:P], E_init[:P])
+    ops = {}
+    for P in (1, EVAL_BATCH):
+        groups = profile_calls(f"iterative checkpoint solve P={P} ({ITER_HYPOTHESES} minimal sets a pair)",
+                               solve(P), [None, None])
+        ops[P] = None if groups is None else sum(n for _, n in groups.values())
+    if ops[1] is not None:
+        say(f"iterative checkpoint solve: {ops[1]:.0f} device operations at P = 1, {ops[EVAL_BATCH]:.0f} at "
+            f"P = {EVAL_BATCH} (ratio {ops[EVAL_BATCH] / ops[1]:.3f}, max {ITER_OPS_RATIO_MAX})")
+        if ops[EVAL_BATCH] > ITER_OPS_RATIO_MAX * ops[1]:
+            fail("the batched checkpoint solve issues more device operations than one pair's times "
+                 f"{ITER_OPS_RATIO_MAX}")
+    # the profiler's device launches of kernels 1 and 4, a pair and a batch, against the wrappers' counts
+    feeds = []
+    for i in range(EVAL_BATCH):
+        f, _, _, nt = eval_imp._iterative_feed(reader.run(i), bucket, EVAL_ERROR_PX, False)
+        feeds.append(f)
+    batch = {k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
+    pair = {k: (v[:1] if k in eval_imp.MATCHER_FEED else v[0]) for k, v in batch.items()}
+    gens = lambda n: [pair_generator(dev, 0, i) for i in range(n)]  # noqa: E731
+    m = BatchedIterativeMatcher(model, norm_thresh=nt, num_hypotheses=ITER_HYPOTHESES)
+    profile_launches("IMP float32 run, one pair", kernels, lambda _: m.run(pair, gens(1)[0]))
+    profile_launches(f"IMP float32 run_batch B={EVAL_BATCH}", kernels,
+                     lambda _: m.run_batch(batch, gens(EVAL_BATCH), [nt] * EVAL_BATCH))
+    m = BatchedIterativeMatcher(eimp, norm_thresh=nt, num_hypotheses=ITER_HYPOTHESES, with_uncertainty=True)
+    profile_launches(f"EIMP float32 uncertainty run_batch B={EVAL_BATCH}", kernels,
+                     lambda _: m.run_batch(batch, gens(EVAL_BATCH), [nt] * EVAL_BATCH))
+    say(f"iterative phase {time.perf_counter() - t_phase:.1f} s; kernel launches over its kernel-path runs {total}")
+    if any(syncs):
+        fail("a checkpoint synchronises with the host")
+    return total
+
+
+def mha_fused_launches(kernels) -> int:
+    return kernels["mha_fused"].launches
+
+
+def profile_launches(label, kernels, call):
+    """One profiled call (after profile_calls' warm-up call): the device
+    launches of the attention group (kernels 1 and 4) must equal its
+    wrappers' launches a call; the mass group's are printed a wrapper call."""
+    for fn in kernels.values():
+        fn.launches = 0
+    groups = profile_calls(f"iterative {label}", call, [None])
+    if groups is None:
+        return
+    wrapped = (kernels["mha_fused"].launches + kernels["mha_fused_lse"].launches) / 2  # warm-up and profiled
+    device_n = groups[KERNEL_GROUPS[0][0]][1]
+    say(f"profile iterative {label}: kernels 1 and 4 {device_n:.0f} device launches against {wrapped:.0f} wrapper "
+        f"launches a call; kernel 6 {groups[KERNEL_GROUPS[5][0]][1]:.0f} device launches over "
+        f"{kernels['attention_key_mass'].launches / 2:.0f} wrapper calls")
+    if device_n != wrapped:
+        fail(f"iterative {label}: the profiler's kernel 1 and 4 launches differ from the wrappers' count")
+
+
 # ---------------------------------------------------------------- training kernels
 def work_pairs(q, mask) -> float:
     """(query, key) pairs the attention backward needs: every query against
@@ -1435,11 +1907,11 @@ def train_pairs(gen, dev, b=TB, n=TN, d=D):
 
 
 @contextlib.contextmanager
-def counting_plain_bodies(module):
+def counting_plain_bodies(module, names=PLAIN_BODIES):
     """Count the calls of the kernels' plain versions that `module` (the one
-    the autograd Functions look them up in) holds."""
-    counts = {name: 0 for name in PLAIN_BODIES}
-    originals = {name: getattr(module, name) for name in PLAIN_BODIES}
+    the autograd Functions and the wrappers look them up in) holds."""
+    counts = {name: 0 for name in names}
+    originals = {name: getattr(module, name) for name in names}
 
     def counted(name):
         def fn(*args, **kw):
@@ -1447,7 +1919,7 @@ def counting_plain_bodies(module):
             return originals[name](*args, **kw)
         return fn
 
-    for name in PLAIN_BODIES:
+    for name in names:
         setattr(module, name, counted(name))
     try:
         yield counts
@@ -1824,6 +2296,9 @@ def main() -> int:
     rows.append(time_log_sinkhorn(dev, *log_fns, errs["log_sinkhorn_fused_stats"],
                                   log_launches["log_sinkhorn_fused_stats"]))
     eval_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
+    iterative = iterative_path(dev, kernels, ka, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
+    for row in rows:
+        row["launches_iterative"] = iterative[row["name"]]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

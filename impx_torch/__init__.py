@@ -7,10 +7,12 @@ A port of `impx` (JAX/Pallas) that mirrors its module layout:
   ops/      norms, mlp, attention, sinkhorn, matching (plain tensor functions)
   ops/kernels/  the CUDA kernels' wrappers, each beside its plain version
   geometry/ keypoints, epipolar, pose (errors, AUC), triangulation
-  ransac/   eight_point, ransac, pose_solver (the device and cv2 pose backends)
+  ransac/   eight_point, five_point, ransac, pose_solver (the device and cv2
+            pose backends, the iterative loop's checkpoint solver)
   data/     reader (the standard HDF5 dump), synthetic (seeded two-view pairs)
   eval/     evaluator (pose AUC, FM bench), eval_imp (the eval CLI),
-            eval_full, pipeline
+            eval_full, pipeline, iterative (the match-pose loop with early
+            stopping)
   train/    step (Adam, LR schedule, NaN guard), trainer
   tools/    convert (weights from the JAX pytree, the reference state_dict or
             a reference checkpoint file)

@@ -1,2 +1,2 @@
-"""Evaluation: the eval CLI (non-iterative path), evaluate_full and its
-pipelined variant, and the pose-AUC evaluators."""
+"""Evaluation: the eval CLI, the iterative match-pose loop, evaluate_full and
+its pipelined variant, and the pose-AUC evaluators."""

@@ -1,9 +1,19 @@
-"""Main eval CLI, the non-iterative path (impx/eval/eval_imp.py).
+"""Main eval CLI (impx/eval/eval_imp.py).
 
 Usage:
   python -m impx_torch.eval.eval_imp --matching_method IMP --dataset yfcc \\
-      --feature_type spp [--pose_backend cv2|device] [--config_path ...] \\
+      --feature_type spp [--pose_backend cv2|device] [--use_iterative \\
+      [--use_uncertainty] [--checkpoint_backend jax|cv2]] [--config_path ...] \\
       [--weight_path ...] [--device cpu]
+
+--use_iterative runs the iterative match-pose loop with early stopping
+(impx_torch/eval/iterative.py): batches of --eval_batch pairs with the pose
+solved on the device at each checkpoint when eval_batch > 1, else pair by
+pair, and always pair by pair under --checkpoint_backend cv2 (host
+USAC_MAGSAC on pixel coordinates, the reference protocol). A pair's
+generator, seeded from (seed, pair index), serves every checkpoint, so the
+serial and the batched loops give it the same samples. A pair scores the
+loop's own pose when the loop has one.
 
 Each batch of `--eval_batch` pairs, padded to one keypoint bucket, goes
 through the matcher in one `produce_matches` call (the CUDA kernels on the
@@ -26,10 +36,12 @@ import os.path as osp
 import time
 
 import numpy as np
+import torch
 
 from impx_torch.data.reader import pad_features, round_up
 from impx_torch.device import resolve_device
 from impx_torch.eval.evaluator import device_pose, pair_generator, pose_backend
+from impx_torch.eval.iterative import CHECKPOINT_BACKENDS, BatchedIterativeMatcher
 from impx_torch.geometry import pose as pose_metrics
 from impx_torch.geometry.epipolar import compute_epi_inlier_np
 from impx_torch.geometry.pose import compute_pose_error_np
@@ -38,9 +50,6 @@ from impx_torch.ransac.pose_solver import _norm_threshold, estimate_pose
 
 # impx's flags whose paths are not ported yet, and the ROADMAP item of each
 UNPORTED = {
-    "use_iterative": "A9 (the iterative match-pose loop)",
-    "use_uncertainty": "A9 (the iterative match-pose loop)",
-    "checkpoint_backend": "A9 (the iterative loop's checkpoint pose solver)",
     "data_parallel": "A11 (data parallelism)",
     "use_dual_softmax": "A6 (the dual-softmax head)",
 }
@@ -77,11 +86,15 @@ parser.add_argument("--device", type=str, default=None,
 parser.add_argument("--use_dual_softmax", action="store_true", default=False,
                     help="not ported yet (ROADMAP A6)")
 parser.add_argument("--use_iterative", action="store_true", default=False,
-                    help="not ported yet (ROADMAP A9)")
+                    help="the iterative match-pose loop with early stopping")
 parser.add_argument("--use_uncertainty", action="store_true", default=False,
-                    help="not ported yet (ROADMAP A9)")
-parser.add_argument("--checkpoint_backend", type=str, default=None, choices=["jax", "cv2"],
-                    help="not ported yet (ROADMAP A9)")
+                    help="with --use_iterative and EIMP: pool keypoints after each checkpoint")
+parser.add_argument("--checkpoint_backend", type=str, default="jax", choices=["jax", "device", "cv2"],
+                    help="pose solver at the iterative loop's checkpoints: jax (impx's name) or "
+                         "device = five-point RANSAC on the matcher's device; cv2 = host "
+                         "USAC_MAGSAC as the reference's loop (pair by pair)")
+parser.add_argument("--ransac_hypotheses", type=int, default=4096,
+                    help="minimal sets a checkpoint of the device checkpoint solver")
 parser.add_argument("--data_parallel", action="store_true", default=False,
                     help="not ported yet (ROADMAP A11)")
 
@@ -162,10 +175,13 @@ def _pair_feed_np(info, bucket):
 
 
 def _score_pair(info, x0, x1, matches, bucket, pose_errors, precisions, matching_scores, error_th,
-                backend: str = "cv2", device=None, generator=None):
+                backend: str = "cv2", device=None, generator=None, pred_R=None, pred_t=None,
+                has_pose: bool = False):
     """Append one pair's pose error (max of the rotation and translation
-    angles, inf without a pose), precision and matching score. backend
-    'device' estimates the pose on `device`, drawing from `generator`."""
+    angles, inf without a pose), precision and matching score. With has_pose
+    the error is that of (pred_R, pred_t), the iterative loop's own pose
+    (impx/eval/eval_imp.py:148); otherwise the pose is estimated from the
+    matches, backend 'device' on `device` drawing from `generator`."""
     K0, K1 = info["K1"], info["K2"]
     valid = matches > -1
     mkpts0 = x0[valid, :2]
@@ -181,8 +197,8 @@ def _score_pair(info, x0, x1, matches, bucket, pose_errors, precisions, matching
     else:
         precision = matching_score = 0.0
 
-    pose = None
-    if len(mkpts0) >= 5:
+    pose = (pred_R, pred_t) if has_pose else None
+    if not has_pose and len(mkpts0) >= 5:
         if backend == "device":
             pose = device_pose(norm_m0, norm_m1, _norm_threshold(error_th, K0, K1), device, generator)
         else:
@@ -206,18 +222,34 @@ def _print_progress(index, n_pairs, thresholds, pose_errors, precisions, matchin
           f"({t_device / max(index, 1) * 1000:.1f} ms/pair device)")
 
 
+def _results(thresholds, pose_errors, precisions, matching_scores, stop_its, t_device, t_start) -> dict:
+    aucs = [100 * a for a in pose_metrics.pose_auc(pose_errors, thresholds)]
+    return {
+        "auc": dict(zip(thresholds, aucs)),
+        "precision": 100 * float(np.mean(precisions)),
+        "matching_score": 100 * float(np.mean(matching_scores)),
+        "mean_stop_iteration": float(np.mean(stop_its)),
+        "pairs_per_sec_device": (len(pose_errors) / t_device) if t_device > 0 else 0.0,
+        "total_time": time.time() - t_start,
+    }
+
+
 def evaluate(model, reader, error_th: float, eval_config: dict, args) -> dict:
-    """The non-iterative eval loop over `reader` (StandardReader's interface:
-    num_kpt, __len__, run(index)): batches of args.eval_batch pairs (the last
-    padded by repeating its last pair) through `model.produce_matches`, then
-    each pair scored by `_score_pair` with args.pose_backend on the model's
-    device. Under EIMP compaction, a pair whose survivors overflowed a bucket
-    is re-run through a mask-only copy of the model.
+    """The eval loop over `reader` (StandardReader's interface: num_kpt,
+    __len__, run(index)). Non-iterative: batches of args.eval_batch pairs
+    (the last padded by repeating its last pair) through
+    `model.produce_matches`, then each pair scored by `_score_pair` with
+    args.pose_backend on the model's device; under EIMP compaction, a pair
+    whose survivors overflowed a bucket is re-run through a mask-only copy of
+    the model. args.use_iterative: `evaluate_iterative`.
 
     args: max_pairs, bucket (<= 0: round_up(num_kpt, 128)), eval_batch,
-    pose_backend; the unported flags of UNPORTED raise. eval_config: seed
-    (0) seeds each pair's generator."""
+    pose_backend, use_iterative, use_uncertainty, checkpoint_backend,
+    ransac_hypotheses; the unported flags of UNPORTED raise. eval_config:
+    seed (0) seeds each pair's generator."""
     refuse_unported(args)
+    if getattr(args, "use_iterative", False):
+        return evaluate_iterative(model, reader, error_th, eval_config, args)
     backend = pose_backend(getattr(args, "pose_backend", "cv2"))
     seed = eval_config.get("seed", 0)
     thresholds = [5, 10, 20, 50]
@@ -275,18 +307,95 @@ def evaluate(model, reader, error_th: float, eval_config: dict, args) -> dict:
         if index % 100 < eb or index >= n_pairs:
             _print_progress(index, n_pairs, thresholds, pose_errors, precisions, matching_scores,
                             t_device)
-    aucs = [100 * a for a in pose_metrics.pose_auc(pose_errors, thresholds)]
-    results = {
-        "auc": dict(zip(thresholds, aucs)),
-        "precision": 100 * float(np.mean(precisions)),
-        "matching_score": 100 * float(np.mean(matching_scores)),
-        "mean_stop_iteration": float(model.config.n_layers),
-        "pairs_per_sec_device": (len(pose_errors) / t_device) if t_device > 0 else 0.0,
-        "total_time": time.time() - t_start,
-    }
+    results = _results(thresholds, pose_errors, precisions, matching_scores, [model.config.n_layers],
+                       t_device, t_start)
     if model.config.compaction:
         results["compaction_overflow_pairs"] = n_overflow_pairs
     return results
+
+
+# the matcher's arrays of a feed (`_pair_feed_np`), which take a batch axis
+MATCHER_FEED = ("descriptors0", "descriptors1", "norm_keypoints0", "norm_keypoints1", "scores0", "scores1",
+                "valid0", "valid1")
+
+
+def _iterative_feed(info, bucket: int, error_th: float, pixels: bool):
+    """One pair's feed of the iterative loop: the matcher's arrays, x0n/x1n
+    (intrinsics-normalized keypoints) and, for the cv2 checkpoints, x0px/x1px
+    in the reader's dtype with K0/K1 in float64 and error_th_px. Returns
+    (feed, x0, x1, the normalized threshold)."""
+    feed, x0, x1 = _pair_feed_np(info, bucket)
+    K0, K1 = info["K1"], info["K2"]
+    feed["x0n"] = _normalize_intrinsic_np(x0[:, :2], K0)
+    feed["x1n"] = _normalize_intrinsic_np(x1[:, :2], K1)
+    if pixels:
+        feed.update(x0px=np.ascontiguousarray(x0[:, :2]), x1px=np.ascontiguousarray(x1[:, :2]),
+                    K0=np.asarray(K0, np.float64), K1=np.asarray(K1, np.float64), error_th_px=float(error_th))
+    return feed, x0, x1, _norm_threshold(error_th, K0, K1)
+
+
+def evaluate_iterative(model, reader, error_th: float, eval_config: dict, args) -> dict:
+    """The iterative eval loop (impx/eval/eval_imp.py:224-291, :389-420):
+    batches of args.eval_batch pairs through BatchedIterativeMatcher.run_batch
+    (the last batch padded by repeating its last pair) when eval_batch > 1
+    and the checkpoints run on the device; otherwise pair by pair through
+    IterativeMatcher.run. Each pair is scored on the loop's pose when it has
+    one; a pair without one estimates it from its matches with
+    args.pose_backend. mean_stop_iteration is the mean iteration the loop
+    stopped at."""
+    ckpt = CHECKPOINT_BACKENDS[getattr(args, "checkpoint_backend", None) or "jax"]
+    backend = pose_backend(getattr(args, "pose_backend", "cv2"))
+    seed = eval_config.get("seed", 0)
+    thresholds = [5, 10, 20, 50]
+    pose_errors, precisions, matching_scores, stop_its = [], [], [], []
+    n_pairs = len(reader) if args.max_pairs < 0 else min(args.max_pairs, len(reader))
+    bucket = args.bucket if args.bucket > 0 else round_up(reader.num_kpt, 128)
+    eb = max(1, getattr(args, "eval_batch", 4)) if ckpt == "device" else 1
+    matcher = None
+    t_start = time.time()
+    t_device = 0.0
+    index = 0
+    while index < n_pairs:
+        infos, xs, feeds, nts = [], [], [], []
+        for _ in range(min(eb, n_pairs - index)):
+            info = reader.run(index)
+            feed, x0, x1, nt = _iterative_feed(info, bucket, error_th, ckpt == "cv2")
+            infos.append(info)
+            xs.append((x0, x1))
+            feeds.append(feed)
+            nts.append(nt)
+            index += 1
+        first = index - len(infos)
+        if matcher is None:
+            matcher = BatchedIterativeMatcher(
+                model, norm_thresh=float(np.mean(nts)), match_ratio=0.1, min_kpts=25,
+                num_hypotheses=getattr(args, "ransac_hypotheses", 4096),
+                with_uncertainty=getattr(args, "use_uncertainty", False), checkpoint_backend=ckpt)
+        t0 = time.time()
+        if eb > 1:
+            gens = [pair_generator(model.device, seed, first + i) for i in range(len(infos))]
+            while len(feeds) < eb:  # pad the last batch
+                feeds.append(feeds[-1])
+                nts.append(nts[-1])
+                gens.append(pair_generator(model.device, seed, first + len(gens)))
+            out = matcher.run_batch({k: np.stack([f[k] for f in feeds]) for k in feeds[0]}, gens, nts)
+            outs = [{k: v[i] for k, v in out.items()} for i in range(len(infos))]
+        else:
+            feed = {k: (v[None] if k in MATCHER_FEED else v) for k, v in feeds[0].items()}
+            outs = [matcher.run(feed, pair_generator(model.device, seed, first), norm_thresh=nts[0])]
+        outs = [{k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v) for k, v in o.items()} for o in outs]
+        t_device += time.time() - t0
+        for i, (info, (x0, x1), o) in enumerate(zip(infos, xs, outs)):
+            # a pair without the loop's pose estimates one from its matches
+            generator = pair_generator(model.device, seed, first + i) if backend == "device" else None
+            _score_pair(info, x0, x1, np.asarray(o["indices0"]), bucket, pose_errors, precisions,
+                        matching_scores, error_th, backend=backend, device=model.device, generator=generator,
+                        pred_R=np.asarray(o["R"]), pred_t=np.asarray(o["t"]), has_pose=bool(o["has_pose"]))
+            stop_its.append(int(o["stopped_at"]))
+        if index % 100 < eb or index >= n_pairs:
+            _print_progress(index, n_pairs, thresholds, pose_errors, precisions, matching_scores, t_device)
+            print(f"  mean stop iteration {np.mean(stop_its):.2f}")
+    return _results(thresholds, pose_errors, precisions, matching_scores, stop_its, t_device, t_start)
 
 
 def main(argv=None):
@@ -323,7 +432,9 @@ def main(argv=None):
     finally:
         reader.close()
     print(f"Results of {args.matching_method} on {args.dataset} "
-          f"(iterative=False, pose={pose_backend(args.pose_backend)}, device={model.device}):")
+          f"(iterative={args.use_iterative}, uncertainty={args.use_uncertainty}, "
+          f"checkpoints={CHECKPOINT_BACKENDS[args.checkpoint_backend]}, "
+          f"pose={pose_backend(args.pose_backend)}, device={model.device}):")
     for k, v in results.items():
         print(f"  {k}: {v}")
     return results

@@ -9,17 +9,19 @@ from __future__ import annotations
 
 import torch
 
+from impx_torch.geometry.epipolar import skew_symmetric
+
 
 def triangulate_points(P0, P1, x0, x1):
     """DLT triangulation (cv2.triangulatePoints semantics).
 
-    P0, P1: [..., 3, 4] projection matrices; x0, x1: [N, 2] points. Returns
-    [..., N, 4] homogeneous points (the smallest eigenvector of AᵀA for each
+    P0, P1: [..., 3, 4] projection matrices; x0, x1: [..., N, 2] points.
+    Returns [..., N, 4] homogeneous points (the smallest eigenvector of AᵀA for each
     point's 4x4 design matrix A, by inverse iteration)."""
     from impx_torch.ransac.eight_point import _smallest_eigvec
 
     def rows(x, P):  # [..., N, 2, 4]: x * P[2] - P[:2]
-        return x[:, :, None] * P[..., None, 2:3, :] - P[..., None, :2, :]
+        return x[..., None] * P[..., None, 2:3, :] - P[..., None, :2, :]
 
     A = torch.cat(torch.broadcast_tensors(rows(x0, P0), rows(x1, P1)), dim=-2)  # [..., N, 4, 4]
     return _smallest_eigvec(A.mT @ A)
@@ -32,7 +34,7 @@ def two_ray_depths(R, t, x0, x1):
     parallel rays, where depths blow up and the distance threshold rejects
     the point, as DLT does at infinity.
 
-    R [..., 3, 3], t [..., 3]; x0, x1: [N, 2] normalized camera coords.
+    R [..., 3, 3], t [..., 3]; x0, x1: [..., N, 2] normalized camera coords.
     Returns (z0, z1) [..., N]."""
     x0h = torch.cat([x0, torch.ones_like(x0[..., :1])], dim=-1)
     x1h = torch.cat([x1, torch.ones_like(x1[..., :1])], dim=-1)
@@ -77,12 +79,28 @@ def cheirality_mask(pts4d, P, distance_thresh: float = 1000.0, valid=None):
     return mask
 
 
-def decompose_E(E):
+def decompose_E(E, svd: bool = True):
     """E -> (R1, R2, t) candidates (cv2.decomposeEssentialMat semantics).
 
     SVD sign conventions differ between libraries: a flip of the first two
     singular pairs swaps R1 and R2 and may negate t, so the four hypotheses
-    (R1, R2) x (t, -t) are the same set, in another order."""
+    (R1, R2) x (t, -t) are the same set, in another order.
+
+    svd=False: the same set in closed form, for an essential E (singular
+    values (s, s, 0), as every model of the RANSAC is), with no SVD (whose
+    convergence check synchronises the host with the device): E is scaled to
+    singular values (1, 1, 0); t is its left null vector, the smallest
+    eigenvector of E·Eᵀ; and with E = [t]x R, cof(E) = t tᵀ R, so
+    R = cof(E) − [t]x E and its twist R' = cof(E) + [t]x E (the rotation by
+    pi about t)."""
+    if not svd:
+        from impx_torch.ransac.eight_point import _inv3_scaled, _smallest_eigvec3_sym
+
+        En = E * (2.0 ** 0.5 / (torch.linalg.matrix_norm(E)[..., None, None] + 1e-30))
+        t = _smallest_eigvec3_sym(En @ En.mT)
+        cof = _inv3_scaled(En)[0].mT          # the cofactor matrix: adjugate transposed
+        tE = skew_symmetric(t) @ En
+        return cof - tE, cof + tE, t
     U, _, Vt = torch.linalg.svd(E)
     # enforce proper rotations
     U = U * torch.sign(torch.linalg.det(U))[..., None, None]
@@ -101,19 +119,20 @@ def projection(R, t):
 
 
 def decompose_essential_mat(E, x0, x1, distance_thresh: float = 1000.0, valid=None,
-                            fast: bool = True):
+                            fast: bool = True, svd: bool = True):
     """Pick the (R, t) among {R1, R2} x {t, -t} with the most cheirality
     inliers.
 
-    x0, x1: [N, 2] *normalized camera* coordinates. Returns (R, t, mask,
-    n_good). No data-dependent control flow: all four hypotheses are scored
-    and the first with the most inliers wins (argmax returns the first
-    maximum, the preference order good1 >= good2 >= good3 >= good4).
+    E [..., 3, 3]; x0, x1: [..., N, 2] *normalized camera* coordinates, one
+    problem per leading batch entry. Returns (R, t, mask, n_good). No
+    data-dependent control flow: all four hypotheses are scored and the first
+    with the most inliers wins (argmax returns the first maximum, the
+    preference order good1 >= good2 >= good3 >= good4).
 
     fast=True uses the closed-form two-ray depths for the cheirality test
     (cheirality_mask_fast); fast=False the DLT triangulation of
-    cv2.triangulatePoints."""
-    R1, R2, t = decompose_E(E)
+    cv2.triangulatePoints. svd: see decompose_E."""
+    R1, R2, t = decompose_E(E, svd=svd)
     Rs = torch.stack([R1, R2, R1, R2])
     ts = torch.stack([t, t, -t, -t])
     if fast:
@@ -123,6 +142,10 @@ def decompose_essential_mat(E, x0, x1, distance_thresh: float = 1000.0, valid=No
         P0 = projection(eye, torch.zeros(3, dtype=E.dtype, device=E.device))
         P = projection(Rs, ts)
         masks = cheirality_mask(triangulate_points(P0, P, x0, x1), P, distance_thresh, valid=valid)
-    goods = masks.sum(dim=-1)
-    best = torch.argmax(goods)
-    return Rs[best], ts[best], masks[best], goods[best]
+    goods = masks.sum(dim=-1)                      # [4, ...]
+    best = torch.argmax(goods, dim=0)              # [...]
+
+    def pick(x):
+        return torch.take_along_dim(x, best.view(1, *best.shape, *[1] * (x.dim() - 1 - best.dim())), dim=0)[0]
+
+    return pick(Rs), pick(ts), pick(masks), pick(goods)

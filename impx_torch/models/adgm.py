@@ -107,13 +107,30 @@ class AdaGMN(DGNNS):
         """One pooling step from the plan pred_score [B, N+1, M+1] and the
         (q, k) states of `_masses_from_qk`; returns (keep0, keep1)
         (impx/models/adgm.py:51). qmask0/qmask1: the queries that count in
-        the mass sums (default: the keep masks)."""
+        the mass sums (default: the keep masks). mscore_th: a float, or
+        [B, 1] for a threshold a pair."""
         if n_min_tokens is None:
             n_min_tokens = self.config.n_min_tokens
         inner = pred_score[:, :-1, :-1]
         masses = self._masses_from_qk(s00, s01, s11, s10, keep0, keep1, qmask0, qmask1)
         return self._pool_from_masses(inner.sum(dim=2), inner.sum(dim=1), *masses, keep0, keep1,
                                       mscore_th * uncertainty_ratio, n_min_tokens)
+
+    def pool_masks_stacked(self, pred_score, qk_self, qk_cross, keep0, keep1, mscore_th,
+                           lse_self=None, lse_cross=None, n_min_tokens: int | None = None):
+        """`pool_masks` from the stacked states that GM.forward_stacked_layer
+        carries (qk_self, qk_cross [2B, H, N, dh]), the queries that count
+        being the keep masks, as in impx's iterative loop
+        (impx/eval/iterative.py:193, :442). mscore_th: a float, or [B, 1] for
+        a threshold a pair. lse_self, lse_cross [2B, H, N]: the row lse of
+        those layers (kernel 4) on the kernel path, which the mass kernel
+        then takes in one pass."""
+        if n_min_tokens is None:
+            n_min_tokens = self.config.n_min_tokens
+        inner = pred_score[:, :-1, :-1]
+        masses = self._key_masses(qk_self, qk_cross, keep0, keep1, keep0, keep1, lse_self, lse_cross)
+        return self._pool_from_masses(inner.sum(dim=2), inner.sum(dim=1), *masses, keep0, keep1, mscore_th,
+                                      n_min_tokens)
 
     @torch.no_grad()
     def produce_matches(self, data, p: float = 0.2, mscore_th: float = 0.1,

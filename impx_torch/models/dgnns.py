@@ -33,9 +33,13 @@ class DGNNS(GM):
         valid0/1 [B, N] bool; arrays or tensors. Returns lists (one entry per
         collected iteration, or the last only) under 'scores' (the fp32
         [B, N+1, M+1] plan, or None when with_scores=False), 'indices0'
-        (-1 = unmatched) and 'mscores0'."""
-        return forward_scan(self, self._on_device(data), p=p, only_last=only_last,
-                            with_scores=with_scores)
+        (-1 = unmatched) and 'mscores0'. With the same keypoint count in both
+        images the stacked forward runs; otherwise GM's unrolled one, as
+        impx's default attn_impl does (its Pallas scan needs equal counts)."""
+        data = self._on_device(data)
+        if data["descriptors0"].shape[1] != data["descriptors1"].shape[1]:
+            return GM.produce_matches(self, data, p=p, only_last=only_last, with_scores=with_scores)
+        return forward_scan(self, data, p=p, only_last=only_last, with_scores=with_scores)
 
     def forward_train(self, data):
         """Training forward (impx/models/dgnns.py:37): `produce_matches`'s

@@ -1,11 +1,18 @@
-"""GM — the base graph matcher's building blocks (impx/models/gm.py).
+"""GM — the base graph matcher (impx/models/gm.py).
 
 Keypoint encoding, the per-iteration final projection and scaled dot-product
 distance, the score head (non-log Sinkhorn, or the log-domain optimal
-transport under config.log_ot) and mutual-NN matches. The forwards that
-string them together are DGNNS's (impx_torch/models/dgnns.py, through
-impx_torch/models/fast.py) and SuperGlue's (impx_torch/models/superglue.py);
-the unrolled non-sharing GM forward is not ported.
+transport under config.log_ot) and mutual-NN matches; the layer-stepping
+API (`init_state`, `_apply_layer`, `forward_one_layer`,
+`forward_stacked_layer`) and the unrolled inference forward over it
+(`produce_matches`, `run`), which takes N0 != N1. The iterative loop
+(impx_torch/eval/iterative.py) steps the layers through it. DGNNS's stacked
+forward is impx_torch/models/fast.py; the unrolled training forward is not
+ported.
+
+GM's dtype contract (impx/ops/attention.py:114-120): the stream stays fp32;
+q, k and v are projected in fp32 and cast to the compute dtype for the
+attention core.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from impx_torch.device import resolve_device
 from impx_torch.geometry.keypoints import normalize_keypoints
 from impx_torch.models.config import MatcherConfig
 from impx_torch.models.gnn import MLP, AttentionalPropagation, Dense
+from impx_torch.models.fast import _swap_half
 from impx_torch.ops.kernels.log_sinkhorn import log_optimal_transport_fused
 from impx_torch.ops.matching import compute_matches as _compute_matches
 from impx_torch.ops.sinkhorn import sink_algorithm
@@ -116,3 +124,110 @@ class GM(nn.Module):
         if self.scores_are_log:
             scores = torch.exp(scores)
         return _compute_matches(scores, p=p, valid0=valid0, valid1=valid1)
+
+    # ------------------------------------------------------------- layer stepping
+    def init_state(self) -> dict[str, Any]:
+        """The carried attention-sharing state (impx/models/gm.py:120): the
+        (q, k) of the last layer of each kind, 'self' and 'cross', which a
+        shared layer attends with (impx carries the probabilities, or these
+        q/k on its fused path: the same values). Stacked [2B, H, N, dh]
+        (image 0's queries, then image 1's) when both images have N
+        keypoints, else a pair of per-image states."""
+        return {"self": None, "cross": None}
+
+    def _apply_layer(self, layer_i: int, x, source, qk=None, key_mask=None, query_mask=None,
+                     with_lse: bool = False):
+        """One attentional-propagation layer (impx/models/gm.py:_apply_layer)
+        under GM's dtype contract; returns (delta, (q, k)), and with_lse (the
+        kernel path only) the row lse [B, H, N] fp32 of kernel 4 third."""
+        attn_dtype = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else None
+        return self.gnn[layer_i](x, source, qk, key_mask, query_mask, ac_fn=self.config.ac_fn,
+                                 use_kernels=self.use_kernels, attn_dtype=attn_dtype,
+                                 with_lse=with_lse and self.use_kernels)
+
+    def forward_stacked_layer(self, desc, layer_i: int, state, keep, keep_swap, query_mask,
+                              with_lse: bool = False):
+        """Layer layer_i on the stacked stream desc [2B, N, D] (image 0, then
+        image 1): a self layer attends within the stack, a cross layer to the
+        stack with its halves swapped, one launch for both images. keep
+        [2B, N] holds the key masks of the queries' own images, keep_swap
+        the other image's; query_mask the InstanceNorm mask. Returns (desc,
+        state, lse or None)."""
+        kind = "cross" if layer_i % 2 else "self"
+        source, key_mask = (_swap_half(desc), keep_swap) if kind == "cross" else (desc, keep)
+        delta, qk, *lse = self._apply_layer(layer_i, desc, source, state[kind], key_mask, query_mask,
+                                            with_lse)
+        return desc + delta, {**state, kind: qk}, (lse[0] if lse else None)
+
+    def forward_one_layer(self, desc0, desc1, layer_i: int, state=None, valid0=None, valid1=None):
+        """One self or cross layer on both images (impx/models/gm.py:159):
+        stacked into one launch when N0 == N1, else one launch an image.
+        valid0/valid1 [B, N0] / [B, N1] bool key and query masks (None: all
+        valid). Returns (desc0, desc1, new_state)."""
+        state = self.init_state() if state is None else state
+        b, n0, n1 = desc0.shape[0], desc0.shape[1], desc1.shape[1]
+        ones = lambda n: torch.ones((b, n), dtype=torch.bool, device=desc0.device)  # noqa: E731
+        valid0 = ones(n0) if valid0 is None else valid0
+        valid1 = ones(n1) if valid1 is None else valid1
+        if n0 == n1:
+            keep = torch.cat([valid0, valid1])
+            desc, state, _ = self.forward_stacked_layer(torch.cat([desc0, desc1]), layer_i, state, keep,
+                                                        torch.cat([valid1, valid0]), keep)
+            return desc[:b], desc[b:], state
+        cross = layer_i % 2 == 1
+        kind = "cross" if cross else "self"
+        qk0, qk1 = state[kind] or (None, None)
+        d0, qk0 = self._apply_layer(layer_i, desc0, desc1 if cross else desc0, qk0,
+                                    valid1 if cross else valid0, valid0)
+        d1, qk1 = self._apply_layer(layer_i, desc1, desc0 if cross else desc1, qk1,
+                                    valid0 if cross else valid1, valid1)
+        return desc0 + d0, desc1 + d1, {**state, kind: (qk0, qk1)}
+
+    # ------------------------------------------------------------------ forwards
+    def _encode_inputs(self, data):
+        """(desc0 [B, N0, D], desc1 [B, N1, D] fp32 with the keypoint encoding
+        added, valid0, valid1 bool, all-valid when absent)."""
+        desc0, desc1 = data["descriptors0"], data["descriptors1"]
+        valid = []
+        for i, d in ((0, desc0), (1, desc1)):
+            v = data.get(f"valid{i}")
+            valid.append(torch.ones(d.shape[:2], dtype=torch.bool, device=d.device) if v is None else v.bool())
+        enc0 = self.encode_keypoint(self._norm_kpts(data, 0), data["scores0"], valid[0])
+        enc1 = self.encode_keypoint(self._norm_kpts(data, 1), data["scores1"], valid[1])
+        return desc0 + enc0, desc1 + enc1, valid[0], valid[1]
+
+    @torch.no_grad()
+    def produce_matches(self, data: dict[str, Any], p: float = 0.2, only_last: bool = False,
+                        with_scores: bool = True):
+        """The unrolled forward (impx/models/gm.py:196): every layer through
+        `forward_one_layer`, then the score head after each cross layer (or
+        the last). Takes N0 != N1. data: descriptors0/1 [B, N0/N1, D],
+        norm_keypoints0/1 (or keypoints0/1 with image_shape0/1), scores0/1,
+        optional valid0/1. Returns lists under 'scores' (fp32 [B, N0+1,
+        N1+1] plans, None when with_scores=False), 'indices0', 'mscores0'."""
+        desc0, desc1, valid0, valid1 = self._encode_inputs(self._on_device(data))
+        state = self.init_state()
+        out = {"scores": [], "indices0": [], "mscores0": []}
+        for i in range(len(self.gnn)):
+            desc0, desc1, state = self.forward_one_layer(desc0, desc1, i, state, valid0, valid1)
+            if i % 2 == 0 or (only_last and i != len(self.gnn) - 1):
+                continue
+            score = self.compute_score(self.compute_distance(desc0, desc1, layer_id=i // 2), valid0, valid1)
+            idx0, _, ms0, _ = self.compute_matches(score, p=p, valid0=valid0, valid1=valid1)
+            out["scores"].append(score if with_scores else None)
+            out["indices0"].append(idx0)
+            out["mscores0"].append(ms0)
+        return out
+
+    def run(self, data: dict[str, Any]):
+        """SGMNet-style eval API (impx/models/gm.py:298): desc1/desc2, x1/x2 =
+        (x, y, score) with normalized keypoints, optional valid0/1. Returns
+        the last plan 'p' and the lists 'indices0', 'mscores0'."""
+        feed = {"descriptors0": data["desc1"], "descriptors1": data["desc2"],
+                "norm_keypoints0": data["x1"][..., :2], "norm_keypoints1": data["x2"][..., :2],
+                "scores0": data["x1"][..., -1], "scores1": data["x2"][..., -1]}
+        for k in ("valid0", "valid1"):
+            if data.get(k) is not None:
+                feed[k] = data[k]
+        out = GM.produce_matches(self, feed, p=self.config.match_threshold, only_last=True)
+        return {"p": out["scores"][-1], "indices0": out["indices0"], "mscores0": out["mscores0"]}

@@ -1,2 +1,3 @@
-"""Relative pose on the device: the eight-point solver, RANSAC with local
-optimisation, and the pose solvers (device and cv2 backends)."""
+"""Relative pose on the device: the eight- and five-point solvers, RANSAC
+with local optimisation, and the pose solvers (device and cv2 backends, and
+the iterative loop's batched checkpoint solver)."""

@@ -4,7 +4,8 @@ Fixed-shape tensor work in place of a host cv2.findEssentialMat call:
 
   1. sample H minimal subsets at once, uniform through a dense valid-index
      table, or weighted (PROSAC-style) through Gumbel top-k;
-  2. solve every hypothesis with the batched eight-point solver;
+  2. solve every hypothesis with the batched eight-point solver, or the
+     five-point minimal solver (up to 10 candidates a sample);
   3. score every hypothesis against every point in one [H, N] Sampson matrix
      with a truncated-quadratic gain;
   4. local optimisation: iteratively reweighted least squares on the best
@@ -22,9 +23,8 @@ import torch
 
 from impx_torch.geometry.epipolar import sampson_distance
 from impx_torch.ransac.eight_point import essential_from_points
+from impx_torch.ransac.five_point import solve_essential_5pt
 
-FIVE_POINT_TODO = ("sample_size=5 needs the five-point minimal solver "
-                   "(impx/ransac/five_point.py), not ported yet: ROADMAP A9")
 # impx's defaults, which none of its callers of the essential RANSAC changes:
 # the gain's truncation scales and the local optimisation's first support
 # threshold, LO_ANNEAL times the base one. impx's lo_starts (LO from the best
@@ -74,44 +74,72 @@ def _score(E, x0, x1, valid, threshold, sigmas=(1.0,)):
     return gain, inlier, d2
 
 
-def essential_ransac_from_samples(idx: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
-                                  valid: torch.Tensor, threshold: float, lo_iterations: int = 4,
-                                  E_init: torch.Tensor | None = None) -> dict:
-    """RANSAC given the minimal sets idx [H, S] (S >= 8): hypotheses, scores,
-    and LO-RANSAC from the best hypothesis (the first of equal gains, as
-    lax.top_k picks) and from `E_init`, a finite nonzero warm-start model,
-    when given, keeping the best final gain. The local optimisation is IRLS
-    with truncated weights and an annealed support threshold: it starts at
-    LO_ANNEAL x threshold and shrinks to the threshold by its last iteration;
-    a refit is kept only if the gain at the base threshold held and it had 8
-    supports.
+def _gather_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [..., N, 2] at the minimal sets idx [..., H, S] -> [..., H, S, 2]."""
+    flat = idx.flatten(-2).long()
+    return torch.gather(x, -2, flat[..., None].expand(*flat.shape, 2)).view(*idx.shape, 2)
 
-    Returns dict(E [3, 3], inliers [N] bool, gain, num_inliers)."""
-    if idx.shape[-1] < 8:
-        raise NotImplementedError(FIVE_POINT_TODO)
-    # project=False: scoring tolerates near-essential candidates; the winner
-    # is refined (and projected) by the IRLS loop below
-    Es = essential_from_points(x0[idx], x1[idx], project=False)  # [H, 3, 3]
-    gains, _, _ = _score(Es, x0, x1, valid, threshold, SCORE_SIGMAS)
-    E = Es[torch.argmax(gains)][None]
+
+def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x [..., K, 3, 3] at the model index i [...] -> [..., 3, 3]."""
+    return torch.take_along_dim(x, i[..., None, None, None], dim=-3)[..., 0, :, :]
+
+
+def essential_ransac_from_samples(idx: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
+                                  valid: torch.Tensor, threshold, lo_iterations: int = 4,
+                                  E_init: torch.Tensor | None = None) -> dict:
+    """RANSAC given the minimal sets idx [..., H, S] into x0, x1 [..., N, 2]
+    (valid [..., N]; any leading batch shape, one problem per batch entry):
+    hypotheses, scores, and LO-RANSAC from the best hypothesis (the first of
+    equal gains, as lax.top_k picks) and from `E_init` [..., 3, 3], a finite
+    nonzero warm-start model, when given, keeping the best final gain.
+
+    S = 5 solves each set with the five-point solver (up to 10 candidates a
+    set, all scored; invalid candidates get gain -inf); S >= 8 with the
+    eight-point solver. The local optimisation is IRLS with truncated
+    weights and an annealed support threshold: it starts at LO_ANNEAL x
+    threshold and shrinks to the threshold by its last iteration; a refit is
+    kept only if the gain at the base threshold held and it had 8 supports.
+    threshold: a float, or a tensor [...] of one threshold a problem.
+
+    Returns dict(E [..., 3, 3], inliers [..., N] bool, gain, num_inliers)."""
+    if isinstance(threshold, torch.Tensor):
+        threshold = threshold[..., None, None]   # over (model, point)
+    sx0, sx1 = _gather_points(x0, idx), _gather_points(x1, idx)
+    xs0, xs1, vs = x0[..., None, :, :], x1[..., None, :, :], valid[..., None, :]
+    if idx.shape[-1] == 5:
+        Es, ok = solve_essential_5pt(sx0, sx1)                   # [..., H, R, 3, 3], [..., H, R]
+        Es, ok = Es.flatten(-4, -3), ok.flatten(-2)
+        gains, _, _ = _score(Es, xs0, xs1, vs, threshold, SCORE_SIGMAS)
+        gains = torch.where(ok, gains, -torch.inf)
+    elif idx.shape[-1] >= 8:
+        # project=False: scoring tolerates near-essential candidates; the
+        # winner is refined (and projected) by the IRLS loop below
+        Es = essential_from_points(sx0, sx1, project=False)       # [..., H, 3, 3]
+        gains, _, _ = _score(Es, xs0, xs1, vs, threshold, SCORE_SIGMAS)
+    else:
+        raise ValueError(f"minimal sets of {idx.shape[-1]} points: want 5 or at least 8")
+    E = _pick(Es, torch.argmax(gains, dim=-1))[..., None, :, :]      # [..., 1, 3, 3]
     if E_init is not None:
-        E = torch.cat([E, E_init[None]], dim=0)
-    g, _, _ = _score(E, x0, x1, valid, threshold, SCORE_SIGMAS)
+        E = torch.cat([E, E_init[..., None, :, :].to(E.dtype)], dim=-3)
+    g, _, _ = _score(E, xs0, xs1, vs, threshold, SCORE_SIGMAS)
     t2 = threshold * threshold
     for i in range(lo_iterations):
         frac = (lo_iterations - 1.0 - i) / max(lo_iterations - 1.0, 1.0)
         m2 = (1.0 + (LO_ANNEAL - 1.0) * frac) ** 2
-        d2 = sampson_distance(x0, x1, E)
-        w = torch.where((d2 < t2 * m2) & valid, 1.0 / (1.0 + d2 / (t2 * m2)), 0.0)
+        d2 = sampson_distance(xs0, xs1, E)
+        w = torch.where((d2 < t2 * m2) & vs, 1.0 / (1.0 + d2 / (t2 * m2)), 0.0)
         n_in = torch.sum(w > 0, dim=-1)
-        E_new = essential_from_points(x0, x1, weights=w)
-        g_new, _, _ = _score(E_new, x0, x1, valid, threshold, SCORE_SIGMAS)
+        E_new = essential_from_points(xs0, xs1, weights=w)
+        g_new, _, _ = _score(E_new, xs0, xs1, vs, threshold, SCORE_SIGMAS)
         better = (g_new >= g) & (n_in >= 8)
-        E = torch.where(better[:, None, None], E_new, E)
+        E = torch.where(better[..., None, None], E_new, E)
         g = torch.where(better, g_new, g)
-    E = E[torch.argmax(g)]
+    E = _pick(E, torch.argmax(g, dim=-1))
+    if isinstance(threshold, torch.Tensor):
+        threshold = threshold[..., 0]
     gain, inliers, _ = _score(E, x0, x1, valid, threshold, SCORE_SIGMAS)
-    return {"E": E, "inliers": inliers, "gain": gain, "num_inliers": torch.sum(inliers)}
+    return {"E": E, "inliers": inliers, "gain": gain, "num_inliers": torch.sum(inliers, dim=-1)}
 
 
 def estimate_essential_ransac(generator: torch.Generator, x0: torch.Tensor, x1: torch.Tensor,
@@ -124,12 +152,10 @@ def estimate_essential_ransac(generator: torch.Generator, x0: torch.Tensor, x1: 
     generator: a torch.Generator on the points' device.
 
     weights: optional [N] sampling confidences: minimal sets are then drawn
-    in proportion to weight (Gumbel top-k). sample_size=5 (the five-point
-    solver) raises NotImplementedError.
+    in proportion to weight (Gumbel top-k). sample_size=5 solves them with
+    the five-point solver, 8 with the eight-point one.
 
     Returns dict(E [3, 3], inliers [N] bool, gain, num_inliers)."""
-    if sample_size < 8:
-        raise NotImplementedError(FIVE_POINT_TODO)
     if weights is not None:
         idx = _sample_minimal_sets_weighted(generator, weights, valid, num_hypotheses, sample_size)
     else:

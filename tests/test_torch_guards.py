@@ -46,7 +46,8 @@ def test_no_jax_or_impx_import_at_run_time():
     code = ("import sys, impx_torch.models, impx_torch.tools.convert, impx_torch.train.trainer, "
             "impx_torch.data.reader, impx_torch.data.synthetic, impx_torch.geometry, "
             "impx_torch.ransac.pose_solver, impx_torch.eval.evaluator, impx_torch.eval.eval_imp, "
-            "impx_torch.eval.eval_full, impx_torch.eval.pipeline; "
+            "impx_torch.eval.eval_full, impx_torch.eval.pipeline, impx_torch.eval.iterative, "
+            "impx_torch.ransac.five_point; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'impx')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -298,6 +299,7 @@ def test_eval_path_imports_and_runs_without_cv2_h5py_yaml():
             "sys.modules['cv2'] = sys.modules['h5py'] = sys.modules['yaml'] = None\n"
             "import numpy as np, torch\n"
             "import impx_torch.eval.eval_imp, impx_torch.eval.eval_full, impx_torch.eval.pipeline\n"
+            "import impx_torch.eval.iterative, impx_torch.ransac.five_point\n"
             "from impx_torch.ransac.pose_solver import estimate_pose_device\n"
             "rs = np.random.RandomState(0)\n"
             "X = rs.randn(64, 3) * [2, 2, 1] + [0, 0, 6]\n"
@@ -315,9 +317,7 @@ def test_eval_path_imports_and_runs_without_cv2_h5py_yaml():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("flag,item", [(["--use_iterative"], "A9"), (["--use_uncertainty"], "A9"),
-                                       (["--checkpoint_backend", "cv2"], "A9"),
-                                       (["--data_parallel"], "A11"), (["--use_dual_softmax"], "A6")],
+@pytest.mark.parametrize("flag,item", [(["--data_parallel"], "A11"), (["--use_dual_softmax"], "A6")],
                          ids=lambda v: v if isinstance(v, str) else v[0])
 def test_unported_eval_flags_raise(flag, item):
     """Each unported flag of the eval CLI raises, naming its ROADMAP item,
@@ -338,19 +338,72 @@ def test_dual_softmax_model_raises():
         build_model("IMP", "spp", use_sinkhorn=False, n_layers=2, device="cpu")
 
 
-def test_five_point_sampling_raises():
+def test_five_point_sampling_runs():
+    """sample_size=5 runs the five-point solver in every RANSAC entry point."""
     from impx_torch.ransac.pose_solver import estimate_pose_device
     from impx_torch.ransac.ransac import essential_ransac_from_samples, estimate_essential_ransac
 
-    x = torch.rand(16, 2)
-    valid = torch.ones(16, dtype=torch.bool)
+    rs = np.random.RandomState(0)
+    X = rs.randn(32, 3) * [2, 2, 1] + [0, 0, 6]
+    x0 = torch.tensor(X[:, :2] / X[:, 2:], dtype=torch.float32)
+    X1 = X + [0.5, 0.0, 0.1]
+    x1 = torch.tensor(X1[:, :2] / X1[:, 2:], dtype=torch.float32)
+    valid = torch.ones(32, dtype=torch.bool)
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        estimate_essential_ransac(g, x, x, valid, 1e-3, sample_size=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        estimate_pose_device(g, x, x, valid, 1e-3, sample_size=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        essential_ransac_from_samples(torch.zeros((4, 5), dtype=torch.long), x, x, valid, 1e-3)
+    for out in (estimate_essential_ransac(g, x0, x1, valid, 1e-3, num_hypotheses=16, sample_size=5),
+                estimate_pose_device(g, x0, x1, valid, 1e-3, num_hypotheses=16, sample_size=5),
+                essential_ransac_from_samples(torch.randint(0, 32, (16, 5), generator=g), x0, x1, valid, 1e-3)):
+        assert int(out["num_inliers"]) >= 30 and bool(torch.isfinite(out["E"]).all())
+
+
+@pytest.fixture(scope="module")
+def tiny_eval_config(tmp_path_factory):
+    """A YAML eval config over a synthetic HDF5 of 2 pairs, 48 keypoints."""
+    import yaml
+
+    from impx_torch.data.synthetic import write_eval_hdf5
+
+    root = tmp_path_factory.mktemp("cli")
+    write_eval_hdf5(str(root / "synth.hdf5"), num_pairs=2, seed=0, n_inliers=24, n_outliers0=24,
+                    n_outliers1=24)
+    config = {"reader": {"rawdata_dir": str(root), "dataset_dir": str(root / "synth.hdf5"), "num_kpt": 48},
+              "evaluator": {"rescale": 640, "inlier_th": 0.005}}
+    (root / "eval.yaml").write_text(yaml.safe_dump(config))
+    return str(root / "eval.yaml")
+
+
+ITERATIVE_FLAGS = [["--use_iterative"], ["--use_iterative", "--use_uncertainty", "--matching_method", "EIMP"],
+                   ["--use_iterative", "--checkpoint_backend", "cv2", "--eval_batch", "1"]]
+
+
+@pytest.mark.parametrize("flags", ITERATIVE_FLAGS, ids=["--use_iterative", "--use_uncertainty",
+                                                        "--checkpoint_backend"])
+def test_iterative_eval_flags_run(tiny_eval_config, flags):
+    """The iterative loop's flags run the CLI on the CPU (--device cpu), its
+    kernel wrappers counting no launch there."""
+    from impx_torch.eval import eval_imp
+
+    kernels = (mha_fused, sinkhorn_fused_stats, attention_key_mass)
+    before = [fn.launches for fn in kernels]
+    out = eval_imp.main(["--device", "cpu", "--config_path", tiny_eval_config, "--layers", "4",
+                         "--ransac_hypotheses", "32", "--bucket", "64", *flags])
+    assert 1 <= out["mean_stop_iteration"] <= 4 and out["precision"] >= 0
+    assert [fn.launches for fn in kernels] == before
+
+
+def test_iterative_eval_needs_cuda_unless_cpu_is_named(monkeypatch, tiny_eval_config):
+    from impx_torch.eval import eval_imp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_imp.main(["--config_path", tiny_eval_config, "--layers", "4", "--use_iterative"])
+
+
+def test_uncertainty_needs_an_eimp_model():
+    from impx_torch.eval.iterative import IterativeMatcher
+
+    with pytest.raises(ValueError, match="AdaGMN"):
+        IterativeMatcher(DGNNS(SMALL, device="cpu"), norm_thresh=1e-3, with_uncertainty=True)
 
 
 @pytest.mark.parametrize("backend", ["jax", "device"])
