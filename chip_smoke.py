@@ -6,13 +6,16 @@ their plain versions.
 Phases: (1) the card, versions and TF32 flags; (2) build the CUDA kernels from
 impx_torch/csrc, with ptxas's registers and spills for each kernel, and a
 summary line (registers, spills, shared memory) for each instantiation of the
-bf16 attention forward, and one for each instantiation of the persistent
-Sinkhorn kernels; (3) each kernel against its plain PyTorch version at
-the main path's shapes (the attention-mass and Sinkhorn kernels also twice
-on the same inputs, for the same bits, and once more through a CUDA-graph
-replay; the attention mass on both routes, from kernel 4's row lse and from
-its own, at the main path's shape, EIMP's compacted sizes and a ragged shape
-with a fully masked batch, with its device launches a call); (4)
+bf16 attention forward, of the fp32 kernels in 3xTF32 (the forward
+attn_fwd_tf32x3<dh, 1>, its row lse alone <dh, 0>, the mass
+key_mass_tf32x3<dh>), and of the persistent Sinkhorn kernels; (3) each kernel
+against its plain PyTorch version at the main path's shapes (kernel 1 at bf16
+and fp32 and kernel 4 at fp32, o and lse, twice for the same bits; the
+attention-mass and Sinkhorn kernels also twice on the same inputs, for the
+same bits, and once more through a CUDA-graph replay; the attention mass on
+both routes, from kernel 4's row lse and from its own, at the main path's
+shape in bf16 and fp32, EIMP's compacted sizes and a ragged shape with a
+fully masked batch, with its device launches a call); (4)
 DGNNS.produce_matches at the published eval config (15 layers, D = 256, 2048
 keypoints, 4 pairs, bf16) with random weights from a seed carried through the
 reference-checkpoint loader, counting kernel launches and comparing with the
@@ -21,7 +24,9 @@ library call, and of the whole call, the host time of one attention
 wrapper call (median over WRAPPER_CALLS calls, host clock), kernels 1
 and 4 (phase 9) beside sdpa and kernels 2 and 7 (phase 13) with 20 calls
 queued back to back, and the Sinkhorn kernels' schedule (CTAs, rows kept on
-chip, overflow bytes); (6) a torch.profiler breakdown of the main path's
+chip, overflow bytes); kernels 1 and 4 at fp32, one call and 20 queued,
+beside their 3xTF32 and FMA bounds, the plain version and sdpa at fp32 (its
+backend named); (6) a torch.profiler breakdown of the main path's
 device time by kernel and the device's idle share, with the attention group
 beside its time before the bf16 forward's redesign, and in this and every
 later profile the device launches of each kernel wrapper call (at most 3 for
@@ -30,7 +35,8 @@ and bucket-compacted, on pairs that overlap in part: launches per call (a
 pooling iteration's two layers run kernel 4, whose row lse the masses take),
 the keep counts after each pool, overflow, and agreement with the plain path;
 (8) the attention mass's times on both routes (one call, queued, and a CUDA
-graph's device time), its bound and its split at the compacted sizes,
+graph's device time), its bound and its split at the compacted sizes, its
+fp32 times on both routes beside the 3xTF32 and FMA bounds,
 pairs_per_s of both EIMP variants, kernel and plain path, and the profile of
 each (device time by kernel, host time by operation, the attention-mass group
 beside its time before the redesign); (9) the
@@ -65,7 +71,8 @@ on the kernel and the plain path (launches per batch, indices0 agreement,
 equal pose errors on equal match sets) and EIMP mask-only at bf16;
 pairs_per_s of the loop and its split (matcher, device pose, host metrics),
 a profiled batch of the pose stage and of the fp32 matcher with kernel 1's
-fp32 and kernel 2's time a launch beside their bounds; (17) the iterative
+fp32 and kernel 2's time a launch beside their bounds and the matcher's
+device time, each beside its time before the 3xTF32 redesign; (17) the iterative
 match-pose loop with early stopping through evaluate --use_iterative at the
 same config and pairs (five-point checkpoint solver, 4096 minimal sets a
 checkpoint): the checkpoint solver's pose recovery on true correspondences
@@ -77,9 +84,12 @@ loop ran, no plain body on the kernel path, no synchronising operation
 inside a checkpoint, indices0 agreement at every checkpoint, equal poses from
 equal compacted sets, serial against batched, early exit at
 pose_stop_deg=180 launching kernel 1 only for the layers run, the checkpoint
-solve's device operations at 1 and 4 pairs, and the split of a checkpoint's
-time. The line before the last lists the kernels as JSON (with each kernel's
-launches over phase 17's kernel-path runs); the last line is
+solve's device operations at 1 and 4 pairs, the split of a checkpoint's
+time, and profiled kernel 1 and kernel 6 times a launch at fp32 (kernel 6
+beside its time before the 3xTF32 redesign). The line before the last lists
+the kernels as JSON (with each kernel's launches over phase 17's kernel-path
+runs, and for kernels 1, 4 and 6 an "fp32" entry: times, both bounds, the
+plain and library times); the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
 """
@@ -97,8 +107,9 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 outside them, HBM
+# H100 SXM data-sheet peaks (dense): bf16 and TF32 tensor cores, fp32 outside them, HBM
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
 SFU_EXP_PER_S = 132 * 16 * 1.98e9   # MUFU: 16 per SM per clock, 132 SMs, 1.98 GHz boost
@@ -113,6 +124,12 @@ ATTN_GROUP_MS_BEFORE = 7.996
 # EIMP's attention-mass group before the mass kernel's one-pass redesign
 # (two passes, a second launch a call), as PERF.md section 5 records it
 MASS_GROUP_MS_BEFORE = {"mask-only": 3.964, "compacted": 1.228}
+# the fp32 instantiations before their 3xTF32 redesign (FMA designs), as
+# PERF.md sections 5 and 6 record them: kernel 1 a launch and the eval fp32
+# matcher's device time a call (phase 16), kernel 6 a launch (phase 17)
+F32_ATTN_MS_BEFORE = 2.5575
+F32_MATCHER_MS_BEFORE = 103.5
+F32_MASS_MS_BEFORE = 1.395
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # atol = rtol, vs plain
 SINK_RTOL, SINK_ATOL, IDX_FLIP_MAX = 1e-3, 1e-6, 1e-3
 E2E_AGREE_MIN = 0.95              # indices0 equal, kernel vs plain path (bf16)
@@ -252,35 +269,82 @@ def bound(flops: float, peak: float, nbytes: float) -> tuple[float, str, float]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), 1e3 * t_bytes
 
 
-def attention_bound(q, mask) -> tuple[float, str, float]:
-    """This call's work with valid keys only: QK^T and P.V flops versus the
-    bytes of q, o and the valid k, v rows."""
+def fp32_bounds(flops: float, exps: float, nbytes: float) -> dict:
+    """The least times of fp32-exact work, each against the bytes at the HBM
+    rate: "fma", the products in one fp32 pass on the FMA pipes; "tf32x3",
+    three TF32 passes on the tensor cores beside the exponentials at the
+    special-function rate. Values (ms, 'operations' or 'bytes')."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    out = {}
+    for name, t_ops in (("fma", flops / PEAK_FP32), ("tf32x3", max(3 * flops / PEAK_TF32, exps / SFU_EXP_PER_S))):
+        out[name] = (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def bounds_text(b: dict) -> str:
+    return (f"bound 3xTF32 {b['tf32x3'][0]:.4f} ms ({b['tf32x3'][1]}), FMA {b['fma'][0]:.4f} ms "
+            f"({b['fma'][1]})")
+
+
+def attention_work(q, mask) -> tuple[float, float, float]:
+    """This call's work with valid keys only: (QK^T and P.V flops, one
+    exponential a (query, valid key) pair, the bytes of q, o and the valid
+    k, v rows and the mask)."""
     b, h, nq, dh = q.shape
     valid_keys = int(mask.sum().item())
-    flops = 4.0 * h * nq * dh * valid_keys
-    nbytes = q.element_size() * (2 * b * h * nq * dh + 2 * h * dh * valid_keys) + 4 * mask.numel()
-    return bound(flops, PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32, nbytes)
+    nbytes = q.element_size() * (2 * b * h * nq * dh + 2 * h * dh * valid_keys) + mask.element_size() * mask.numel()
+    return 4.0 * h * nq * dh * valid_keys, float(h * nq * valid_keys), nbytes
 
 
-def check_attention(dev, mha_fused, mha_reference):
+def attention_bound(q, mask) -> tuple[float, str, float]:
+    """(least ms, what bounds it, ms of the bytes alone) of kernels 1 and 4 at
+    bf16: the products at the bf16 tensor-core rate (fp32: fp32_bounds)."""
+    flops, _, nbytes = attention_work(q, mask)
+    return bound(flops, PEAK_BF16, nbytes)
+
+
+def check_attention(dev, ka) -> dict:
+    """Kernel 1 (bf16 and fp32) and kernel 4 at fp32 against their plain
+    versions at the main path's shape and a ragged one, the last batch fully
+    masked: o within ATTN_TOL, kernel 4's lse within FWD_LSE_TOL and -1e30
+    exactly on the fully masked batch; each twice for the same bits. Prints
+    every check before failing on any. Returns the largest error at the main
+    shape by (kernel, dtype)."""
     gen = torch.Generator().manual_seed(1)
-    errs = {}
+    errs, failures = {}, []
     for dtype in (torch.bfloat16, torch.float32):
         for shape in (dict(), dict(b=3, h=2, n=333, dh=32)):   # main path; ragged edge
             q, k, v, mask = attention_inputs(gen, dev, dtype, fully_masked=True, **shape)
-            out = mha_fused(q, k, v, mask)
+            runs = {"mha_fused": [(ka.mha_fused(q, k, v, mask), None) for _ in range(2)]}
+            if dtype == torch.float32:
+                runs["mha_fused_lse"] = [ka.mha_fused_lse(q, k, v, mask) for _ in range(2)]
             torch.cuda.synchronize()
-            ref = mha_reference(q, k, v, mask)
-            err = (out.float() - ref.float()).abs()
-            tol = ATTN_TOL[dtype]
-            bad = (err > tol + tol * ref.float().abs()).sum().item()
-            finite = bool(torch.isfinite(out.float()).all())
-            say(f"check attention {list(q.shape)} {str(dtype)[6:]}: max_abs_err {err.max().item():.3e}"
-                f" (tol atol=rtol={tol:g}), out of tolerance {bad}, finite {finite}")
-            if bad or not finite:
-                fail(f"attention kernel disagrees with its plain version at {list(q.shape)} {dtype}")
-            errs[(dtype, q.shape[-1])] = err.max().item()
-    return errs[(torch.bfloat16, D // H)]
+            ref, ref_lse = ka.mha_lse_reference(q, k, v, mask)
+            for name, ((out, lse), (out2, lse2)) in runs.items():
+                err = (out.float() - ref.float()).abs()
+                tol = ATTN_TOL[dtype]
+                bad = (err > tol + tol * ref.float().abs()).sum().item()
+                finite = bool(torch.isfinite(out.float()).all())
+                same = torch.equal(out, out2) and (lse is None or torch.equal(lse, lse2))
+                label = f"{name} {list(q.shape)} {str(dtype)[6:]}"
+                line = (f"check {label}: max_abs_err {err.max().item():.3e} (tol atol=rtol={tol:g}), out of "
+                        f"tolerance {bad}, finite {finite}, second run bitwise equal {same}")
+                ok = not bad and finite and same
+                if lse is not None:
+                    lse_err = (lse - ref_lse).abs()
+                    lse_bad = (lse_err > FWD_LSE_TOL + FWD_LSE_TOL * ref_lse.abs()).sum().item()
+                    masked = bool((lse[-1] == -1e30).all())
+                    line += (f"; lse max_abs_err {lse_err.max().item():.3e} (tol atol=rtol={FWD_LSE_TOL:g}), "
+                             f"out of tolerance {lse_bad}, -1e30 exactly on the fully masked batch {masked}")
+                    ok = ok and not lse_bad and masked
+                say(line)
+                if not ok:
+                    failures.append(label)
+                if not shape:
+                    errs[(name, dtype)] = err.max().item()
+    if failures:
+        fail(f"attention kernels disagree with their plain versions or themselves: {failures}")
+    return errs
 
 
 # ---------------------------------------------------------- attention key mass
@@ -297,21 +361,27 @@ def mass_inputs(gen, dev, dtype, b=2 * B, h=H, nq=N, nk=N, dh=D // H, fully_mask
     return q, k, kmask.to(dev), qmask.to(dev)
 
 
-def mass_bound(q, k, kmask, qmask) -> tuple[float, str, float, float, float]:
+def mass_work(q, k, kmask, qmask) -> tuple[float, float, float]:
     """This call's work over valid (query, key) pairs of each batch only (a
-    masked query adds 0 to every mass): one QK^T (2 flops a multiply-add) and
-    one exponential a pair at the special-function rate, versus reading the
-    valid q and k rows and the masks and writing [B, Nk] fp32. Returns (bound
-    ms, what bounds it, ms of the QK^T, ms of the exponentials, ms of the
-    bytes)."""
+    masked query adds 0 to every mass): (QK^T flops, 2 a multiply-add; one
+    exponential a pair; the bytes of the valid q and k rows, the masks and
+    the [B, Nk] fp32 output)."""
     b, h, nq, dh = q.shape
     nq_b, nk_b = qmask.sum(1).double(), kmask.sum(1).double()
     pairs = (nq_b * nk_b).sum().item()
-    nbytes = q.element_size() * h * dh * (nq_b.sum() + nk_b.sum()).item() + 4 * (
-        kmask.numel() + qmask.numel() + b * k.shape[2])
-    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32
-    t_qk, t_bytes = 1e3 * 2.0 * h * dh * pairs / peak, 1e3 * nbytes / HBM_BYTES_PER_S
-    t_exp = 1e3 * h * pairs / SFU_EXP_PER_S
+    nbytes = q.element_size() * h * dh * (nq_b.sum() + nk_b.sum()).item() + (
+        kmask.element_size() * kmask.numel() + qmask.element_size() * qmask.numel() + 4 * b * k.shape[2])
+    return 2.0 * h * dh * pairs, float(h * pairs), nbytes
+
+
+def mass_bound(q, k, kmask, qmask) -> tuple[float, str, float, float, float]:
+    """The bf16 mass's least time: the QK^T at the bf16 tensor-core rate, the
+    exponentials at the special-function rate, the bytes at the HBM rate.
+    Returns (bound ms, what bounds it, ms of the QK^T, ms of the
+    exponentials, ms of the bytes)."""
+    flops, exps, nbytes = mass_work(q, k, kmask, qmask)
+    t_qk, t_bytes = 1e3 * flops / PEAK_BF16, 1e3 * nbytes / HBM_BYTES_PER_S
+    t_exp = 1e3 * exps / SFU_EXP_PER_S
     t = max(t_qk, t_exp, t_bytes)
     return t, ("bytes" if t == t_bytes else "operations"), t_qk, t_exp, t_bytes
 
@@ -349,12 +419,12 @@ def check_mass(dev, attention_key_mass, attention_key_mass_reference, mha_fused_
     shape, EIMP's compacted sizes and a ragged shape with a fully masked batch
     (bf16 and fp32): twice for the same bits and through a CUDA-graph replay.
     On the lse route at the main shape, one device launch a call. Returns the
-    largest error at the main shape."""
+    largest error at the main shape by dtype."""
     gen = torch.Generator().manual_seed(7)
-    worst, failures = 0.0, []
+    worst, failures = {}, []
     ragged = dict(b=3, h=2, nq=333, nk=290, dh=32, fully_masked=True)
     shapes = [(torch.bfloat16, dict())] + [(torch.bfloat16, dict(nq=n, nk=n)) for _, n in EIMP_COMPACTION] + [
-        (torch.bfloat16, ragged), (torch.float32, ragged)]
+        (torch.bfloat16, ragged), (torch.float32, dict()), (torch.float32, ragged)]
     for dtype, shape in shapes:
         q, k, kmask, qmask = mass_inputs(gen, dev, dtype, **shape)
         ref = attention_key_mass_reference(q, k, kmask, qmask)
@@ -376,7 +446,7 @@ def check_mass(dev, attention_key_mass, attention_key_mass_reference, mha_fused_
                 failures.append(label)
             if not shape:
                 if route == "lse":
-                    worst = err.max().item()
+                    worst[dtype] = err.max().item()
                 per = mass_device_launches(attention_key_mass, args)
                 say(f"check {label}: {per:.2f} device launches a wrapper call")
                 if route == "lse" and per != 1:
@@ -688,6 +758,65 @@ def time_all(dev, model, mods, errs, launches):
     ]
 
 
+def device_kernels(fn, args, calls: int = 2) -> list[str]:
+    """The device kernels of `calls` fn(*args) calls under torch.profiler,
+    after a warm-up call, in order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def sdpa_backend(names: list[str]) -> str:
+    """Which of scaled_dot_product_attention's backends ran, from its device
+    kernels' names."""
+    text = " ".join(names).lower()
+    for key, backend in (("flash", "flash"), ("cudnn", "cuDNN"), ("fmha", "memory-efficient"),
+                         ("efficient", "memory-efficient")):
+        if key in text:
+            return backend
+    return f"math ({len(set(names))} kinds of kernel)"
+
+
+def time_fp32_forward(dev, ka, errs) -> dict:
+    """Kernels 1 and 4 at fp32 (attn_fwd_tf32x3) at the main path's shape:
+    one call between two events, 20 queued, both bounds, the plain version,
+    and scaled_dot_product_attention at fp32 with the bool mask (its backend
+    named). Returns each kernel's JSON "fp32" entry."""
+    gen = torch.Generator().manual_seed(12)
+    att = [attention_inputs(gen, dev, torch.float32) for _ in range(4)]
+    sdpa = lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=m[:, None, None, :])
+    names = device_kernels(sdpa, att[0])
+    backend = sdpa_backend(names)
+    lib_ms, lib_queued = cuda_ms(sdpa, att), queued_ms(sdpa, att)
+    flops, exps, nbytes = attention_work(att[0][0], att[0][3])
+    b = fp32_bounds(flops, exps, nbytes)
+    say(f"time sdpa {list(att[0][0].shape)} fp32 bool mask: {backend} backend, device kernels "
+        f"{sorted(set(n[:60] for n in names))}; ms {lib_ms:.4f} queued_ms {lib_queued:.4f}; tf32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    rows = {}
+    for name, fn, plain in (("mha_fused", ka.mha_fused, ka.mha_reference),
+                            ("mha_fused_lse", ka.mha_fused_lse, ka.mha_lse_reference)):
+        ms, q_ms, p_ms = cuda_ms(fn, att), queued_ms(fn, att), cuda_ms(plain, att)
+        say(f"time {name} {list(att[0][0].shape)} fp32: ms {ms:.4f} (one call between two events) queued_ms "
+            f"{q_ms:.4f} (20 calls back to back); {bounds_text(b)} (the exponentials "
+            f"{1e3 * exps / SFU_EXP_PER_S:.4f} ms, the bytes {1e3 * nbytes / HBM_BYTES_PER_S:.4f}); plain_ms "
+            f"{p_ms:.4f} library_ms {lib_ms:.4f} (sdpa, {backend}); {F32_ATTN_MS_BEFORE} ms a launch profiled "
+            f"before the 3xTF32 redesign")
+        rows[name] = {"ms": ms, "queued_ms": q_ms, "plain_ms": p_ms, "bound_ms": b["tf32x3"][0],
+                      "bound_by": f"{b['tf32x3'][1]} (3xTF32)", "bound_fma_ms": b["fma"][0],
+                      "library_ms": lib_ms, "library_queued_ms": lib_queued, "library": f"sdpa ({backend})",
+                      "max_abs_err": errs[(name, torch.float32)]}
+    return rows
+
+
 def kernel_name(mangled: str) -> str:
     """`name<template integers>` of a kernel in an anonymous namespace, from
     its mangled name `_ZN<n><namespace><n><name>I<arguments>E...`, so that
@@ -722,8 +851,41 @@ def forward_resources(log: str | None, lib) -> None:
             used = line.split(":", 1)[1].strip()
             dh = int(re.search(r"<(\d+)>", kernel).group(1))
             say(f"ptxas {kernel}: {used}; {spills}; dynamic smem a block "
-                f"{lib.impx_mha_fwd_smem_bytes(dh, N)} bytes at Nk = {N}, "
-                f"{lib.impx_mha_fwd_smem_bytes(dh, TN)} at Nk = {TN}")
+                f"{lib.impx_mha_fwd_smem_bytes(dh, N, 1)} bytes at Nk = {N}, "
+                f"{lib.impx_mha_fwd_smem_bytes(dh, TN, 1)} at Nk = {TN}")
+
+
+def f32_resources(logs: dict) -> None:
+    """One line per instantiation of the fp32 kernels in 3xTF32: the forward
+    attn_fwd_tf32x3<dh, 1> (kernels 1 and 4), its row lse alone
+    attn_fwd_tf32x3<dh, 0> and the mass key_mass_tf32x3<dh> (kernel 6):
+    ptxas's registers and spills, and the dynamic shared memory a block at
+    the main path's 2048 queries or keys."""
+    from impx_torch.ops.kernels import _build
+
+    for name in ("attention", "attention_mass"):
+        log = logs.get(name)
+        if log is None:
+            say(f"ptxas {name} fp32 kernels: not compiled in this process (a library of this source was already "
+                f"built)")
+            continue
+        lib = _build.load(name)
+        kernel, spills = None, ""
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                kernel = kernel_name(line.split()[-1])
+            elif "spill" in line:
+                spills = line.strip()
+            elif "Used" in line and "registers" in line and kernel and "tf32x3" in kernel:
+                dh = int(re.search(r"<(\d+)", kernel).group(1))
+                if kernel.startswith("key_mass"):
+                    smem = lib.impx_attention_mass_f32_smem_bytes(dh, N, 0)
+                elif kernel.endswith(", 0>"):
+                    smem = lib.impx_attention_mass_f32_smem_bytes(dh, N, 1)
+                else:
+                    smem = lib.impx_mha_fwd_smem_bytes(dh, N, 0)
+                say(f"ptxas {kernel}: {line.split(':', 1)[1].strip()}; {spills}; dynamic smem a block {smem} "
+                    f"bytes at N = {N}")
 
 
 def persistent_resources(logs: dict) -> None:
@@ -1015,6 +1177,31 @@ def time_eimp(dev, models, mods, err, launches):
             "bound_by": m_by, "library_ms": None}
 
 
+def time_fp32_mass(dev, attention_key_mass, attention_key_mass_reference, mha_fused_lse, err) -> dict:
+    """Kernel 6 at fp32 (key_mass_tf32x3; the standalone route's row lse
+    attn_fwd_tf32x3<dh, 0>) at the main path's shape on both routes: one
+    call, 20 queued, a CUDA graph's device time, both bounds, the plain
+    version. Returns the JSON row's "fp32" entry (the lse route's times)."""
+    gen = torch.Generator().manual_seed(13)
+    ins = [mass_inputs(gen, dev, torch.float32) for _ in range(4)]
+    flops, exps, nbytes = mass_work(*ins[0])
+    b = fp32_bounds(flops, exps, nbytes)
+    m_plain = cuda_ms(attention_key_mass_reference, ins)
+    out = {}
+    for route in MASS_ROUTES:
+        args = [mass_route(mha_fused_lse, route, *x) for x in ins]
+        t = {"ms": cuda_ms(attention_key_mass, args), "queued_ms": queued_ms(attention_key_mass, args),
+             "graph_ms": graph_ms(attention_key_mass, args)}
+        say(f"time attention_key_mass {route} route {list(ins[0][0].shape)} fp32: ms {t['ms']:.4f} (one call "
+            f"between two events) queued_ms {t['queued_ms']:.4f} graph_ms {t['graph_ms']:.4f}; {bounds_text(b)} "
+            f"(the exponentials {1e3 * exps / SFU_EXP_PER_S:.4f} ms, the bytes {1e3 * nbytes / HBM_BYTES_PER_S:.4f}); "
+            f"plain_ms {m_plain:.4f}; {F32_MASS_MS_BEFORE} ms a launch profiled before the 3xTF32 redesign")
+        out[route] = t
+    return {**out["lse"], "standalone_graph_ms": out["standalone"]["graph_ms"], "plain_ms": m_plain,
+            "bound_ms": b["tf32x3"][0], "bound_by": f"{b['tf32x3'][1]} (3xTF32)", "bound_fma_ms": b["fma"][0],
+            "library_ms": None, "max_abs_err": err}
+
+
 # ---------------------------------------------------------------- the eval path
 # configs/yfcc_eval_gm.yaml: SuperPoint at 2000 keypoints (bucket round_up(2000,
 # 128) = 2048), the evaluator's inlier_th; YFCC's pose threshold is 1 pixel
@@ -1258,13 +1445,17 @@ def eval_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_d
     v0, v1 = feeds[0]["valid0"], feeds[0]["valid1"]
     n = v0.shape[1]
     q = torch.empty((2 * EVAL_BATCH, H, n, D // H), device=dev)
-    a_bound, a_by, _ = attention_bound(q, torch.cat([v0, v1]))
+    a_bounds = fp32_bounds(*attention_work(q, torch.cat([v0, v1])))
     s_bound, s_by, _ = sinkhorn_bound(torch.empty((EVAL_BATCH, n, n), device=dev), v0, v1)
     if groups is not None:
         (a_ms, a_n), (s_ms, s_n) = groups[KERNEL_GROUPS[0][0]], groups[KERNEL_GROUPS[4][0]]
-        say(f"profile eval IMP float32: kernel 1 (attn_fwd_f32) {a_ms / max(a_n, 1):.4f} ms a launch over "
-            f"{a_n:.0f} launches, bound {a_bound:.4f} ms ({a_by}); kernel 2 (fp32 dist) {s_ms / max(s_n, 1):.4f} "
-            f"ms a launch over {s_n:.0f}, bound {s_bound:.4f} ms ({s_by})")
+        say(f"profile eval IMP float32: kernel 1 (attn_fwd_tf32x3) {a_ms / max(a_n, 1):.4f} ms a launch over "
+            f"{a_n:.0f} launches, {bounds_text(a_bounds)}; {F32_ATTN_MS_BEFORE} ms a launch before the 3xTF32 "
+            f"redesign; kernel 2 (fp32 dist) {s_ms / max(s_n, 1):.4f} ms a launch over {s_n:.0f}, bound "
+            f"{s_bound:.4f} ms ({s_by})")
+        say(f"profile eval IMP float32 matcher: {sum(ms for ms, _ in groups.values()):.3f} ms of device time a "
+            f"call (the sum of its kernels' times), {a_ms:.3f} of it kernel 1; {F32_MATCHER_MS_BEFORE} ms a call "
+            f"before the 3xTF32 redesign")
     say(f"eval phase {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1720,9 +1911,11 @@ def profile_launches(label, kernels, call):
         return
     wrapped = (kernels["mha_fused"].launches + kernels["mha_fused_lse"].launches) / 2  # warm-up and profiled
     device_n = groups[KERNEL_GROUPS[0][0]][1]
+    (a_ms, _), (m_ms, m_n) = groups[KERNEL_GROUPS[0][0]], groups[KERNEL_GROUPS[5][0]]
     say(f"profile iterative {label}: kernels 1 and 4 {device_n:.0f} device launches against {wrapped:.0f} wrapper "
-        f"launches a call; kernel 6 {groups[KERNEL_GROUPS[5][0]][1]:.0f} device launches over "
-        f"{kernels['attention_key_mass'].launches / 2:.0f} wrapper calls")
+        f"launches a call, {a_ms / max(device_n, 1):.4f} ms a launch; kernel 6 {m_n:.0f} device launches over "
+        f"{kernels['attention_key_mass'].launches / 2:.0f} wrapper calls"
+        + (f", {m_ms / m_n:.4f} ms a launch ({F32_MASS_MS_BEFORE} before the 3xTF32 redesign, fp32)" if m_n else ""))
     if device_n != wrapped:
         fail(f"iterative {label}: the profiler's kernel 1 and 4 launches differ from the wrappers' count")
 
@@ -2243,13 +2436,15 @@ def main() -> int:
             elif "registers" in line or "spill" in line or "error" in line:
                 say(f"  ptxas {name}: {line.strip()}")
     forward_resources(logs.get("attention"), _build.load("attention"))
+    f32_resources(logs)
     persistent_resources(logs)
 
-    errs = {"mha_fused": check_attention(dev, mha_fused, mha_reference),
+    attention_errs = check_attention(dev, ka)
+    errs = {"mha_fused": attention_errs[("mha_fused", torch.bfloat16)],
             "sinkhorn_fused_stats": check_sinkhorn(dev, sinkhorn_fused_stats,
                                                    sinkhorn_stats_reference, plan_dtype)}
-    errs["attention_key_mass"] = check_mass(dev, attention_key_mass, attention_key_mass_reference,
-                                            ka.mha_fused_lse)
+    mass_errs = check_mass(dev, attention_key_mass, attention_key_mass_reference, ka.mha_fused_lse)
+    errs["attention_key_mass"] = mass_errs[torch.bfloat16]
     kernels = {"mha_fused": mha_fused, "sinkhorn_fused_stats": sinkhorn_fused_stats,
                "attention_key_mass": attention_key_mass, "mha_fused_lse": ka.mha_fused_lse,
                "mha_bwd": ka.mha_bwd, "mha_bwd_from_lse": ka.mha_bwd_from_lse,
@@ -2260,6 +2455,7 @@ def main() -> int:
     model, launches = main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels)
     rows = time_all(dev, model, (mha_fused, mha_reference, sinkhorn_fused_stats,
                                  sinkhorn_stats_reference, plan_dtype), errs, launches)
+    fp32 = time_fp32_forward(dev, ka, attention_errs)
     profile_main_path(dev, model)
     del model
 
@@ -2268,6 +2464,8 @@ def main() -> int:
     eimp_launches = eimp_path(dev, models, kernels, pool_its)
     rows.append(time_eimp(dev, models, (attention_key_mass, attention_key_mass_reference, ka.mha_fused_lse),
                           errs["attention_key_mass"], eimp_launches))
+    fp32["attention_key_mass"] = time_fp32_mass(dev, attention_key_mass, attention_key_mass_reference,
+                                                ka.mha_fused_lse, mass_errs[torch.float32])
     gen = torch.Generator().manual_seed(9)
     pairs = [overlap_pairs(gen, dev) for _ in range(4)]
     for name in ("compacted", "mask-only"):
@@ -2299,6 +2497,8 @@ def main() -> int:
     iterative = iterative_path(dev, kernels, ka, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
     for row in rows:
         row["launches_iterative"] = iterative[row["name"]]
+        if row["name"] in fp32:
+            row["fp32"] = fp32[row["name"]]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

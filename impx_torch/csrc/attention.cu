@@ -17,11 +17,14 @@
 // Bound on the H100: the two products, 4 * Nq * Nk * dh flops per
 // (batch, head), against the bf16 tensor-core rate (0.032 ms at [8, 4, 2048,
 // 64]); the exponentials, one a score, take about as long on the
-// special-function units, and the bytes of q, k, v, o a third of that.
+// special-function units, and the bytes of q, k, v, o a third of that. At
+// fp32 the products are three TF32 passes (3xTF32, csrc/attention_tf32.cuh)
+// at 495 TFLOP/s: 0.185 ms at [8, 4, 2048, 64], against 0.456 ms for one
+// fp32 pass on the FMA pipes.
 //
 // Layout: q [BH, Nq, dh], k/v [BH, Nk, dh] contiguous, out like q; the key
-// mask [B, Nk] or none: at bf16 one byte a key (bool, nonzero valid), read
-// as the caller gave it; at fp32 an fp32 mask (> 0 valid).
+// mask [B, Nk] one byte a key (bool, nonzero valid), read as the caller gave
+// it, or none.
 //
 // bf16 (attn_fwd_wgmma, dh 16, 32, 64), one block per (128 queries,
 // batch*head), 288 threads:
@@ -49,25 +52,26 @@
 //     batch is valid (the reference gives every key -1e30, so a uniform
 //     average of V), every key in range counts as valid with c = 0, and lse
 //     is written as -1e30.
-// fp32 (attn_fwd_f32): one block per (64 queries, batch*head), 256 threads,
-// 4 per query row, plain FMA in full fp32, 64-key tiles; fp32 mask or none.
+// fp32 (attn_fwd_tf32x3, csrc/attention_tf32.cuh): the same softmax and mask
+// bits, both products as wgmma in 3xTF32, one block per (128 queries,
+// batch*head), two warpgroups of 64 rows, K and V tiles through cp.async
+// stages and split into TF32 hi and lo once a block.
 // Semantics of the TPU kernel: scale by 1/sqrt(dh) before masking; masked
 // keys score the finite -1e30 (a fully masked row averages V uniformly, never
 // NaN); keys past Nk (the ragged last tile) get weight 0; P is exp(s - running
-// max) rounded to the input dtype before P.V, the division by l after it.
+// max) rounded to the input dtype before P.V (no rounding at fp32), the
+// division by l after it.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tf32.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kBlockQ = 64;   // fp32 kernel
-constexpr int kBlockK = 64;
 
 // --------------------------------------------------------- bf16, wgmma + TMA
 constexpr int kTileQ = 128;          // query rows a block: two consumer warpgroups of 64
@@ -75,7 +79,6 @@ constexpr int kTileK = 64;           // keys a tile
 constexpr int kStages = 4;           // K/V tiles in flight
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 32 * (kConsumerWarps + 1);  // + the producer warp
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Dynamic shared memory, from a 1024-byte aligned base: Q, the K stages, the
 // V stages, the key mask as bits (two 32-bit words a key tile), mbarriers
@@ -91,54 +94,6 @@ struct FwdSmem {
   static int bytes(int ntiles) { return 1024 + kWords + 8 * ntiles + 8 * kBars; }
 };
 
-// One 64-key tile's softmax for this thread's two rows (g, g + 8): the tile's
-// scores s (raw q.k, m64n64 accumulator layout), the tile's mask words, the
-// running max m (raw units), its scaled copy mu = m c (0 while m = -inf), the
-// running sum l; writes p = 2^(s c - mu) over s (0 at invalid keys) and
-// alpha, the factor for O and l.
-template <bool kAllValid>
-__device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t w_lo, uint32_t w_hi, int t,
-                                             float c, float (&m)[2], float (&mu)[2],
-                                             float (&l)[2], float (&alpha)[2]) {
-  uint32_t valid = 0xffffu;  // bit 2j + e: key 8j + 2t + e of the tile
-  if (!kAllValid) {
-    valid = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) valid |= (((j < 4 ? w_lo : w_hi) >> ((j & 3) * 8 + 2 * t)) & 3u) << (2 * j);
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      if ((valid >> (2 * j + e)) & 1u) {
-        mx[0] = fmaxf(mx[0], s[4 * j + e]);
-        mx[1] = fmaxf(mx[1], s[4 * j + 2 + e]);
-      }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1)  // the 4 threads of a row
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
-    const float m_new = fmaxf(m[r], mx[r]);
-    const float mu_new = m_new == -INFINITY ? 0.f : m_new * c;
-    alpha[r] = m[r] == -INFINITY ? 0.f : ex2(mu[r] - mu_new);
-    m[r] = m_new;
-    mu[r] = mu_new;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // s[4j + 2h + e] = row g + 8h, key 8j + 2t + e
-      const float e = ((valid >> (2 * j + (i & 1))) & 1u) ? ex2(fmaf(s[4 * j + i], c, -mu[i >> 1])) : 0.f;
-      s[4 * j + i] = e;
-      sum[i >> 1] += e;
-    }
-  l[0] = l[0] * alpha[0] + sum[0];
-  l[1] = l[1] * alpha[1] + sum[1];
-}
-
 // the tile's p (in s) rounded to bf16 as the register A fragments of P.V,
 // one per 16-key step: n-blocks 2k and 2k + 1 of the accumulator
 __device__ __forceinline__ void pack_p(const float (&s)[32], uint32_t (&p)[4][4]) {
@@ -147,14 +102,6 @@ __device__ __forceinline__ void pack_p(const float (&s)[32], uint32_t (&p)[4][4]
     p[j >> 1][(j & 1) * 2 + 0] = pack_bf16(s[4 * j + 0], s[4 * j + 1]);  // row g
     p[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);  // row g + 8
   }
-}
-
-// a tile whose 64 keys are all valid, the common case, skips the selects
-__device__ __forceinline__ void softmax(float (&s)[32], uint32_t w_lo, uint32_t w_hi, int t,
-                                        float c, float (&m)[2], float (&mu)[2], float (&l)[2],
-                                        float (&alpha)[2]) {
-  if ((w_lo & w_hi) == 0xffffffffu) softmax_tile<true>(s, w_lo, w_hi, t, c, m, mu, l, alpha);
-  else softmax_tile<false>(s, w_lo, w_hi, t, c, m, mu, l, alpha);
 }
 
 template <int DH>
@@ -314,93 +261,6 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
             pack_bf16(o[4 * n + 2 * r] / l[r], o[4 * n + 2 * r + 1] / l[r]);
 }
 
-// ------------------------------------------------------------------ fp32, FMA
-template <int DH>
-__global__ void __launch_bounds__(256)
-attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ mask,
-             float* __restrict__ out, float* __restrict__ lse, int heads, int nq, int nk,
-             float scale) {
-  constexpr int KLD = DH + 1;            // padded K row
-  constexpr int PLD = kBlockK + 1;       // padded P row
-  constexpr int PER = kBlockK / 4;       // keys per thread
-  constexpr int DPER = DH / 4;           // output columns per thread
-  __shared__ float kp[kBlockQ * PLD];    // the K tile, then the P tile
-  __shared__ float vs[kBlockK * DH];
-  __shared__ float code[kBlockK];
-  static_assert(kBlockK * KLD <= kBlockQ * PLD, "K tile must fit the P buffer");
-
-  const int tid = threadIdx.x, row = tid >> 2, sub = tid & 3;
-  const int bh = blockIdx.y;
-  const int r = blockIdx.x * kBlockQ + row;
-  const float* mask_row = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
-  const float* kb = k + (size_t)bh * nk * DH;
-  const float* vb = v + (size_t)bh * nk * DH;
-
-  float qr[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) qr[d] = r < nq ? q[((size_t)bh * nq + r) * DH + d] : 0.f;
-  float o[DPER];
-#pragma unroll
-  for (int i = 0; i < DPER; ++i) o[i] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;
-
-  for (int k0 = 0; k0 < nk; k0 += kBlockK) {
-    __syncthreads();
-    for (int idx = tid; idx < kBlockK * DH; idx += 256) {
-      const int key = idx / DH, d = idx % DH;
-      const bool in = k0 + key < nk;
-      kp[key * KLD + d] = in ? kb[(size_t)(k0 + key) * DH + d] : 0.f;
-      vs[key * DH + d] = in ? vb[(size_t)(k0 + key) * DH + d] : 0.f;
-    }
-    if (tid < kBlockK) code[tid] = key_code(mask_row, k0 + tid, nk);
-    __syncthreads();
-
-    float s[PER];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int key = sub + 4 * i;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc = fmaf(qr[d], kp[key * KLD + d], acc);
-      s[i] = masked_score(acc * scale, code[key]);
-      mx = fmaxf(mx, s[i]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float mn = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - mn);
-    m_run = mn;
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      s[i] = expf(s[i] - mn);
-      sum += s[i];
-    }
-    l_run = l_run * alpha + sum;
-#pragma unroll
-    for (int i = 0; i < DPER; ++i) o[i] *= alpha;
-
-    __syncthreads();  // K is consumed; the buffer takes P
-#pragma unroll
-    for (int i = 0; i < PER; ++i) kp[row * PLD + sub + 4 * i] = s[i];
-    __syncthreads();
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = kp[row * PLD + j];
-#pragma unroll
-      for (int i = 0; i < DPER; ++i) o[i] = fmaf(p, vs[j * DH + sub + 4 * i], o[i]);
-    }
-  }
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
-  if (lse != nullptr && sub == 0 && r < nq) lse[(size_t)bh * nq + r] = m_run + logf(l_run);
-  if (r < nq) {
-#pragma unroll
-    for (int i = 0; i < DPER; ++i) out[((size_t)bh * nq + r) * DH + sub + 4 * i] = o[i] / l_run;
-  }
-}
-
 int smem_bytes(int dh, int nk) {
   const int ntiles = (nk + kTileK - 1) / kTileK;
   switch (dh) {
@@ -437,18 +297,16 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
-// mask: one byte a key at bf16, fp32 at fp32, or null
+// mask: one byte a key, or null
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    float* lse, int bh, int heads, int nq, int nk, int is_bf16,
                    cudaStream_t stream) {
   const float scale = (float)(1.0 / sqrt((double)DH));
   if (is_bf16) return launch_bf16<DH>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, stream);
-  const dim3 grid((nq + kBlockQ - 1) / kBlockQ, bh);
-  attn_fwd_f32<DH><<<grid, 256, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(mask), static_cast<float*>(out), lse, heads, nq, nk, scale);
-  return cudaGetLastError();
+  return launch_tf32x3<DH, true>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                 static_cast<const float*>(v), static_cast<const uint8_t*>(mask), nullptr,
+                                 static_cast<float*>(out), lse, bh, heads, nq, nk, stream);
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* mask, void* out,
@@ -481,6 +339,14 @@ extern "C" int impx_mha_fwd_lse(const void* q, const void* k, const void* v, con
                        is_bf16, stream);
 }
 
-// dynamic shared memory of one bf16 block at head dim dh and nk keys (-1 for
-// an unsupported dh)
-extern "C" int impx_mha_fwd_smem_bytes(int dh, int nk) { return smem_bytes(dh, nk); }
+// dynamic shared memory of one block at head dim dh and nk keys, bf16 or fp32
+// (-1 for an unsupported dh)
+extern "C" int impx_mha_fwd_smem_bytes(int dh, int nk, int is_bf16) {
+  if (is_bf16) return smem_bytes(dh, nk);
+  switch (dh) {
+    case 16: return F32Smem<16, true>::bytes(nk);
+    case 32: return F32Smem<32, true>::bytes(nk);
+    case 64: return F32Smem<64, true>::bytes(nk);
+    default: return -1;
+  }
+}

@@ -50,9 +50,19 @@
 // -1e30 there, which would give exp(0) = 1 a key. The kernel detects the batch
 // from the key mask and writes H * (kept queries) / Nk to every key instead.
 //
-// fp32 (key_mass_f32, key_mass_row_lse_f32): plain FMA in full fp32, 256
-// threads, 64 keys a CTA (4 threads a key, 16 of every 64 queries each) and
-// the same splits; the row lse one block per 64 queries, 4 threads a row.
+// fp32 (key_mass_tf32x3, dh 16, 32, 64): the same pass on the fp32
+// forward's skeleton (csrc/attention_tf32.cuh), S^T = K Q^T in 3xTF32 on
+// wgmma m64n64k8 .tf32. One CTA per (128 keys, split, batch), two warpgroups
+// of 64 keys whose K fragments, hi and lo, load once a head into registers as
+// wgmma's A; 64-query Q tiles of the kept items stream raw through a cp.async
+// ring of kF32Stages, each stage with its queries' lse in base 2 (+inf where
+// a query weighs 0, fetched into registers an item ahead), and a pass once a
+// CTA an item splits the tile into Q^T's hi and lo k-step blocks (wgmma's B),
+// item n + 1's split running while item n's products are in flight.
+// The accumulator's layout is the bf16 kernel's (two keys, 16 of every 64
+// queries), so the sums over queries are the same column_sums, in the same
+// order, and the same splits. The standalone route's row lse is the fp32
+// forward without P.V (attn_fwd_tf32x3<DH, false>).
 //
 // Layout: q [BH, Nq, dh], k [BH, Nk, dh] contiguous; key_mask [B, Nk] and
 // query_mask [B, Nq] one byte an entry (bool, nonzero kept) or null for all
@@ -65,12 +75,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tf32.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 32 * (kConsumerWarps + 1);  // + the producer warp
 // bf16 mass: keys a CTA (a pair of warpgroups of 64 keys), pairs that take
@@ -85,22 +95,13 @@ constexpr int kMassStages = 4;
 constexpr int kLseQ = 128;
 constexpr int kLseK = 64;
 constexpr int kLseStages = 4;
-// fp32: keys a mass CTA, queries a tile (mass) or a block (row lse), keys a tile
-constexpr int kF32Keys = 64;
-constexpr int kF32Q = 64;
-constexpr int kF32K = 64;
-constexpr int kF32Threads = 256;
+// fp32 mass: keys a CTA (two warpgroups of 64), queries a ring stage
+constexpr int kF32MassKeys = 128;
+constexpr int kF32MassQ = 64;
 constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ bool kept(const uint8_t* mask_row, int i) {
   return mask_row == nullptr || mask_row[i] != 0;
-}
-
-// code: 1 valid, 0 masked, -1 past the end of the keys (common.cuh's
-// masked_score takes it)
-__device__ __forceinline__ float key_code_u8(const uint8_t* mask_row, int key, int nk) {
-  if (key >= nk) return -1.f;
-  return kept(mask_row, key) ? 1.f : 0.f;
 }
 
 // What a mass CTA knows of its batch before it starts: whether no key of the
@@ -357,50 +358,6 @@ struct LseSmem {
   static int bytes(int ntiles) { return 1024 + kWords + 8 * ntiles + 8 * kBars; }
 };
 
-// One 64-key tile's online max and sum for this thread's two rows, kernel 1's
-// arithmetic (csrc/attention.cu:softmax_tile) without P: s the raw scores
-// (m64n64 layout), the running max m in raw units and mu = m c
-template <bool kAllValid>
-__device__ __forceinline__ void row_stats_tile(const float (&s)[32], uint32_t w_lo, uint32_t w_hi,
-                                               int t, float c, float (&m)[2], float (&mu)[2],
-                                               float (&l)[2]) {
-  uint32_t valid = 0xffffu;  // bit 2j + e: key 8j + 2t + e of the tile
-  if (!kAllValid) {
-    valid = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) valid |= (((j < 4 ? w_lo : w_hi) >> ((j & 3) * 8 + 2 * t)) & 3u) << (2 * j);
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      if ((valid >> (2 * j + e)) & 1u) {
-        mx[0] = fmaxf(mx[0], s[4 * j + e]);
-        mx[1] = fmaxf(mx[1], s[4 * j + 2 + e]);
-      }
-  float alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1)  // the 4 threads of a row
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
-    const float m_new = fmaxf(m[r], mx[r]);
-    const float mu_new = m_new == -INFINITY ? 0.f : m_new * c;
-    alpha[r] = m[r] == -INFINITY ? 0.f : ex2(mu[r] - mu_new);
-    m[r] = m_new;
-    mu[r] = mu_new;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      sum[i >> 1] += ((valid >> (2 * j + (i & 1))) & 1u) ? ex2(fmaf(s[4 * j + i], c, -mu[i >> 1])) : 0.f;
-  l[0] = l[0] * alpha[0] + sum[0];
-  l[1] = l[1] * alpha[1] + sum[1];
-}
-
 // lse [BH, Nq] of kernel 4 without its output: one block per (128 queries,
 // batch*head), a producer warp streaming 64-key K tiles through a TMA ring,
 // two consumer warpgroups of 64 rows; lse = -1e30 exactly on a batch with no
@@ -481,7 +438,7 @@ key_mass_row_lse_bf16(const __grid_constant__ CUtensorMap tq, const __grid_const
   const float c = all_masked ? 0.f : scale * kLog2e;
   const uint64_t dq = wgmma_desc(smem_addr(sm + wg * 64 * L::kRow), 16 * DH, kSwizzle);
   const uint32_t k_base = smem_addr(sm + L::kK);
-  float m[2] = {-INFINITY, -INFINITY}, mu[2] = {0.f, 0.f}, l[2] = {0.f, 0.f};
+  float m[2] = {-INFINITY, -INFINITY}, mu[2] = {0.f, 0.f}, l[2] = {0.f, 0.f}, alpha[2];
   float s[32];
   mbar_wait(q_full, 0);
   for (int j = 0; j < ntiles; ++j) {
@@ -497,9 +454,7 @@ key_mass_row_lse_bf16(const __grid_constant__ CUtensorMap tq, const __grid_const
     wgmma_wait<0>();
     fence_regs(s);
     if (lane == 0) mbar_arrive(&empty[st]);  // the tile is read
-    const uint32_t w_lo = words[2 * j], w_hi = words[2 * j + 1];
-    if ((w_lo & w_hi) == 0xffffffffu) row_stats_tile<true>(s, w_lo, w_hi, t, c, m, mu, l);
-    else row_stats_tile<false>(s, w_lo, w_hi, t, c, m, mu, l);
+    softmax(s, words[2 * j], words[2 * j + 1], t, c, m, mu, l, alpha);  // kernel 1's, P unused
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r)
@@ -514,127 +469,203 @@ key_mass_row_lse_bf16(const __grid_constant__ CUtensorMap tq, const __grid_const
   }
 }
 
-// ------------------------------------------------------------------ fp32, FMA
-// lse [BH, Nq], the online max and sum of csrc/attention.cu:attn_fwd_f32: one
-// block per (64 queries, batch*head), 4 threads a row
+// ------------------------------------------------------------ fp32, 3xTF32
 template <int DH>
-__global__ void __launch_bounds__(kF32Threads)
-key_mass_row_lse_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const uint8_t* __restrict__ key_mask, const uint8_t* __restrict__ query_mask,
-                     float* __restrict__ lse, int heads, int nq, int nk, float scale) {
-  constexpr int KLD = DH + 1;       // padded K row
-  constexpr int PER = kF32K / 4;    // keys per thread
-  __shared__ float ks[kF32K * KLD];
-  __shared__ float code[kF32K];
+struct F32MassSmem {
+  static constexpr int kQLd = DH + 4;  // floats a raw Q row: the split pass's 16-byte reads on distinct banks
+  static constexpr int kQ = kF32MassQ * kQLd * 4;
+  static constexpr int kStage = kQ + kF32MassQ * 4;  // the raw tile, its lse in base 2
+  static constexpr int kStep = kF32MassQ * 32;        // a [64 queries x 8 dims] k-step block, interleaved
+  static constexpr int kBlocks = kF32Stages * kStage;  // split set s at kBlocks + s * kSet
+  static constexpr int kLo = DH / 8 * kStep;           // offsets inside a set: Q^T's hi, lo, the lse
+  static constexpr int kLse = 2 * kLo;
+  static constexpr int kSet = kLse + kF32MassQ * 4;
+  static constexpr int kFlags = kBlocks + 2 * kSet;
+  static int bytes(int ntq) { return kFlags + ntq; }
+};
 
-  const int tid = threadIdx.x, row = tid >> 2, sub = tid & 3;
-  const int bh = blockIdx.y, b = bh / heads, r = blockIdx.x * kF32Q + row;
-  const uint8_t* kmask = key_mask == nullptr ? nullptr : key_mask + (size_t)b * nk;
-  const uint8_t* qmask = query_mask == nullptr ? nullptr : query_mask + (size_t)b * nq;
-  if (!__syncthreads_or(sub == 0 && r < nq && kept(qmask, r))) return;
-  const float* kb = k + (size_t)bh * nk * DH;
-
-  float qr[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) qr[d] = r < nq ? q[((size_t)bh * nq + r) * DH + d] : 0.f;
-  float m_run = -INFINITY, l_run = 0.f;
-  for (int k0 = 0; k0 < nk; k0 += kF32K) {
-    __syncthreads();
-    for (int idx = tid; idx < kF32K * DH; idx += kF32Threads) {
-      const int key = idx / DH, d = idx % DH;
-      ks[key * KLD + d] = k0 + key < nk ? kb[(size_t)(k0 + key) * DH + d] : 0.f;
-    }
-    if (tid < kF32K) code[tid] = key_code_u8(kmask, k0 + tid, nk);
-    __syncthreads();
-    float s[PER];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int key = sub + 4 * i;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc = fmaf(qr[d], ks[key * KLD + d], acc);
-      s[i] = masked_score(acc * scale, code[key]);
-      mx = fmaxf(mx, s[i]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float mn = fmaxf(m_run, mx);  // finite: every tile holds a key < nk
-    const float alpha = expf(m_run - mn);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) sum += expf(s[i] - mn);
-    l_run = l_run * alpha + sum;
-    m_run = mn;
-  }
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
-  if (sub == 0 && r < nq) lse[(size_t)bh * nq + r] = m_run + logf(l_run);
-}
-
-// the mass from lse: one CTA per (64 keys, split, batch), 4 threads a key,
-// each over queries sub, sub + 4, ... of every 64-query tile of its items
+// the mass from lse: one CTA per (128 keys, split, batch), two warpgroups of
+// 64 keys; both take every kept item of the split, their keys against the
+// item's 64 queries
 template <int DH>
-__global__ void __launch_bounds__(kF32Threads)
-key_mass_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const uint8_t* __restrict__ key_mask, const uint8_t* __restrict__ query_mask,
-             const float* __restrict__ lse, float* __restrict__ out, int heads, int nq, int nk,
-             float scale) {
-  constexpr int QLD = DH + 1;       // padded Q row
-  constexpr int PER = kF32Q / 4;    // queries per thread a tile
-  __shared__ float qs[kF32Q * QLD];
-  __shared__ float lse_s[kF32Q];
+__global__ void __launch_bounds__(kF32Threads, 1)
+key_mass_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                const uint8_t* __restrict__ key_mask, const uint8_t* __restrict__ query_mask,
+                const float* __restrict__ lse, float* __restrict__ out, int heads, int nq, int nk,
+                float c) {
+  using L = F32MassSmem<DH>;
+  constexpr int kChunks = DH / 4;  // 16-byte chunks a row
+  constexpr int kSteps = DH / 8;
+  extern __shared__ __align__(16) uint8_t smem_mass[];
+  const int ntq = (nq + kF32MassQ - 1) / kF32MassQ;
+  uint8_t* flags = smem_mass + L::kFlags;  // [ntq]: the tile keeps a query
 
-  const int tid = threadIdx.x, sub = tid & 3;
-  const int key0 = blockIdx.x * kF32Keys, key = key0 + (tid >> 2);
-  const int split = blockIdx.y, splits = gridDim.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int key0 = blockIdx.x * kF32MassKeys, split = blockIdx.y, splits = gridDim.y, b = blockIdx.z;
   const uint8_t* kmask = key_mask == nullptr ? nullptr : key_mask + (size_t)b * nk;
   const uint8_t* qmask = query_mask == nullptr ? nullptr : query_mask + (size_t)b * nq;
   float* orow = out + ((size_t)split * gridDim.z + b) * nk;
-  const BatchView view = batch_view(kmask, qmask, key0, kF32Keys, nq, nk);
-  if (view.all_masked || !view.block_any) {
-    if (tid < kF32Keys && key0 + tid < nk)
+
+  for (int tq = warp; tq < ntq; tq += kF32Warps) {  // a warp a query tile
+    int any = 0;
+    for (int i = lane; i < kF32MassQ; i += 32) any |= tq * kF32MassQ + i < nq && kept(qmask, tq * kF32MassQ + i);
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) flags[tq] = (uint8_t)any;
+  }
+  const BatchView view = batch_view(kmask, qmask, key0, kF32MassKeys, nq, nk);
+  if (view.all_masked || !view.block_any) {  // every key's result is known
+    if (tid < kF32MassKeys && key0 + tid < nk)
       orow[key0 + tid] = key_result(0.f, view, kmask, key0 + tid, split, heads, nk);
     return;
   }
-  const int ntq = (nq + kF32Q - 1) / kF32Q, items = heads * ntq;
-  const int i1 = split_begin(items, split + 1, splits);
-  float kr[DH];
-  float acc = 0.f;
-  int prev = -1;
-  for (int i = split_begin(items, split, splits); i < i1; ++i) {
-    const int h = i / ntq, t = i % ntq, bh = b * heads + h;
-    __syncthreads();  // the last tile is consumed
-    for (int idx = tid; idx < kF32Q * DH; idx += kF32Threads) {
-      const int qq = idx / DH, d = idx % DH, qi = t * kF32Q + qq;
-      qs[qq * QLD + d] = qi < nq ? q[((size_t)bh * nq + qi) * DH + d] : 0.f;
+  const int items = heads * ntq;
+  const int i0 = split_begin(items, split, splits), i1 = split_begin(items, split + 1, splits);
+  auto next_kept = [&](int i) {  // the first kept item at or after i
+    while (i < i1 && !flags[i % ntq]) ++i;
+    return i;
+  };
+  // an item's lse and weight for thread tid < 64, fetched an item before its
+  // stage is written, so the loads' latency hides behind a tile's products
+  float lv = 0.f;
+  bool wv = false;
+  auto fetch = [&](int i) {
+    if (tid >= kF32MassQ || i >= i1) return;
+    const int qq = (i % ntq) * kF32MassQ + tid;
+    wv = qq < nq && kept(qmask, qq);
+    lv = qq < nq ? lse[(size_t)(b * heads + i / ntq) * nq + qq] : 0.f;
+  };
+  // the kept items in order: `issue` the next to load, the n-th into raw stage n % kF32Stages
+  int issue = next_kept(i0), issued = 0;
+  fetch(issue);
+  auto load_next = [&]() {  // rows past nq as zeros
+    if (issue < i1) {
+      uint8_t* st = smem_mass + (issued % kF32Stages) * L::kStage;
+      const float* qb = q + (size_t)(b * heads + issue / ntq) * nq * DH;
+      const int r0 = (issue % ntq) * kF32MassQ;
+      for (int ch = tid; ch < kF32MassQ * kChunks; ch += kF32Threads) {
+        const int row = ch / kChunks, col = (ch % kChunks) * 4;
+        const bool in = r0 + row < nq;
+        cp_async_16(st + (row * L::kQLd + col) * 4, qb + (size_t)(in ? r0 + row : 0) * DH + col, in);
+      }
+      // each query's lse in base 2, +inf where it weighs 0: 2^(s c - inf) = 0
+      if (tid < kF32MassQ) reinterpret_cast<float*>(st + L::kQ)[tid] = wv ? lv * kLog2e : INFINITY;
+      issue = next_kept(issue + 1);
+      ++issued;
+      fetch(issue);
     }
-    bool w = false;
-    if (tid < kF32Q) {  // +inf where the query weighs 0: exp(s - inf) = 0
-      const int qi = t * kF32Q + tid;
-      w = qi < nq && kept(qmask, qi);
-      lse_s[tid] = w ? lse[(size_t)bh * nq + qi] : INFINITY;
+    cp_async_commit();
+  };
+  // the n-th item's landed tile as Q^T's hi and lo k-step blocks and its lse,
+  // in split set n % 2, once a block: a warp takes 32 queries' 16 bytes of
+  // one k-step half (reads of 8 rows 4 banks apart, writes of 512 bytes)
+  auto split_item = [&](int n) {
+    const uint8_t* st = smem_mass + (n % kF32Stages) * L::kStage;
+    const float* raw = reinterpret_cast<const float*>(st);
+    uint8_t* set = smem_mass + L::kBlocks + (n & 1) * L::kSet;
+    for (int ch = tid; ch < kF32MassQ * kChunks; ch += kF32Threads) {
+      const int qq = ch % kF32MassQ, half = (ch / kF32MassQ) & 1, kk = ch / (2 * kF32MassQ);
+      const float4 x = *reinterpret_cast<const float4*>(raw + qq * L::kQLd + 8 * kk + 4 * half);
+      uint4 hi, lo;
+      split_tf32(x.x, hi.x, lo.x);
+      split_tf32(x.y, hi.y, lo.y);
+      split_tf32(x.z, hi.z, lo.z);
+      split_tf32(x.w, hi.w, lo.w);
+      const uint32_t off = kk * L::kStep + interleave_offset(qq, half);
+      *reinterpret_cast<uint4*>(set + off) = hi;
+      *reinterpret_cast<uint4*>(set + L::kLo + off) = lo;
     }
-    if (!__syncthreads_or(w)) continue;  // a tile with no kept query
-    if (h != prev) {
+    if (tid < kF32MassQ)
+      reinterpret_cast<float*>(set + L::kLse)[tid] = reinterpret_cast<const float*>(st + L::kQ)[tid];
+    fence_proxy_async();
+  };
+
+  // this thread's keys r0, r0 + 8 (warpgroup wg's 64, its warp's 16) as
+  // wgmma's A fragment, hi and lo, a head's at a time
+  const int wg = warp >> 2;
+  const int r0 = key0 + 64 * wg + 16 * (warp & 3) + g;
+  uint32_t kh[kSteps][4], kl[kSteps][4];
+  auto load_k = [&](int h) {  // rows past nk as zeros
+    const float* kb = k + (size_t)(b * heads + h) * nk * DH;
 #pragma unroll
-      for (int d = 0; d < DH; ++d) kr[d] = key < nk ? k[((size_t)bh * nk + key) * DH + d] : 0.f;
-      prev = h;
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const int d = 8 * kk + t4;
+      split_tf32(r0 < nk ? kb[(size_t)r0 * DH + d] : 0.f, kh[kk][0], kl[kk][0]);
+      split_tf32(r0 + 8 < nk ? kb[(size_t)(r0 + 8) * DH + d] : 0.f, kh[kk][1], kl[kk][1]);
+      split_tf32(r0 < nk ? kb[(size_t)r0 * DH + d + 4] : 0.f, kh[kk][2], kl[kk][2]);
+      split_tf32(r0 + 8 < nk ? kb[(size_t)(r0 + 8) * DH + d + 4] : 0.f, kh[kk][3], kl[kk][3]);
     }
-    float part = 0.f;
-#pragma unroll 4
-    for (int ii = 0; ii < PER; ++ii) {
-      const int qq = sub + 4 * ii;
-      float dot = 0.f;
+  };
+  const uint32_t sets = smem_addr(smem_mass + L::kBlocks);
+
+  // Item n: S^T = K Q^T from split set n % 2, in flight while the block
+  // splits item n + 1 into the other set; the sums. Item n + 3 streams into
+  // the raw stage that item n + 1 left.
 #pragma unroll
-      for (int d = 0; d < DH; ++d) dot = fmaf(kr[d], qs[qq * QLD + d], dot);
-      part += expf(fmaf(dot, scale, -lse_s[qq]));
-    }
-    acc += part;
+  for (int n = 0; n < kF32Stages; ++n) load_next();
+  float acc[2] = {0.f, 0.f};
+  float s[32];
+  int head = -1;
+  int i = next_kept(i0);
+  if (i < i1) {
+    cp_async_wait<kF32Stages - 1>();
+    __syncthreads();  // item 0 in place
+    split_item(0);
+    __syncthreads();  // set 0 in place; raw stage 0 free
+    load_next();
   }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  if (sub == 0 && key < nk) orow[key] = key_result(acc, view, kmask, key, split, heads, nk);
+  for (int n = 0; i < i1; ++n) {
+    const int i_next = next_kept(i + 1);
+    if (i / ntq != head) {
+      head = i / ntq;
+      load_k(head);
+    }
+    const uint32_t set = sets + (n & 1) * L::kSet;
+    // S^T = K Q^T, a k-step at a time: K_lo Q_hi, K_hi Q_lo, K_hi Q_hi
+    fence_regs(s);
+    fence_regs(kh);
+    fence_regs(kl);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const uint64_t d_hi = wgmma_desc_interleave(set + kk * L::kStep);
+      const uint64_t d_lo = wgmma_desc_interleave(set + L::kLo + kk * L::kStep);
+      wgmma_tf32_rs_n64(s, kl[kk], d_hi, kk);
+      wgmma_tf32_rs_n64(s, kh[kk], d_lo, 1);
+      wgmma_tf32_rs_n64(s, kh[kk], d_hi, 1);
+    }
+    wgmma_commit();
+    fence_regs(s);
+    fence_regs(kh);
+    fence_regs(kl);
+    if (i_next < i1) {
+      cp_async_wait<kF32Stages - 1>();
+      __syncthreads();  // item n + 1 in place
+      split_item(n + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+    float part[2] = {0.f, 0.f};
+    column_sums(s, reinterpret_cast<const float*>(smem_mass + L::kBlocks + (n & 1) * L::kSet + L::kLse), t4,
+                c, part);
+    acc[0] += part[0];
+    acc[1] += part[1];
+    __syncthreads();  // set (n + 1) % 2 in place; every warpgroup is done with set n % 2 and raw stage (n + 1) % 2
+    load_next();
+    i = i_next;
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the four threads of a key, in a fixed order
+    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
+    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
+  }
+  if (t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = r0 + 8 * r;
+      if (key < nk) orow[key] = key_result(acc[r], view, kmask, key, split, heads, nk);
+    }
+  }
 }
 
 // out[i] = the sum of partial[:, i], splits in order
@@ -665,11 +696,9 @@ template <int DH>
 cudaError_t row_lse(const void* q, const void* k, const uint8_t* km, const uint8_t* qm, float* lse,
                     int bh, int heads, int nq, int nk, int is_bf16, cudaStream_t stream) {
   const float scale = inv_sqrt(DH);
-  if (!is_bf16) {
-    key_mass_row_lse_f32<DH><<<dim3((nq + kF32Q - 1) / kF32Q, bh), kF32Threads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), km, qm, lse, heads, nq, nk, scale);
-    return cudaGetLastError();
-  }
+  if (!is_bf16)
+    return launch_tf32x3<DH, false>(static_cast<const float*>(q), static_cast<const float*>(k), nullptr, km,
+                                    qm, nullptr, lse, bh, heads, nq, nk, stream);
   CUtensorMap tq, tk;
   if (!encode<DH>(&tq, q, bh, nq, kLseQ) || !encode<DH>(&tk, k, bh, nk, kLseK)) return cudaErrorInvalidValue;
   const int smem = LseSmem<DH>::bytes((nk + kLseK - 1) / kLseK);
@@ -700,9 +729,14 @@ cudaError_t mass(const void* q, const void* k, const uint8_t* km, const uint8_t*
     key_mass_bf16<DH><<<dim3((nk + kMassKeys - 1) / kMassKeys, splits, b), kMassThreads, smem, stream>>>(
         tq, static_cast<const __nv_bfloat16*>(k), km, qm, lse, dst, heads, nq, nk, scale * kLog2e);
   } else {
-    key_mass_f32<DH><<<dim3((nk + kF32Keys - 1) / kF32Keys, splits, b), kF32Threads, 0, stream>>>(
+    const int smem = F32MassSmem<DH>::bytes((nq + kF32MassQ - 1) / kF32MassQ);
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    static uint64_t raised = 0;
+    const cudaError_t err = allow_smem(key_mass_tf32x3<DH>, raised);
+    if (err != cudaSuccess) return err;
+    key_mass_tf32x3<DH><<<dim3((nk + kF32MassKeys - 1) / kF32MassKeys, splits, b), kF32Threads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), km, qm, lse, dst, heads, nq, nk,
-        scale);
+        scale * kLog2e);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -759,10 +793,23 @@ extern "C" int impx_attention_key_mass(const void* q, const void* k, const void*
   }
 }
 
+// Dynamic shared memory of one fp32 block at head dim dh: the mass kernel's
+// at nq = n queries, or (row_lse) the standalone row lse's at nk = n keys (-1
+// for an unsupported dh)
+extern "C" int impx_attention_mass_f32_smem_bytes(int dh, int n, int row_lse) {
+  const int ntq = (n + kF32MassQ - 1) / kF32MassQ;
+  switch (dh) {
+    case 16: return row_lse ? F32Smem<16, false>::bytes(n) : F32MassSmem<16>::bytes(ntq);
+    case 32: return row_lse ? F32Smem<32, false>::bytes(n) : F32MassSmem<32>::bytes(ntq);
+    case 64: return row_lse ? F32Smem<64, false>::bytes(n) : F32MassSmem<64>::bytes(ntq);
+    default: return -1;
+  }
+}
+
 // The default split: as many CTAs as the card has SMs, at least one
 // (head, query tile) item a split
 extern "C" int impx_attention_key_mass_splits(int b, int heads, int nq, int nk, int is_bf16, int sms) {
-  const int keys = is_bf16 ? kMassKeys : kF32Keys, tile = is_bf16 ? kMassQ : kF32Q;
+  const int keys = is_bf16 ? kMassKeys : kF32MassKeys, tile = is_bf16 ? kMassQ : kF32MassQ;
   const long long ctas = (long long)b * ((nk + keys - 1) / keys);
   const long long items = (long long)heads * ((nq + tile - 1) / tile);
   long long splits = ctas >= sms ? 1 : sms / ctas;

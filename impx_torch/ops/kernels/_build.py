@@ -2,7 +2,7 @@
 
 Each source is compiled by nvcc for sm_90a into a shared library with a plain
 C interface, loaded with ctypes; the sources share device helpers through
-csrc/*.cuh (common.cuh, hopper.cuh, persistent.cuh). Builds go to impx_torch/_build/ (listed in .gitignore), named by a
+csrc/*.cuh (common.cuh, hopper.cuh, persistent.cuh, attention_tf32.cuh). Builds go to impx_torch/_build/ (listed in .gitignore), named by a
 hash of the source and the headers, so an edited source rebuilds and an
 unchanged one loads at once. Nothing is built on import: the first wrapper
 call on a CUDA tensor builds what it needs.
@@ -30,13 +30,13 @@ _I = ctypes.c_int
 # launching function returns the cudaError_t of its launches
 SIGNATURES = {
     "attention": {
-        # q, k, v, mask (bool at bf16, fp32 at fp32), out, batch*heads, heads,
-        # nq, nk, dh, is_bf16, stream
+        # q, k, v, mask (bool or null), out, batch*heads, heads, nq, nk, dh,
+        # is_bf16, stream
         "impx_mha_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # q, k, v, mask, out, lse, batch*heads, heads, nq, nk, dh, is_bf16, stream
         "impx_mha_fwd_lse": [_P] * 6 + [_I] * 6 + [_P],
-        # (dh, nk) -> dynamic shared memory of one bf16 block, bytes
-        "impx_mha_fwd_smem_bytes": [_I, _I],
+        # (dh, nk, is_bf16) -> dynamic shared memory of one block, bytes
+        "impx_mha_fwd_smem_bytes": [_I, _I, _I],
     },
     "attention_bwd": {
         # q, k, v, mask, dout, scratch, dq, dk, dv, batch*heads, heads, nq, nk,
@@ -55,6 +55,9 @@ SIGNATURES = {
         "impx_attention_key_mass": [_P] * 7 + [_I] * 7 + [_P],
         # batch, heads, nq, nk, is_bf16, SMs -> the default split count
         "impx_attention_key_mass_splits": [_I] * 6,
+        # (dh, n, row_lse) -> dynamic shared memory of one fp32 block of the
+        # mass at nq = n, or of the standalone row lse at nk = n, bytes
+        "impx_attention_mass_f32_smem_bytes": [_I] * 3,
     },
     "log_sinkhorn": {
         # dist, bin, valid0, valid1 (bool or null), overflow rows, u, v, max0,

@@ -17,12 +17,17 @@ queries), a producer warp keeping TMA loads of 64-key K and V tiles in flight
 through a ring in shared memory, two consumer warpgroups running both
 products as wgmma with fp32 accumulation, P fed to P.V from registers, and
 the four warpgroups of two blocks on an SM overlapping one's exponentials
-with the others' products; it reads the bool key mask in place. fp32 inputs
-take an FMA path that keeps full fp32 and reads an fp32 mask.
+with the others' products. fp32 inputs take both products as wgmma in 3xTF32
+(impx_torch/csrc/attention_tf32.cuh: each operand split into TF32 hi + lo,
+three passes, about 2^-21 relative error a product), 128 queries a block,
+K and V tiles through a cp.async ring and split once a block. Both read a
+bool key mask in place; the wrapper hands them any other mask as its
+entries > 0.
 
 Semantics, as the TPU kernel: scores scaled by 1/sqrt(dh) before masking;
-invalid keys get the finite -1e30 (a fully masked row gives uniform weights,
-never NaN); fp32 softmax; P cast to the input dtype for P.V with fp32
+a key is valid where its mask entry is > 0 (True in a bool mask); invalid
+keys get the finite -1e30 (a fully masked row gives uniform weights, never
+NaN); fp32 softmax; P cast to the input dtype for P.V with fp32
 accumulation; the division by the row sum comes after P.V.
 
 Training (impx/models/fast.py:forward_train_scan) has two routes:
@@ -55,6 +60,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64)
 
 
+def _valid(mask):
+    """A mask as impx reads it (`mask.astype(float32) > 0`): a bool mask as it
+    is, any other as its entries > 0."""
+    return mask if mask.dtype == torch.bool else mask > 0
+
+
 def _scores(q, k, key_mask):
     """fp32 scaled scores [B, H, Nq, Nk], masked keys at -1e30. Products of
     bf16 inputs are exact in fp32, so upcasting before the matmul is the TPU
@@ -62,7 +73,7 @@ def _scores(q, k, key_mask):
     dh = q.shape[-1]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / dh ** 0.5)
     if key_mask is not None:
-        s = torch.where(key_mask[:, None, None, :].bool(), s, NEG)
+        s = torch.where(_valid(key_mask)[:, None, None, :], s, NEG)
     return s
 
 
@@ -168,16 +179,15 @@ def _device_kind(q, what: str) -> str:
 
 
 def _mask_f32(key_mask):
+    """The key mask of the backward kernels, fp32 (valid where > 0)."""
     return None if key_mask is None else key_mask.to(torch.float32).contiguous()
 
 
-def _forward_mask(key_mask, dtype):
-    """The key mask of kernels 1 and 4: the bf16 kernel reads a bool mask as
-    the caller gave it (no device operation when it is contiguous), any other
-    mask cast to bool; the fp32 kernel reads it cast to fp32."""
-    if key_mask is None or dtype != torch.bfloat16:
-        return _mask_f32(key_mask)
-    return key_mask.bool().contiguous()
+def _bool_mask(mask):
+    """A mask as kernels 1, 4 and 6 read it, one byte an entry: a contiguous
+    bool mask as the caller gave it (no device operation), any other as its
+    entries > 0."""
+    return None if mask is None else _valid(mask).contiguous()
 
 
 def _ptr(t):
@@ -188,7 +198,7 @@ def _forward(q, k, v, key_mask, with_lse: bool):
     """Kernel 1, or kernel 4 with_lse, on CUDA tensors: (out, lse or None)."""
     _check(q, k, v, key_mask)
     b, h, nq, dh = q.shape
-    mask = _forward_mask(key_mask, q.dtype)
+    mask = _bool_mask(key_mask)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _build.load("attention")
@@ -338,14 +348,12 @@ class MhaLseFunction(torch.autograd.Function):
 # ------------------------------------------------------------ attention key mass
 def attention_key_mass_reference(q, k, key_mask=None, query_mask=None):
     """Plain version: per-key attention mass [B, Nk] fp32, the fp32 softmax of
-    q k^T / sqrt(dh) over keys (masked keys at the finite -1e30, so a query
-    with no valid key spreads 1/Nk over all Nk keys), each query's row
-    weighted by query_mask (0/1), summed over heads and queries. None masks
-    mean all ones (impx/ops/pallas/attention.py:_mass_kernel :395)."""
-    dh = q.shape[-1]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / dh ** 0.5)
-    if key_mask is not None:
-        s = torch.where(key_mask[:, None, None, :].bool(), s, NEG)
+    q k^T / sqrt(dh) over keys (keys valid where key_mask > 0; masked keys at
+    the finite -1e30, so a query with no valid key spreads 1/Nk over all Nk
+    keys), each query's row weighted by query_mask (0/1), summed over heads
+    and queries. None masks mean all ones
+    (impx/ops/pallas/attention.py:_mass_kernel :395)."""
+    s = _scores(q, k, key_mask)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e / e.sum(dim=-1, keepdim=True)
     if query_mask is None:
@@ -361,17 +369,11 @@ def attention_key_mass_from_lse_reference(q, k, key_mask, query_mask, lse):
     so that batch takes the reference's uniform 1/Nk instead."""
     p = torch.exp(_scores(q, k, key_mask) - lse[..., None])
     if key_mask is not None:
-        none_valid = ~key_mask.bool().any(dim=1)
+        none_valid = ~_valid(key_mask).any(dim=1)
         p = torch.where(none_valid[:, None, None, None], 1.0 / k.shape[2], p)
     if query_mask is None:
         return p.sum(dim=(1, 2))
     return torch.einsum("bhqk,bq->bk", p, query_mask.to(torch.float32))
-
-
-def _bool_mask(mask):
-    """A mask as the mass kernels read it, one byte an entry: a contiguous
-    bool mask as it is (no device operation), any other cast to bool."""
-    return None if mask is None else mask.bool().contiguous()
 
 
 def attention_key_mass(q, k, key_mask=None, query_mask=None, lse=None, splits=None):

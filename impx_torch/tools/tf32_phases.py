@@ -1,0 +1,201 @@
+"""Where the time of the fp32 attention kernels in 3xTF32 goes.
+
+    python -m impx_torch.tools.tf32_phases [--batch 8] [--heads 4] [--n 2048]
+
+Builds csrc/attention.cu and csrc/attention_mass.cu again as variants, each
+with csrc/attention_tf32.cuh or the sources changed by a text substitution
+(each asserted to apply), and times every variant at q, k, v [batch, heads,
+n, 64] fp32 with 0-300 padded keys and queries: kernel 1 (the forward, 20
+calls queued back to back: device time) and kernel 6 on the lse route (a
+CUDA graph of 20 calls: device time), in two rounds. The variants: the
+splits rounded by cvt.rna.tf32.f32 or by the same rounding in integer
+arithmetic (the other of the two than the source's); no split (each
+operand's fp32 bits as hi, lo = 0); no split pass (the wgmma operands in
+shared memory left as they are: what the pass costs where the products in
+flight do not hide it); one
+TF32 pass (hi.hi alone: what the two lo passes cost); no P.V (kernel 1's
+QK^T and softmax alone). A variant's time against the kernel's is what that
+part costs where nothing hides it. Variants that change the arithmetic are
+timed, not checked. Needs a CUDA card and nvcc; the builds go to
+impx_torch/_build/tf32_phases/.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+
+import torch
+
+from impx_torch.ops.kernels import _build
+
+HEADER = "attention_tf32.cuh"
+FILES = (HEADER, "attention.cu", "attention_mass.cu")
+CVT = ("  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : \"f\"(x));\n  return r;\n",
+       "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n")
+NO_SPLIT = [(HEADER, "  hi = to_tf32(x);\n  lo = to_tf32(x - __uint_as_float(hi));\n",
+             "  hi = __float_as_uint(x);\n  lo = 0u;\n")]
+NO_SPLIT_PASS = [(HEADER, "  auto split_tile = [&](int j) {\n", "  auto split_tile = [&](int j) {\n    return;\n"),
+                 ("attention_mass.cu", "  auto split_item = [&](int n) {\n",
+                  "  auto split_item = [&](int n) {\n    return;\n")]
+ONE_PASS = [
+    (HEADER, "      wgmma_tf32_rs_n64(s, ql[kk], d_hi, kk);\n      wgmma_tf32_rs_n64(s, qh[kk], d_lo, 1);\n"
+             "      wgmma_tf32_rs_n64(s, qh[kk], d_hi, 1);\n", "      wgmma_tf32_rs_n64(s, qh[kk], d_hi, kk);\n"),
+    (HEADER, "        wgmma_tf32_rs(o, pl[jj], d_hi);\n        wgmma_tf32_rs(o, ph[jj], d_lo);\n", ""),
+    ("attention_mass.cu", "      wgmma_tf32_rs_n64(s, kl[kk], d_hi, kk);\n      wgmma_tf32_rs_n64(s, kh[kk], d_lo, 1);\n"
+                          "      wgmma_tf32_rs_n64(s, kh[kk], d_hi, 1);\n",
+     "      wgmma_tf32_rs_n64(s, kh[kk], d_hi, kk);\n")]
+NO_PV = [(HEADER, "        wgmma_tf32_rs(o, pl[jj], d_hi);\n        wgmma_tf32_rs(o, ph[jj], d_lo);\n"
+                  "        wgmma_tf32_rs(o, ph[jj], d_hi);\n", "")]
+
+
+def substitute(srcs: dict[str, str], triples) -> dict[str, str]:
+    srcs = dict(srcs)
+    for name, old, new in triples:
+        if old not in srcs[name]:
+            raise ValueError(f"no {old!r} in csrc/{name}")
+        srcs[name] = srcs[name].replace(old, new)
+    return srcs
+
+
+def variants() -> dict[str, dict[str, str]]:
+    """Each variant's sources. The other rounding is the one the header does
+    not use."""
+    srcs = {name: (_build.SRC_DIR / name).read_text() for name in FILES}
+    cvt, integer = CVT
+    uses_cvt = cvt in srcs[HEADER]
+    other = [(HEADER, cvt, integer) if uses_cvt else (HEADER, integer, cvt)]
+    return {
+        "kernel": srcs,
+        "split by integer rounding" if uses_cvt else "split by cvt.rna": substitute(srcs, other),
+        "no split": substitute(srcs, NO_SPLIT),
+        "no split pass": substitute(srcs, NO_SPLIT_PASS),
+        "one TF32 pass": substitute(srcs, ONE_PASS),
+        "no P.V": substitute(srcs, NO_PV),
+    }
+
+
+def build_variants() -> dict[str, dict[str, ctypes.CDLL]]:
+    """Every variant's two libraries compiled at once, loaded with the
+    wrappers' C signatures."""
+    out_dir = _build.BUILD_DIR / "tf32_phases"
+    procs = {}
+    for i, (name, srcs) in enumerate(variants().items()):
+        vdir = out_dir / f"variant{i}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        for file, text in srcs.items():   # the header is found before csrc/'s: it sits beside the sources
+            (vdir / file).write_text(text)
+        for lib in ("attention", "attention_mass"):
+            procs[(name, lib)] = (subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.SRC_DIR), "-o",
+                 str(vdir / f"lib{lib}.so"), str(vdir / f"{lib}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), vdir / f"lib{lib}.so")
+    libs: dict[str, dict[str, ctypes.CDLL]] = {}
+    for (name, lib), (proc, path) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} {lib}:\n{log}")
+        handle = ctypes.CDLL(str(path))
+        for fn, argtypes in _build.SIGNATURES[lib].items():
+            getattr(handle, fn).argtypes = argtypes
+            getattr(handle, fn).restype = ctypes.c_int
+        libs.setdefault(name, {})[lib] = handle
+    return libs
+
+
+def inputs(batch: int, heads: int, n: int, count: int = 4, seed: int = 8):
+    """(q, k, v, key mask, query mask) fp32 with 0-300 padded keys and queries."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(count):
+        q, k, v = (torch.randn((batch, heads, n, 64), generator=gen).cuda() for _ in range(3))
+        kmask, qmask = ((torch.arange(n)[None] < torch.randint(max(n - 300, n // 2), n + 1, (batch, 1),
+                                                               generator=gen)).cuda() for _ in range(2))
+        out.append((q, k, v, kmask, qmask))
+    return out
+
+
+def queued_ms(fn, args, calls: int = 20, runs: int = 12) -> float:
+    """Median device ms a call over windows of `calls` calls queued back to back."""
+    for x in args:
+        fn(*x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(calls):
+            fn(*args[i % len(args)])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def graph_ms(fn, args, calls: int = 20, runs: int = 12) -> float:
+    """Median device ms a call over replays of a CUDA graph of `calls` calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in args:
+            fn(*x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(*args[i % len(args)])
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def variant_ms(libs: dict[str, ctypes.CDLL], data) -> tuple[float, float]:
+    """(kernel 1 queued ms, kernel 6 lse-route graph ms) with `libs` in place
+    of the built kernel libraries."""
+    from impx_torch.ops.kernels.attention import attention_key_mass, mha_fused, mha_fused_lse
+
+    saved = {lib: _build._loaded.get(lib) for lib in libs}
+    _build._loaded.update(libs)
+    try:
+        fwd = queued_ms(mha_fused, [x[:4] for x in data])
+        mass_args = [(q, k, km, qm, mha_fused_lse(q, k, k, km)[1]) for q, k, _, km, qm in data]
+        return fwd, graph_ms(attention_key_mass, mass_args)
+    finally:
+        for lib, handle in saved.items():
+            if handle is None:
+                _build._loaded.pop(lib, None)
+            else:
+                _build._loaded[lib] = handle
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--heads", type=int, default=4)
+    parser.add_argument("--n", type=int, default=2048)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("tf32_phases: needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    data = inputs(args.batch, args.heads, args.n)
+    libs = build_variants()
+    for rnd in range(2):
+        for name, lib in libs.items():
+            fwd, mass = variant_ms(lib, data)
+            print(f"tf32_phases [{args.batch}, {args.heads}, {args.n}, 64] round {rnd} {name}: kernel 1 "
+                  f"{fwd:.4f} ms a call (queued), kernel 6 lse route {mass:.4f} ms a call (graph)", flush=True)
+
+
+if __name__ == "__main__":
+    main()

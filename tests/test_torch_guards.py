@@ -227,22 +227,27 @@ def test_cpu_log_paths_count_no_launch():
 
 @pytest.mark.parametrize("mask_dtype,dtype,want", [
     (torch.bool, torch.bfloat16, torch.bool), (torch.uint8, torch.bfloat16, torch.bool),
-    (torch.float32, torch.bfloat16, torch.bool), (torch.bool, torch.float32, torch.float32),
-    (None, torch.bfloat16, None)])
+    (torch.float32, torch.bfloat16, torch.bool), (torch.bool, torch.float32, torch.bool),
+    (None, torch.bfloat16, None), (torch.float32, torch.float32, torch.bool)])
 def test_forward_mask_is_read_in_place_by_the_bf16_kernel(mask_dtype, dtype, want):
-    """Kernels 1 and 4 at bf16 read a bool key mask one byte a key: the wrapper
-    hands over the caller's tensor, with no cast; other masks are cast to
-    bool. The fp32 kernel gets an fp32 copy."""
-    from impx_torch.ops.kernels.attention import _forward_mask
+    """Kernels 1 and 4, at bf16 and at fp32 (`dtype`, which no longer changes
+    the mask), read a bool key mask one byte a key: the wrapper hands over the
+    caller's tensor, with no cast; any other mask becomes its entries > 0, as
+    impx reads it (a negative entry is a masked key)."""
+    from impx_torch.ops.kernels.attention import _bool_mask
 
-    mask = None if mask_dtype is None else (torch.arange(10)[None] < 7).repeat(2, 1).to(mask_dtype)
-    got = _forward_mask(mask, dtype)
+    mask = None
+    if mask_dtype is not None:
+        mask = torch.tensor([[1, 1, 2, 0, 1, -1, 1, 0, 1, 1]] * 2).to(mask_dtype)
+        if mask_dtype == torch.bool:
+            mask = (torch.arange(10)[None] < 7).repeat(2, 1)
+    got = _bool_mask(mask)
     if mask is None:
         assert got is None
         return
     assert got.dtype == want and got.is_contiguous()
     assert (got.data_ptr() == mask.data_ptr()) == (mask_dtype == want)
-    assert torch.equal(got.bool(), mask.bool())
+    assert torch.equal(got, mask > 0 if mask_dtype.is_floating_point else mask.bool())
 
 
 class _KernelLibrary:

@@ -134,16 +134,17 @@ def test_attention_lse_kernel_matches_plain(cuda_device, dtype, nq, nk, dh, mask
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("fn", [mha_fused, mha_fused_lse], ids=["kernel-1", "kernel-4"])
-def test_attention_forward_reads_the_bool_mask_in_place(cuda_device, fn):
-    """A bf16 forward with a bool key mask launches the attention kernel and
-    no other device operation (a cast of the mask to fp32 would add one):
+def test_attention_forward_reads_the_bool_mask_in_place(cuda_device, fn, dtype):
+    """A forward (bf16 or fp32) with a bool key mask launches the attention
+    kernel and no other device operation (a cast of the mask would add one):
     three calls under torch.profiler, then a spin kernel, so that the calls'
     events are not the profile's last (a profile can lose its last one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    q, k, v, mask = _forward_inputs(cuda_device, torch.bfloat16, 200, 256, 64, torch.bool)
+    q, k, v, mask = _forward_inputs(cuda_device, dtype, 200, 256, 64, torch.bool)
     fn(q, k, v, mask)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
