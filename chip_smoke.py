@@ -42,9 +42,10 @@ each (device time by kernel, host time by operation, the attention-mass group
 beside its time before the redesign); (9) the
 training kernels, the forward that writes the row log-sum-exp (kernel 4)
 and the two attention backwards (kernels 3 and 5),
-against their plain versions at the training shape [32, 4, 1024, 64] bf16 and
-a small ragged fp32 shape (the backwards twice, for the same bits), with their
-times, bounds, plain and library times; (10) one DGNNS training step at the
+against their plain versions at the training shape [32, 4, 1024, 64] in bf16
+and fp32, and at a ragged fp32 shape at dh = 32 and one at dh = 16 (the
+backwards twice, for the same bits; the fully masked batch on a line of its
+own), with their times, bounds, plain and library times; (10) one DGNNS training step at the
 published training config (configs/config_train_megadepth.json: 15 layers, D =
 256, 1024 keypoints, 16 pairs, bf16, a loss on every iteration), route A and
 route B, on the kernel path and on the plain path on the same batch and
@@ -54,7 +55,12 @@ parameter leaves; (11) make_train_step over fresh batches, each route: train
 pairs/s, peak device memory and a profile of one step, in which the route's
 attention backward takes two device launches a call (a dq launch and a dk/dv
 launch); (12) steps on one fixed batch, each route: the loss falls and the NaN
-guard skips no step; (13) the log-Sinkhorn kernel (kernel 7) against its plain
+guard skips no step; then phases 10 and 11 again at fp32 (the training CLI's
+default compute dtype; fewer timed steps, no fixed-batch loop), the loss and
+gradients held ten times tighter than at bf16, and kernels 3 and 5 at fp32
+timed at the training shape, one call and 20 queued, beside their 3xTF32 and
+FMA bounds, the plain version, sdpa's fp32 backward (its backend named) and
+the FMA design's time before their 3xTF32 redesign; (13) the log-Sinkhorn kernel (kernel 7) against its plain
 version at dist [4, 2048, 2048] (bf16 Z) at 20 and 100 iterations and at a
 ragged fp32-Z shape, twice for the same bits and through a CUDA-graph replay,
 with its times, bound, plain time and schedule; (14) DGNNS under the log-domain head (eval_config('spp', 15), log_ot,
@@ -88,8 +94,8 @@ solve's device operations at 1 and 4 pairs, the split of a checkpoint's
 time, and profiled kernel 1 and kernel 6 times a launch at fp32 (kernel 6
 beside its time before the 3xTF32 redesign). The line before the last lists
 the kernels as JSON (with each kernel's launches over phase 17's kernel-path
-runs, and for kernels 1, 4 and 6 an "fp32" entry: times, both bounds, the
-plain and library times); the last line is
+runs, and for kernels 1, 3, 4, 5 and 6 an "fp32" entry: times, both
+bounds, the plain and library times); the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
 """
@@ -130,6 +136,9 @@ MASS_GROUP_MS_BEFORE = {"mask-only": 3.964, "compacted": 1.228}
 F32_ATTN_MS_BEFORE = 2.5575
 F32_MATCHER_MS_BEFORE = 103.5
 F32_MASS_MS_BEFORE = 1.395
+# kernels 3 and 5 at fp32 before their 3xTF32 redesign (the FMA design),
+# 20 calls queued at [32, 4, 1024, 64], as PERF.md section 6 records them
+F32_BWD_MS_BEFORE = {"mha_bwd": 15.1374, "mha_bwd_from_lse": 10.1832}
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # atol = rtol, vs plain
 SINK_RTOL, SINK_ATOL, IDX_FLIP_MAX = 1e-3, 1e-6, 1e-3
 E2E_AGREE_MIN = 0.95              # indices0 equal, kernel vs plain path (bf16)
@@ -144,6 +153,7 @@ EIMP_KEEP_AGREE_MIN = 0.99        # final keep masks equal, kernel vs plain path
 TB, TN = 16, 1024
 TRAIN_STEPS = 10                  # timed make_train_step steps a route, fresh batches
 FIXED_STEPS = 10                  # steps on one fixed batch a route: the loss must fall
+TRAIN_STEPS_F32 = 3               # the same at fp32 (no fixed-batch loop: the bf16 routes hold it)
 FWD_LSE_TOL = 1e-5                # the row log-sum-exp, fp32, elementwise (atol = rtol)
 # the training kernels' dq, dk and dv against their plain versions: the
 # relative L2 error of each batch's [H, N, dh] slice. fp32: sums in another
@@ -158,8 +168,10 @@ TRAIN_REL_L2 = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 # bf16 before P.V, the plain version exp(s - row max), so every term carries
 # its own rounding (2^-9 relative rms): about 2e-3 at bf16
 FWD_O_REL_L2 = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-TRAIN_LOSS_RTOL = 1e-2            # loss, kernel path vs plain path (bf16)
-GRAD_COS_MIN = 0.99               # each gradient leaf, kernel path vs plain path (bf16)
+# loss and each gradient leaf, kernel path vs plain path: bf16, and fp32 ten
+# times tighter (the fp32 kernels are within 1e-5 of their plain versions)
+TRAIN_LOSS_RTOL = {"bfloat16": 1e-2, "float32": 1e-3}
+GRAD_COS_MIN = {"bfloat16": 0.99, "float32": 0.999}
 # the log-Sinkhorn kernel vs its plain version: both round Z alike, so the
 # summation order only; u and v at invalid entries hold about 2.56e26 under
 # the bf16 Z rule, where one fp32 ulp is 7.6e22
@@ -919,9 +931,8 @@ def persistent_resources(logs: dict) -> None:
 KERNEL_GROUPS = (  # device kernel name -> the layer that launched it (first match)
     ("mha_fused, mha_fused_lse (csrc/attention.cu)", ("attn_fwd",)),
     ("log_sinkhorn_fused_stats (csrc/log_sinkhorn.cu)", ("log_sinkhorn_persistent",)),
-    ("mha_bwd (csrc/attention_bwd.cu)",
-     ("bwd_dq_recompute", "bwd_dkdv_recompute", "bwd_dq_fma", "bwd_dkdv_fma")),
-    ("mha_bwd_from_lse (csrc/attention_bwd.cu)", ("bwd_dq_lse", "bwd_dkdv_lse", "row_dot")),
+    ("mha_bwd (csrc/attention_bwd.cu)", ("bwd_dq_recompute", "bwd_dkdv_recompute")),
+    ("mha_bwd_from_lse (csrc/attention_bwd.cu)", ("bwd_dq_lse", "bwd_dkdv_lse")),
     ("sinkhorn_fused_stats (csrc/sinkhorn.cu)", ("sinkhorn_persistent",)),
     ("attention_key_mass (csrc/attention_mass.cu)", ("key_mass",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "sm90_", "cutlass", "nvjet", "xmma")),
@@ -1979,14 +1990,22 @@ def rel_l2_per_batch(a, r) -> torch.Tensor:
     return diff / r.float().flatten(1).norm(dim=1)
 
 
+# the training kernels' checks: bf16 at the training shape; fp32 at the
+# training shape, a ragged one and one at dh = 16
+TRAIN_CHECK_SHAPES = ((torch.bfloat16, dict()), (torch.float32, dict()),
+                      (torch.float32, dict(b=3, h=2, n=333, dh=32)), (torch.float32, dict(b=3, h=2, n=250, dh=16)))
+
+
 def check_training_kernels(dev, ka) -> dict:
-    """Kernels 4, 3 and 5 against their plain versions: o, dq, dk and dv by
-    the relative L2 error of each batch, the lse elementwise; the backwards
-    twice, for the same bits. Prints every check before failing on any.
-    Returns each kernel's max_abs_err at the main shape."""
+    """Kernels 4, 3 and 5 against their plain versions at TRAIN_CHECK_SHAPES:
+    o, dq, dk and dv by the relative L2 error of each batch (the fully masked
+    batch on a line of its own), the lse elementwise; the backwards twice,
+    for the same bits. Prints every check before failing on any. Returns
+    each kernel's max_abs_err at the training shape, bf16 under its name and
+    fp32 under (name, torch.float32)."""
     gen = torch.Generator().manual_seed(10)
     errs, failures = {}, []
-    for dtype, shape in ((torch.bfloat16, dict()), (torch.float32, dict(b=3, h=2, n=333, dh=32))):
+    for dtype, shape in TRAIN_CHECK_SHAPES:
         q, k, v, mask, do = training_inputs(gen, dev, dtype, **shape)
         o, lse = ka.mha_fused_lse(q, k, v, mask)
         g3, g3b = ka.mha_bwd(q, k, v, mask, do), ka.mha_bwd(q, k, v, mask, do)
@@ -2005,13 +2024,14 @@ def check_training_kernels(dev, ka) -> dict:
             err = (a.float() - r.float()).abs().max().item()
             finite = bool(torch.isfinite(a.float()).all())
             say(f"check {name} {part} {where}: relative L2 a batch, largest {rel[:-1].max().item():.3e} "
-                f"over the batches with valid keys, {rel[-1].item():.3e} on the fully masked batch "
-                f"(max {limit:g}); max_abs_err {err:.3e}; finite {finite}"
+                f"over the batches with valid keys (max {limit:g}); max_abs_err {err:.3e}; finite {finite}"
                 + ("" if name == "mha_fused_lse" else f"; second run bitwise equal {same}"))
+            say(f"check {name} {part} {where} fully masked batch: relative L2 {rel[-1].item():.3e} (max {limit:g})")
             if not bool((rel <= limit).all()) or not finite or not same:
                 failures.append(f"{name} {part} at {where}")
             if not shape:
-                errs[name] = max(errs.get(name, 0.0), err)
+                key = name if dtype == torch.bfloat16 else (name, dtype)
+                errs[key] = max(errs.get(key, 0.0), err)
         lse_err = (lse - rlse).abs()
         lse_bad = (lse_err > FWD_LSE_TOL + FWD_LSE_TOL * rlse.abs()).sum().item()
         masked_lse = bool((lse[-1] == -1e30).all())
@@ -2020,6 +2040,7 @@ def check_training_kernels(dev, ka) -> dict:
             f"exactly: {masked_lse}")
         if lse_bad or not masked_lse:
             failures.append(f"mha_fused_lse lse at {where}")
+        del q, k, v, do, o, lse, g3, g3b, g5, g5b, ro, rlse, checks
     if failures:
         fail(f"training kernels disagree with their plain versions or themselves: {failures}")
     return errs
@@ -2066,6 +2087,51 @@ def time_training_kernels(dev, ka, errs, launches) -> list:
         rows.append({"name": name, "route": "cuda", "source": source[name], "replaces": line[name],
                      "launches": launches[name], "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[name]})
+    return rows
+
+
+def time_fp32_backward(dev, ka, errs, launches) -> dict:
+    """Kernels 3 and 5 at fp32 at the training shape [32, 4, 1024, 64]: one
+    call between two events, 20 queued, the 3xTF32 and FMA bounds of their
+    five products (10 flops a valid pair and dh, one exponential a pair, as
+    training_kernel_bounds counts the pairs and bytes), the plain version,
+    scaled_dot_product_attention's fp32 backward with the bool mask (its
+    backend named), and the FMA design's time before the redesign. Returns
+    each kernel's JSON "fp32" entry."""
+    gen = torch.Generator().manual_seed(14)
+    ins = [training_inputs(gen, dev, torch.float32) for _ in range(3)]
+    saved = [ka.mha_fused_lse(q, k, v, m) for q, k, v, m, _ in ins]
+    with_lse = [(q, k, v, m, lse, o, do) for (q, k, v, m, do), (o, lse) in zip(ins, saved)]
+    sdpa = lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=m[:, None, None, :])
+    graphs = []
+    for q, k, v, m, do in ins:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        graphs.append((sdpa(*leaves, m), leaves, do))
+    lib = lambda out, leaves, do: torch.autograd.grad(out, leaves, do, retain_graph=True)
+    backend = sdpa_backend(device_kernels(lib, graphs[0]))
+    lib_ms, lib_queued = cuda_ms(lib, graphs), queued_ms(lib, graphs)
+    q, mask = ins[0][0], ins[0][3]
+    b, h, nq, dh = q.shape
+    pairs = work_pairs(q, mask)
+    row = q.element_size() * h * nq * dh
+    nbytes = {"mha_bwd": 7 * b * row, "mha_bwd_from_lse": 8 * b * row + 4 * b * h * nq}
+    say(f"time sdpa backward {list(q.shape)} fp32 bool mask: {backend} backend; ms {lib_ms:.4f} queued_ms "
+        f"{lib_queued:.4f}; tf32 matmul {torch.backends.cuda.matmul.allow_tf32}")
+    rows = {}
+    for name, fn, plain, args in (("mha_bwd", ka.mha_bwd, ka.mha_bwd_reference, ins),
+                                  ("mha_bwd_from_lse", ka.mha_bwd_from_lse, ka.mha_bwd_from_lse_reference,
+                                   with_lse)):
+        bnd = fp32_bounds(10.0 * dh * pairs, pairs, nbytes[name])
+        ms, q_ms, p_ms = cuda_ms(fn, args), queued_ms(fn, args), cuda_ms(plain, args)
+        say(f"time {name} {list(q.shape)} fp32: ms {ms:.4f} (one call between two events) queued_ms {q_ms:.4f} "
+            f"(20 calls back to back); {bounds_text(bnd)}; launches {launches.get(name, 0)} a fp32 training step; "
+            f"plain_ms {p_ms:.4f} library_ms {lib_ms:.4f} (sdpa backward, {backend}); FMA design before the "
+            f"3xTF32 redesign {F32_BWD_MS_BEFORE[name]} ms queued")
+        rows[name] = {"ms": ms, "queued_ms": q_ms, "plain_ms": p_ms, "bound_ms": bnd["tf32x3"][0],
+                      "bound_by": f"{bnd['tf32x3'][1]} (3xTF32)", "bound_fma_ms": bnd["fma"][0],
+                      "library_ms": lib_ms, "library_queued_ms": lib_queued, "library": f"sdpa backward ({backend})",
+                      "launches": launches.get(name, 0), "max_abs_err": errs.get((name, torch.float32))}
     return rows
 
 
@@ -2121,14 +2187,14 @@ def counting_plain_bodies(module, names=PLAIN_BODIES):
             setattr(module, name, fn)
 
 
-def training_models(dev, DGNNS, MatcherConfig) -> dict:
-    """Both routes at the published training config, with the same random
-    weights from a seed."""
-    base = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="bfloat16")
+def training_models(dev, DGNNS, MatcherConfig, dtype: str = "bfloat16") -> dict:
+    """Both routes at the published training config in `dtype` (fp32 is the
+    training CLI's default), with the same random weights from a seed."""
+    base = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype=dtype)
     models = {"A": DGNNS(base, device=dev, seed=0),
               "B": DGNNS(dataclasses.replace(base, train_fused=True), device=dev, seed=0)}
     say(f"training: eval_config('spp', 15) (the training config's widths: configs/config_train_megadepth.json) "
-        f"bf16, train_supervision '{base.train_supervision}', B={TB} N={TN} D={D}")
+        f"{dtype}, train_supervision '{base.train_supervision}', B={TB} N={TN} D={D}")
     return models
 
 
@@ -2150,7 +2216,8 @@ def grads_of(model) -> dict:
 def training_step_check(dev, models, kernels, ka) -> dict:
     """One forward_train + backward a route on the kernel path (launches
     counted from 0, the plain bodies counted) and on the plain path, on the
-    same batch and weights. Returns the kernel launches of one step."""
+    same batch and weights, held to the limits of the models' compute dtype.
+    Returns the kernel launches of one step."""
     gen = torch.Generator().manual_seed(12)
     batch = train_pairs(gen, dev)
     want = {"A": {"mha_fused": 30, "mha_bwd": 30}, "B": {"mha_fused_lse": 30, "mha_bwd_from_lse": 30}}
@@ -2169,9 +2236,10 @@ def training_step_check(dev, models, kernels, ka) -> dict:
             launches = {k: fn.launches for k, fn in kernels.items()}
             results[use_kernels] = (out, grads_of(model), launches, dict(plain_calls))
         model.use_kernels = True
+        dtype = model.config.compute_dtype
         (out, gk, launches, plain_calls), (ref, gp, plain_launches, _) = results[True], results[False]
         expected = {k: want[route].get(k, 0) for k in kernels}
-        say(f"train route {route}: launches per training step {launches}; plain bodies called on the "
+        say(f"train route {route} {dtype}: launches per training step {launches}; plain bodies called on the "
             f"kernel path {plain_calls}; plain path launches {sum(plain_launches.values())}")
         if launches != expected or any(plain_calls.values()) or any(plain_launches.values()):
             fail(f"route {route} did not run through its kernels as expected: {launches}, {plain_calls}")
@@ -2186,30 +2254,31 @@ def training_step_check(dev, models, kernels, ka) -> dict:
         worst_zero = min((c for n, c in cos.items() if zero.search(n)), default=float("nan"))
         finite = all(bool(torch.isfinite(g).all()) for g in gk.values()) and bool(torch.isfinite(out["loss"]))
         n_match = (out["matches0"] >= 0).sum(1).tolist()
-        say(f"train route {route}: loss {lk:.6f} plain {lp:.6f} relative difference {rel:.3e} "
-            f"(max {TRAIN_LOSS_RTOL:g}); smallest gradient cosine {held[worst]:.6f} at {worst} over "
-            f"{len(held)} leaves (min {GRAD_COS_MIN}); over the {len(cos) - len(held)} leaves whose exact "
+        say(f"train route {route} {dtype}: loss {lk:.6f} plain {lp:.6f} relative difference {rel:.3e} "
+            f"(max {TRAIN_LOSS_RTOL[dtype]:g}); smallest gradient cosine {held[worst]:.8f} at {worst} over "
+            f"{len(held)} leaves (min {GRAD_COS_MIN[dtype]}); over the {len(cos) - len(held)} leaves whose exact "
             f"gradient is 0 {worst_zero:.3f} (rounding noise, not held); matches0 {n_match}; "
             f"acc_corr {out['acc_corr'].item():.2f} of {out['total_acc_corr'].item():.2f}; finite {finite}")
         if not finite or gk.keys() != gp.keys() or out["matches0"].shape != batch["valid0"].shape:
             fail(f"route {route}: non-finite or misshapen training output")
-        if rel > TRAIN_LOSS_RTOL or held[worst] < GRAD_COS_MIN:
+        if rel > TRAIN_LOSS_RTOL[dtype] or held[worst] < GRAD_COS_MIN[dtype]:
             fail(f"route {route}: the kernel path's loss or gradients disagree with the plain path")
     return step_launches
 
 
 def training_runs(dev, models, launches, TrainHyperParams, make_train_step, init_opt_state,
-                  init_stats):
-    """Phases 11 and 12 for each route: TRAIN_STEPS timed steps on fresh
-    batches (train pairs/s, peak memory, one step profiled: the route's
-    attention backward must take two device launches a wrapper call, whose
-    count per step is `launches`), then FIXED_STEPS on one batch (the loss
-    must fall). Any skipped step fails."""
+                  init_stats, steps: int = TRAIN_STEPS, fixed_steps: int = FIXED_STEPS):
+    """Phases 11 and 12 for each route: `steps` timed steps on fresh batches
+    (train pairs/s, peak memory, one step profiled: the route's attention
+    backward must take two device launches a wrapper call, whose count per
+    step is `launches`), then `fixed_steps` on one batch (the loss must
+    fall). Any skipped step fails."""
     gen = torch.Generator().manual_seed(13)
-    fresh = [train_pairs(gen, dev) for _ in range(TRAIN_STEPS + 2)]
+    fresh = [train_pairs(gen, dev) for _ in range(steps + 2)]
     fixed = train_pairs(gen, dev)
     hp = TrainHyperParams()  # the published lr 1e-4 and decay schedule
     for route, model in models.items():
+        dtype = model.config.compute_dtype
         state = {k: v.detach().clone() for k, v in model.state_dict().items()}
         opt, stats = init_opt_state(model), init_stats(dev)
         step = make_train_step(model, hp)
@@ -2226,35 +2295,41 @@ def training_runs(dev, models, launches, TrainHyperParams, make_train_step, init
         peak = torch.cuda.max_memory_allocated() / 2**30
         skipped = int(torch.stack(bad).sum().item())
         med = statistics.median(times)
-        say(f"train route {route}: {len(times)} make_train_step steps on fresh batches, median "
+        say(f"train route {route} {dtype}: {len(times)} make_train_step steps on fresh batches, median "
             f"{1e3 * med:.1f} ms a step = train_pairs_per_s {TB / med:.2f} (steps ms "
             f"{[round(1e3 * t, 1) for t in times]}); peak device memory {peak:.2f} GiB; skipped steps {skipped}")
         if skipped:
             fail(f"route {route}: the NaN guard skipped {skipped} steps")
-        per_step = profile_calls(f"training step route {route} B={TB} N={TN}",
-                                 lambda d: step(opt, TRAIN_STEPS + 2, d, stats), [fresh[0]])
+        per_step = profile_calls(f"training step route {route} {dtype} B={TB} N={TN}",
+                                 lambda d: step(opt, steps + 2, d, stats), [fresh[0]])
         bwd = "mha_bwd" if route == "A" else "mha_bwd_from_lse"
         if per_step is not None:
             device = per_step[f"{bwd} (csrc/attention_bwd.cu)"][1]
-            say(f"train route {route}: {bwd} takes {device / launches[bwd]:g} device launches a call "
+            say(f"train route {route} {dtype}: {bwd} takes {device / launches[bwd]:g} device launches a call "
                 f"({device:.0f} in the profiled step over {launches[bwd]} wrapper calls; a dq launch "
                 f"and a dk/dv launch)")
             if device != 2 * launches[bwd]:
-                fail(f"route {route}: {bwd} did not take two device launches a call")
+                fail(f"route {route} {dtype}: {bwd} did not take two device launches a call")
+            busy = sum(ms for ms, _ in per_step.values())
+            say(f"train route {route} {dtype}: the backward group {per_step[f'{bwd} (csrc/attention_bwd.cu)'][0]:.3f} "
+                f"ms, cuBLAS {per_step['matmul (cuBLAS)'][0]:.3f} ms = {per_step['matmul (cuBLAS)'][0] / busy:.3f} of "
+                f"the step's {busy:.3f} ms of device time")
+        if not fixed_steps:
+            continue
 
         model.load_state_dict(state)
         opt, stats = init_opt_state(model), init_stats(dev)
         losses, bad = [], []
-        for it in range(FIXED_STEPS):
+        for it in range(fixed_steps):
             metrics, stats = step(opt, it, fixed, stats)
             losses.append(metrics["loss"])
             bad.append(metrics["bad_loss"])
         losses = [x.item() for x in losses]
         skipped = int(torch.stack(bad).sum().item())
-        say(f"train route {route}: {FIXED_STEPS} steps on one batch, loss {[round(x, 5) for x in losses]}, "
+        say(f"train route {route} {dtype}: {fixed_steps} steps on one batch, loss {[round(x, 5) for x in losses]}, "
             f"skipped steps {skipped}")
         if skipped or not losses[-1] < losses[0]:
-            fail(f"route {route}: the loss did not fall over {FIXED_STEPS} steps on one batch, or a step was skipped")
+            fail(f"route {route}: the loss did not fall over {fixed_steps} steps on one batch, or a step was skipped")
 
 
 # ---------------------------------------------------------------- log-domain head
@@ -2486,6 +2561,12 @@ def main() -> int:
     training_runs(dev, train_models, train_launches, TrainHyperParams, make_train_step,
                   init_opt_state, init_stats)
     del train_models
+    f32_models = training_models(dev, DGNNS, MatcherConfig, "float32")
+    f32_launches = training_step_check(dev, f32_models, kernels, ka)
+    fp32.update(time_fp32_backward(dev, ka, errs, f32_launches))
+    training_runs(dev, f32_models, f32_launches, TrainHyperParams, make_train_step, init_opt_state,
+                  init_stats, steps=TRAIN_STEPS_F32, fixed_steps=0)
+    del f32_models
 
     log_fns = (log_sinkhorn_fused_stats, log_sinkhorn_stats_reference, plan_dtype)
     errs["log_sinkhorn_fused_stats"] = check_log_sinkhorn(dev, *log_fns)

@@ -15,9 +15,10 @@ __device__ __forceinline__ float masked_score(float s, float code) {
   return code > 0.f ? s : (code == 0.f ? kNeg : -INFINITY);
 }
 
-__device__ __forceinline__ float key_code(const float* mask_row, int key, int nk) {
+// mask_row: the batch's bool key mask, one byte a key (null: all valid)
+__device__ __forceinline__ float key_code(const uint8_t* mask_row, int key, int nk) {
   if (key >= nk) return -1.f;
-  return (mask_row == nullptr || mask_row[key] > 0.f) ? 1.f : 0.f;
+  return (mask_row == nullptr || mask_row[key] != 0) ? 1.f : 0.f;
 }
 
 // D += A B, m16n8k16, bf16 in, fp32 accumulate

@@ -39,7 +39,9 @@ Training (impx/models/fast.py:forward_train_scan) has two routes:
   * route B, `MhaLseFunction`: `mha_fused_lse` (kernel 4, :245), which also
     writes each row's log-sum-exp, and `mha_bwd_from_lse` (kernel 5, :336),
     which rebuilds p = exp(s - lse) and takes stream-dtype operands.
-Both backward kernels live in impx_torch/csrc/attention_bwd.cu.
+Both backward kernels live in impx_torch/csrc/attention_bwd.cu, two launches
+a call (a dq launch, then a dk/dv launch), at bf16 on mma.sync and at fp32 on
+wgmma in 3xTF32 as the fp32 forward; both read the bool key mask in place.
 
 `attention_key_mass` replaces impx/ops/pallas/attention.py:attention_key_mass
 (:422, kernel `_mass_kernel` :395), which carries one [Nk] sum across a
@@ -178,14 +180,9 @@ def _device_kind(q, what: str) -> str:
     return q.device.type
 
 
-def _mask_f32(key_mask):
-    """The key mask of the backward kernels, fp32 (valid where > 0)."""
-    return None if key_mask is None else key_mask.to(torch.float32).contiguous()
-
-
 def _bool_mask(mask):
-    """A mask as kernels 1, 4 and 6 read it, one byte an entry: a contiguous
-    bool mask as the caller gave it (no device operation), any other as its
+    """A mask as the kernels read it, one byte an entry: a contiguous bool
+    mask as the caller gave it (no device operation), any other as its
     entries > 0."""
     return None if mask is None else _valid(mask).contiguous()
 
@@ -251,7 +248,11 @@ mha_fused_lse.launches = 0
 
 
 def _backward(q, k, v, key_mask, do, lse=None, o=None):
-    """Kernel 3 (lse is None) or kernel 5 on CUDA tensors: (dq, dk, dv)."""
+    """Kernel 3 (lse is None) or kernel 5 on CUDA tensors: (dq, dk, dv). Two
+    launches at either dtype: a dq launch that also writes each query row's
+    statistics to `scratch` (kernel 3: the max, base 2 at fp32, 1/sum and
+    delta, [3, B*H, Nq]; kernel 5: delta, [B*H, Nq]), then a dk/dv launch
+    that reads them."""
     _check(q, k, v, key_mask)
     _check_like("do", do, q)
     b, h, nq, dh = q.shape
@@ -259,7 +260,7 @@ def _backward(q, k, v, key_mask, do, lse=None, o=None):
     if lse is not None:
         _check_like("o", o, q)
         _check_like("lse", lse, q[..., 0], torch.float32)
-    mask = _mask_f32(key_mask)
+    mask = _bool_mask(key_mask)
     scratch = torch.empty((rows if lse is not None else 3 * rows,), dtype=torch.float32,
                           device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -297,8 +298,7 @@ def mha_bwd_from_lse(q, k, v, key_mask, lse, o, do):
     """Kernel 5, the VJP of `mha_fused_lse` from its saved o and lse [B,H,Nq]:
     (dq, dk, dv) in the inputs' dtype. CPU tensors run
     `mha_bwd_from_lse_reference`; CUDA tensors launch
-    impx_torch/csrc/attention_bwd.cu (two launches at bf16, three at fp32; no
-    atomics) or raise."""
+    impx_torch/csrc/attention_bwd.cu (two launches, no atomics) or raise."""
     if _device_kind(q, "attention backward") == "cpu":
         return mha_bwd_from_lse_reference(q, k, v, key_mask, lse, o, do)
     return _backward(q, k, v, key_mask, do, lse=lse, o=o)

@@ -1,6 +1,7 @@
 """Where the time of the fp32 attention kernels in 3xTF32 goes.
 
     python -m impx_torch.tools.tf32_phases [--batch 8] [--heads 4] [--n 2048]
+        [--only forward|backward]
 
 Builds csrc/attention.cu and csrc/attention_mass.cu again as variants, each
 with csrc/attention_tf32.cuh or the sources changed by a text substitution
@@ -18,6 +19,16 @@ QK^T and softmax alone). A variant's time against the kernel's is what that
 part costs where nothing hides it. Variants that change the arithmetic are
 timed, not checked. Needs a CUDA card and nvcc; the builds go to
 impx_torch/_build/tf32_phases/.
+
+The backward (csrc/attention_bwd.cu's bwd_*_tf32x3, kernels 3 and 5) is
+built again as its own variants and timed at q, k, v, do [32, 4, 1024, 64]
+fp32 (the training kernels' shape, BWD_SHAPE) with up to 100 padded keys,
+20 calls queued: the kernel;
+one TF32 pass (hi.hi alone in all of its products); no split pass (the
+tiles' and the own operand's split blocks left as they are; the tiles'
+rows still arrive in the raw tile by cp.async); the dq launch
+alone; the dk/dv launch alone (reading whatever statistics the scratch
+holds).
 """
 from __future__ import annotations
 
@@ -49,6 +60,22 @@ ONE_PASS = [
 NO_PV = [(HEADER, "        wgmma_tf32_rs(o, pl[jj], d_hi);\n        wgmma_tf32_rs(o, ph[jj], d_lo);\n"
                   "        wgmma_tf32_rs(o, ph[jj], d_hi);\n", "")]
 
+BWD = "attention_bwd.cu"
+BWD_SHAPE = (32, 4, 1024, 64)
+BWD_ONE_PASS = [
+    (BWD, "    wgmma_tf32_rs_n32(s, x1l[kk], b_hi, kk);\n    wgmma_tf32_rs_n32(s, x1h[kk], b_lo, 1);\n"
+          "    wgmma_tf32_rs_n32(s, x1h[kk], b_hi, 1);\n", "    wgmma_tf32_rs_n32(s, x1h[kk], b_hi, kk);\n"),
+    (BWD, "    wgmma_tf32_ss_n32(p2, a_lo, b_hi, kk);\n    wgmma_tf32_ss_n32(p2, a_hi, b_lo, 1);\n"
+          "    wgmma_tf32_ss_n32(p2, a_hi, b_hi, 1);\n", "    wgmma_tf32_ss_n32(p2, a_hi, b_hi, kk);\n"),
+    (BWD, "    wgmma_tf32_rs(acc, al[jj], b_hi);\n    wgmma_tf32_rs(acc, ah[jj], b_lo);\n", "")]
+BWD_NO_SPLIT_PASS = [
+    (BWD, "  constexpr int kItems = kTfRows * DH / 4;\n", "  return;\n  constexpr int kItems = kTfRows * DH / 4;\n"),
+    (BWD, "  constexpr int kItems = kTfTile * DH / 4;\n", "  return;\n  constexpr int kItems = kTfTile * DH / 4;\n"),
+    (BWD, "  constexpr int kItems = kTfTile / 8 * 2 * DH;\n", "  return;\n  constexpr int kItems = kTfTile / 8 * 2 * DH;\n")]
+BWD_DQ_ALONE = [(BWD, "  err = cudaGetLastError();\n  if (err != cudaSuccess) return err;\n  dkdv_kernel<<<",
+                 "  return cudaGetLastError();\n  dkdv_kernel<<<")]
+BWD_DKDV_ALONE = [(BWD, "  dq_kernel<<<dim3((a.nq + kTfRows", "  if (false) dq_kernel<<<dim3((a.nq + kTfRows")]
+
 
 def substitute(srcs: dict[str, str], triples) -> dict[str, str]:
     srcs = dict(srcs)
@@ -76,17 +103,27 @@ def variants() -> dict[str, dict[str, str]]:
     }
 
 
-def build_variants() -> dict[str, dict[str, ctypes.CDLL]]:
-    """Every variant's two libraries compiled at once, loaded with the
-    wrappers' C signatures."""
+def bwd_variants() -> dict[str, dict[str, str]]:
+    """Each backward variant's source."""
+    srcs = {BWD: (_build.SRC_DIR / BWD).read_text()}
+    return {"kernel": srcs, "one TF32 pass": substitute(srcs, BWD_ONE_PASS),
+            "no split pass": substitute(srcs, BWD_NO_SPLIT_PASS),
+            "dq launch alone": substitute(srcs, BWD_DQ_ALONE),
+            "dk/dv launch alone": substitute(srcs, BWD_DKDV_ALONE)}
+
+
+def build_variants(which=variants, tag: str = "variant",
+                   names=("attention", "attention_mass")) -> dict[str, dict[str, ctypes.CDLL]]:
+    """Every variant's libraries (csrc/<name>.cu for each of `names`)
+    compiled at once, loaded with the wrappers' C signatures."""
     out_dir = _build.BUILD_DIR / "tf32_phases"
     procs = {}
-    for i, (name, srcs) in enumerate(variants().items()):
-        vdir = out_dir / f"variant{i}"
+    for i, (name, srcs) in enumerate(which().items()):
+        vdir = out_dir / f"{tag}{i}"
         vdir.mkdir(parents=True, exist_ok=True)
         for file, text in srcs.items():   # the header is found before csrc/'s: it sits beside the sources
             (vdir / file).write_text(text)
-        for lib in ("attention", "attention_mass"):
+        for lib in names:
             procs[(name, lib)] = (subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.SRC_DIR), "-o",
                  str(vdir / f"lib{lib}.so"), str(vdir / f"{lib}.cu")],
@@ -177,24 +214,69 @@ def variant_ms(libs: dict[str, ctypes.CDLL], data) -> tuple[float, float]:
                 _build._loaded[lib] = handle
 
 
+def bwd_inputs(count: int = 3, seed: int = 11):
+    """(q, k, v, key mask, do) fp32 at BWD_SHAPE with up to 100 padded keys,
+    the last batch's keys all masked (chip_smoke.py's training inputs)."""
+    batch, _, n, _ = BWD_SHAPE
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(count):
+        q, k, v, do = (torch.randn(BWD_SHAPE, generator=gen).cuda() for _ in range(4))
+        mask = torch.arange(n)[None] < torch.randint(max(n - 100, 2 * n // 3), n + 1, (batch, 1), generator=gen)
+        mask[-1] = False
+        out.append((q, k, v, mask.cuda(), do))
+    return out
+
+
+def bwd_variant_ms(lib: ctypes.CDLL, data) -> tuple[float, float]:
+    """(kernel 3, kernel 5) queued ms a call with `lib` in place of the built
+    backward library."""
+    from impx_torch.ops.kernels.attention import mha_bwd, mha_bwd_from_lse, mha_fused_lse
+
+    saved = _build._loaded.get("attention_bwd")
+    _build._loaded["attention_bwd"] = lib
+    try:
+        with_lse = []
+        for q, k, v, m, do in data:
+            o, lse = mha_fused_lse(q, k, v, m)
+            with_lse.append((q, k, v, m, lse, o, do))
+        return queued_ms(mha_bwd, data), queued_ms(mha_bwd_from_lse, with_lse)
+    finally:
+        if saved is None:
+            _build._loaded.pop("attention_bwd", None)
+        else:
+            _build._loaded["attention_bwd"] = saved
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--heads", type=int, default=4)
     parser.add_argument("--n", type=int, default=2048)
+    parser.add_argument("--only", choices=("forward", "backward"), default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tf32_phases: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
-    data = inputs(args.batch, args.heads, args.n)
-    libs = build_variants()
-    for rnd in range(2):
-        for name, lib in libs.items():
-            fwd, mass = variant_ms(lib, data)
-            print(f"tf32_phases [{args.batch}, {args.heads}, {args.n}, 64] round {rnd} {name}: kernel 1 "
-                  f"{fwd:.4f} ms a call (queued), kernel 6 lse route {mass:.4f} ms a call (graph)", flush=True)
+    if args.only != "backward":
+        data = inputs(args.batch, args.heads, args.n)
+        libs = build_variants()
+        for rnd in range(2):
+            for name, lib in libs.items():
+                fwd, mass = variant_ms(lib, data)
+                print(f"tf32_phases [{args.batch}, {args.heads}, {args.n}, 64] round {rnd} {name}: kernel 1 "
+                      f"{fwd:.4f} ms a call (queued), kernel 6 lse route {mass:.4f} ms a call (graph)", flush=True)
+        del data
+    if args.only != "forward":
+        data = bwd_inputs()
+        libs = build_variants(bwd_variants, "bwd", ("attention_bwd",))
+        for rnd in range(2):
+            for name, lib in libs.items():
+                k3, k5 = bwd_variant_ms(lib["attention_bwd"], data)
+                print(f"tf32_phases backward {list(BWD_SHAPE)} round {rnd} {name}: "
+                      f"kernel 3 {k3:.4f} ms a call, kernel 5 {k5:.4f} (queued)", flush=True)
 
 
 if __name__ == "__main__":

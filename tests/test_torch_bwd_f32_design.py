@@ -1,0 +1,308 @@
+"""The fp32 design of kernels 3 and 5 on Hopper's tensor cores
+(impx_torch/csrc/attention_bwd.cu, bwd_dq_*_tf32x3 and bwd_dkdv_*_tf32x3),
+emulated in plain PyTorch on the CPU.
+
+Every product runs in 3xTF32 on wgmma m64nNk8: each fp32 operand splits as
+hi = tf32(x) and lo = tf32(x - hi) (round to nearest, ties away from zero,
+on the int32 view), and each 8-deep k-step adds lo.hi, then hi.lo, then
+hi.hi to the fp32 accumulator, each product one rounding of its exact 8-term
+sum. Two launches a call, each block 128 rows of its own (kTfRows) and a walk
+over 32-row tiles (kTfTile) of the other side, zero-filled past the end:
+  * the dq launch walks the key tiles. Kernel 3's first pass finds each
+    query row's max m (raw units; mu = m c its base-2 copy, c = log2(e) /
+    sqrt(dh)), l = sum 2^(s c - mu) and D = sum dp 2^(s c - mu), both rescaled
+    by 2^(mu_old - mu_new) as m grows, so delta = D / l; its second pass takes
+    p = 2^(s c - mu) (1 / l), ds = p (dp - delta) scale and dQ += dS K.
+    Kernel 5 takes one pass, p = 2^(s c - lse log2 e), delta = rowsum(do o);
+  * the dk/dv launch walks the query tiles: S^T = K Q^T and dP^T = V dO^T,
+    p and ds from the dq launch's per-query statistics, dV += P^T dO and
+    dK += dS^T Q.
+A batch with no valid key takes every key in range as valid with c = 0:
+kernel 3's p = 1 / Nk, kernel 5's p = 2^(-(lse + 1e30) log2 e) = 1 where lse
+is kernel 4's -1e30 (the reference's exp(-1e30 - lse)). The exponentials are
+exact here (the card's ex2.approx is within 2^-22).
+
+These tests settle that arithmetic before the kernels meet the card: by
+batch, the fully masked batch included, within BWD_REL_L2[float32] (the card
+tests' and chip_smoke.py's TRAIN_REL_L2 limit) of the plain versions and of
+impx's Pallas kernels interpreted; one TF32 pass, without the lo terms,
+misses that limit."""
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from impx.ops.pallas.attention import _mha_bwd_call
+from impx.ops.pallas.attention import mha_bwd_from_lse as jax_mha_bwd_from_lse
+from impx_torch.ops.kernels.attention import (
+    NEG, mha_bwd_from_lse_reference, mha_bwd_reference, mha_lse_reference)
+
+from test_torch_kernels import BWD_REL_L2, _rel_l2_per_batch
+
+TILE = 32                      # streamed rows a tile, as kTfTile
+STEP = 8                       # the k depth of a tf32 wgmma
+LOG2E = 1.4426950408889634
+LIMIT = BWD_REL_L2[torch.float32]
+
+# (b, h, nq, nk, dh): ragged last tiles on both sides (77, 100, 130, 70, 65),
+# whole tiles (96, 64), more than one 128-row block on the card (130), dh 32, 16, 64
+CASES = [(3, 2, 100, 77, 32), (3, 2, 70, 130, 16), (3, 2, 65, 96, 64)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The emulations' many small ops cost more in thread hand-offs than in
+    arithmetic on a shared host: run this module on one thread."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+def _f32(x):
+    return float(np.float32(x))
+
+
+def tf32(x):
+    """The kernels' to_tf32: add half of the 13 dropped bits' unit to the
+    magnitude (the low 31 bits of a float's int32 view), then clear them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x):
+    hi = tf32(x)
+    return hi, tf32(x.float() - hi)
+
+
+def mma(acc, a, b, passes=3):
+    """acc [..., M, N] fp32 += a [..., M, K] b [..., K, N], 8 of K a k-step:
+    lo.hi, hi.lo, hi.hi (passes=3), or hi.hi alone (one TF32 pass)."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    terms = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    for k0 in range(0, a.shape[-1], STEP):
+        for x, y in terms:
+            step = x[..., k0:k0 + STEP].double() @ y[..., k0:k0 + STEP, :].double()
+            acc = (acc.double() + step).float()
+    return acc
+
+
+def ffma(a, b, c):
+    """fp32 a b + c with one rounding."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _pad(x, n, value=0.0):
+    """x [..., rows, cols] padded to n rows (the kernels' zero-filled tiles)."""
+    return torch.nn.functional.pad(x, (0, 0, 0, n - x.shape[-2]), value=value)
+
+
+def _ceil(n):
+    return -(-n // TILE) * TILE
+
+
+def _setup(q, mask):
+    """(scale, valid keys [B, Nk], c [B, 1, 1, 1], fully masked [B])."""
+    scale = _f32(1.0 / math.sqrt(q.shape[-1]))
+    all_masked = ~mask.any(dim=1)
+    valid = mask | all_masked[:, None]
+    c = torch.where(all_masked, 0.0, _f32(np.float32(scale) * np.float32(LOG2E))).to(torch.float32)
+    return scale, valid, c[:, None, None, None], all_masked
+
+
+def emulate_dq(q, k, v, mask, do, lse=None, o=None, passes=3):
+    """The dq launch: (dq, (mu, 1/l, delta) a query row [B, H, Nq, 1]).
+    Kernel 3 when lse is None (two passes over the key tiles), else kernel 5
+    (mu = lse log2 e, 1/l = 1, delta = rowsum(do o))."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    scale, valid, c, all_masked = _setup(q, mask)
+    kp, vp = _pad(k, _ceil(nk)), _pad(v, _ceil(nk))
+    validp = torch.nn.functional.pad(valid, (0, _ceil(nk) - nk), value=False)
+    tiles = range(0, _ceil(nk), TILE)
+
+    def products(k0):
+        kt, vt = kp[..., k0:k0 + TILE, :], vp[..., k0:k0 + TILE, :]
+        s = mma(torch.zeros((b, h, nq, TILE)), q, kt.transpose(-1, -2), passes)
+        dp = mma(torch.zeros((b, h, nq, TILE)), do, vt.transpose(-1, -2), passes)
+        return kt, s, dp, validp[:, None, None, k0:k0 + TILE]
+
+    if lse is None:
+        shape = (b, h, nq, 1)
+        m = torch.full(shape, -math.inf)
+        mu, l, d = torch.zeros(shape), torch.zeros(shape), torch.zeros(shape)
+        for k0 in tiles:
+            _, s, dp, vm = products(k0)
+            m_new = torch.maximum(m, torch.where(vm, s, -math.inf).amax(dim=-1, keepdim=True))
+            mu_new = torch.where(m_new == -math.inf, 0.0, m_new * c)
+            alpha = torch.where(m == -math.inf, 0.0, torch.exp2(mu - mu_new))
+            e = torch.where(vm, torch.exp2(ffma(s, c, -mu_new)), 0.0)
+            l = l * alpha + e.sum(dim=-1, keepdim=True)
+            d = d * alpha + (e * dp).sum(dim=-1, keepdim=True)
+            m, mu = m_new, mu_new
+        il, delta = 1.0 / l, d / l
+    else:
+        shifted = torch.where(all_masked[:, None, None], lse - NEG, lse)
+        mu = (shifted * _f32(LOG2E))[..., None]
+        il = torch.ones_like(mu)
+        delta = (do * o).sum(dim=-1, keepdim=True)
+    dq = torch.zeros(q.shape)
+    for k0 in tiles:
+        kt, s, dp, vm = products(k0)
+        p = torch.where(vm, torch.exp2(ffma(s, c, -mu)) * il, 0.0)
+        ds = p * (dp - delta) * scale
+        dq = mma(dq, ds, kt, passes)
+    return dq, (mu, il, delta)
+
+
+def emulate_dkdv(q, k, v, mask, do, stats, lse_route, passes=3):
+    """The dk/dv launch from the dq launch's per-query statistics: (dk, dv).
+    Queries past Nq weigh 0: mu = 0 and 1/l = 0 (kernel 3), mu = +inf
+    (kernel 5); delta = 0."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    scale, valid, c, _ = _setup(q, mask)
+    mu, il, delta = (_pad(x, _ceil(nq), value=v0).transpose(-1, -2)
+                     for x, v0 in zip(stats, (math.inf if lse_route else 0.0, 0.0, 0.0)))
+    qp, dop = _pad(q, _ceil(nq)), _pad(do, _ceil(nq))
+    key_valid = valid[:, None, :, None]
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for q0 in range(0, _ceil(nq), TILE):
+        qt, dot = qp[..., q0:q0 + TILE, :], dop[..., q0:q0 + TILE, :]
+        cols = slice(q0, q0 + TILE)
+        st = mma(torch.zeros((b, h, nk, TILE)), k, qt.transpose(-1, -2), passes)    # S^T
+        dpt = mma(torch.zeros((b, h, nk, TILE)), v, dot.transpose(-1, -2), passes)  # dP^T
+        p = torch.where(key_valid, torch.exp2(ffma(st, c, -mu[..., cols])) * il[..., cols], 0.0)
+        ds = p * (dpt - delta[..., cols]) * scale
+        dv = mma(dv, p, dot, passes)
+        dk = mma(dk, ds, qt, passes)
+    return dk, dv
+
+
+def emulate_bwd(q, k, v, mask, do, passes=3):
+    """Kernel 3's design: (dq, dk, dv)."""
+    dq, stats = emulate_dq(q, k, v, mask, do, passes=passes)
+    return (dq, *emulate_dkdv(q, k, v, mask, do, stats, False, passes))
+
+
+def emulate_bwd_from_lse(q, k, v, mask, lse, o, do, passes=3):
+    """Kernel 5's design: (dq, dk, dv)."""
+    dq, stats = emulate_dq(q, k, v, mask, do, lse=lse, o=o, passes=passes)
+    return (dq, *emulate_dkdv(q, k, v, mask, do, stats, True, passes))
+
+
+def _inputs(b, h, nq, nk, dh, seed=0):
+    """fp32 q, k, v, do and a bool key mask: batch 0 a padded suffix, batch
+    1 a random pattern with its first key tile masked (the running max starts
+    at -inf there), the last batch fully masked."""
+    rs = np.random.RandomState(seed)
+    q, do = (rs.randn(b, h, nq, dh).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(b, h, nk, dh).astype(np.float32) for _ in range(2))
+    mask = rs.rand(b, nk) > 0.3
+    mask[0] = np.arange(nk) < max(1, nk - 20)
+    mask[1, :TILE] = False
+    mask[1, -1] = True
+    mask[-1] = False
+    return (*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask), torch.from_numpy(do))
+
+
+def _kernel5_inputs(case):
+    q, k, v, mask, do = _inputs(*case)
+    o, lse = mha_lse_reference(q, k, v, mask)
+    return q, k, v, mask, lse, o, do
+
+
+def _worst(got, ref):
+    """The largest relative L2 error a batch over dq, dk, dv."""
+    return max(_rel_l2_per_batch(a, r).max().item() for a, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh", CASES)
+def test_kernel3_design_matches_plain_version(b, h, nq, nk, dh):
+    """Kernel 3's design against `mha_bwd_reference`: dq, dk and dv of every
+    batch, the fully masked one included, within LIMIT by relative L2."""
+    q, k, v, mask, do = _inputs(b, h, nq, nk, dh)
+    ref = mha_bwd_reference(q, k, v, mask, do)
+    for name, a, r in zip(("dq", "dk", "dv"), emulate_bwd(q, k, v, mask, do), ref):
+        rel = _rel_l2_per_batch(a, r)
+        assert bool((rel <= LIMIT).all()), (name, rel.tolist())
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh", CASES)
+def test_kernel5_design_matches_plain_version(b, h, nq, nk, dh):
+    """Kernel 5's design against `mha_bwd_from_lse_reference` on the plain
+    forward's o and lse: every batch within LIMIT by relative L2."""
+    args = _kernel5_inputs((b, h, nq, nk, dh))
+    ref = mha_bwd_from_lse_reference(*args)
+    for name, a, r in zip(("dq", "dk", "dv"), emulate_bwd_from_lse(*args), ref):
+        rel = _rel_l2_per_batch(a, r)
+        assert bool((rel <= LIMIT).all()), (name, rel.tolist())
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh", CASES[:1])
+def test_fully_masked_batch_keeps_each_kernels_weights(b, h, nq, nk, dh):
+    """The batch with no valid key: kernel 3's p = 1/Nk, so dv is do's sum
+    over the queries over Nk on every key; kernel 5's p = exp(-1e30 - lse) =
+    1, so dv is that sum itself (the reference's behaviour). The dq launch's
+    statistics there: 1/l = 1/Nk exactly and mu = 0."""
+    q, k, v, mask, do = _inputs(b, h, nq, nk, dh)
+    col = do[-1].sum(dim=1, keepdim=True).expand(h, nk, dh)
+    _, (mu, il, _) = emulate_dq(q, k, v, mask, do)
+    assert bool((il[-1] == _f32(1.0 / nk)).all()) and bool((mu[-1] == 0).all())
+    dv3 = emulate_bwd(q, k, v, mask, do)[2]
+    torch.testing.assert_close(dv3[-1], col / nk, rtol=1e-5, atol=1e-6)
+    dv5 = emulate_bwd_from_lse(*_kernel5_inputs((b, h, nq, nk, dh)))[2]
+    torch.testing.assert_close(dv5[-1], col, rtol=1e-5, atol=1e-5)
+
+
+def test_single_tf32_pass_misses_the_limit():
+    """One TF32 pass (hi.hi alone, about 5e-4 relative a product) puts both
+    kernels' gradients beyond LIMIT, which three passes meet: a kernel that
+    dropped the lo terms fails the card's check."""
+    case = CASES[0]
+    q, k, v, mask, do = _inputs(*case)
+    ref = mha_bwd_reference(q, k, v, mask, do)
+    assert _worst(emulate_bwd(q, k, v, mask, do), ref) <= LIMIT
+    assert _worst(emulate_bwd(q, k, v, mask, do, passes=1), ref) > 10 * LIMIT
+    args = _kernel5_inputs(case)
+    ref5 = mha_bwd_from_lse_reference(*args)
+    assert _worst(emulate_bwd_from_lse(*args), ref5) <= LIMIT
+    assert _worst(emulate_bwd_from_lse(*args, passes=1), ref5) > 10 * LIMIT
+
+
+@functools.lru_cache(maxsize=1)
+def _impx_case():
+    """A small case and impx's kernel 3 (`_mha_bwd_call`) and kernel 5
+    (`mha_bwd_from_lse`, from the plain forward's o and lse) on it,
+    interpreted under jax.jit, 32-query blocks (so impx accumulates dk and dv
+    across blocks)."""
+    b, h, nq, nk, dh = 3, 2, 64, 80, 32
+    q, k, v, mask, do = _inputs(b, h, nq, nk, dh, seed=5)
+    o, lse = mha_lse_reference(q, k, v, mask)
+    jq, jk, jv, jdo, jo = (jnp.asarray(x.numpy()) for x in (q, k, v, do, o))
+    jmask = jnp.asarray(mask.numpy())
+    bwd3 = jax.jit(lambda *a: _mha_bwd_call(*a, 32, True))
+    bwd5 = jax.jit(functools.partial(jax_mha_bwd_from_lse, block_q=32, interpret=True))
+    ref3 = bwd3(jq, jk, jv, jmask.astype(jnp.float32).reshape(b, 1, nk), jdo)
+    ref5 = bwd5(jq, jk, jv, jmask, jnp.asarray(lse.numpy())[..., None], jo, jdo)
+    to_torch = lambda xs: tuple(torch.from_numpy(np.array(x)) for x in xs)
+    return (q, k, v, mask, do, lse, o), to_torch(ref3), to_torch(ref5)
+
+
+@pytest.mark.parametrize("kernel", [3, 5])
+def test_design_matches_impx_interpreted(kernel):
+    """Each kernel's design against impx's Pallas kernel interpreted: every
+    batch within LIMIT by relative L2."""
+    (q, k, v, mask, do, lse, o), ref3, ref5 = _impx_case()
+    if kernel == 3:
+        got, ref = emulate_bwd(q, k, v, mask, do), ref3
+    else:
+        got, ref = emulate_bwd_from_lse(q, k, v, mask, lse, o, do), ref5
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        rel = _rel_l2_per_batch(a, r)
+        assert bool((rel <= LIMIT).all()), (name, rel.tolist())

@@ -502,6 +502,46 @@ def test_attention_training_kernels_match_plain(cuda_device, dtype, nq, nk, dh, 
             assert bool((rel <= BWD_REL_L2[dtype]).all()), (kernel, name, rel.tolist())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("kernel", ["kernel-3", "kernel-5"])
+def test_attention_backward_reads_the_bool_mask_in_place(cuda_device, kernel, dtype):
+    """A backward (bf16 or fp32) with a bool key mask launches its two kernels
+    a call and no other device operation; a float mask takes one device
+    operation more a call (its entries > 0 as a bool mask) and gives the same
+    bits as the bool mask it stands for. Three calls each under
+    torch.profiler, then a spin kernel, so that the calls' events are not the
+    profile's last (a profile can lose its last one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, mask = _forward_inputs(cuda_device, dtype, 200, 256, 64, torch.bool)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda_device, dtype)
+    o, lse = mha_fused_lse(q, k, v, mask)
+    float_mask = torch.where(mask, 1.5, -0.5)   # read as > 0: the bool mask again
+
+    def run(m):
+        if kernel == "kernel-3":
+            return mha_bwd(q, k, v, m, do)
+        return mha_bwd_from_lse(q, k, v, m, lse, o, do)
+
+    for m, others_a_call in ((mask, 0), (float_mask, 1)):
+        run(m)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run(m)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        backward = [n for n in names if "bwd_" in n]
+        others = [n for n in names if "bwd_" not in n and "spin" not in n]
+        assert len(backward) == 6 and len(others) == 3 * others_a_call, names
+    for a, b in zip(run(mask), run(float_mask)):
+        assert torch.equal(a, b)
+
+
 def _zero_grad_leaves(model):
     """Leaves whose exact gradient is 0 (a bias that shifts every valid token
     of a channel alike before a masked InstanceNorm, k's bias); the keypoint
