@@ -10,7 +10,9 @@ bf16 attention forward, of the fp32 kernels in 3xTF32 (the forward
 attn_fwd_tf32x3<dh, 1>, its row lse alone <dh, 0>, the mass
 key_mass_tf32x3<dh>), and of the persistent Sinkhorn kernels; (3) each kernel
 against its plain PyTorch version at the main path's shapes (kernel 1 at bf16
-and fp32 and kernel 4 at fp32, o and lse, twice for the same bits; the
+and fp32 and kernel 4 at fp32, o and lse, twice for the same bits, also with
+fewer keys than queries, [8, 4, 2048, 64] against 1536 keys and a ragged
+333 x 290; the
 attention-mass and Sinkhorn kernels also twice on the same inputs, for the
 same bits, and once more through a CUDA-graph replay; the attention mass on
 both routes, from kernel 4's row lse and from its own, at the main path's
@@ -61,8 +63,9 @@ gradients held ten times tighter than at bf16, and kernels 3 and 5 at fp32
 timed at the training shape, one call and 20 queued, beside their 3xTF32 and
 FMA bounds, the plain version, sdpa's fp32 backward (its backend named) and
 the FMA design's time before their 3xTF32 redesign; (13) the log-Sinkhorn kernel (kernel 7) against its plain
-version at dist [4, 2048, 2048] (bf16 Z) at 20 and 100 iterations and at a
-ragged fp32-Z shape, twice for the same bits and through a CUDA-graph replay,
+version at dist [4, 2048, 2048] (bf16 Z) at 20 and 100 iterations, at a
+ragged fp32-Z shape and at [4, 2048, 1536] (SuperGlue's plan at N0 != N1) at
+100 iterations, twice for the same bits and through a CUDA-graph replay,
 with its times, bound, plain time and schedule; (14) DGNNS under the log-domain head (eval_config('spp', 15), log_ot,
 bf16, 4 pairs of 2048 keypoints): launches per call, agreement with the plain
 path, pairs_per_s and a profile; (15) SuperGlue at its published configuration
@@ -92,10 +95,21 @@ equal compacted sets, serial against batched, early exit at
 pose_stop_deg=180 launching kernel 1 only for the layers run, the checkpoint
 solve's device operations at 1 and 4 pairs, the split of a checkpoint's
 time, and profiled kernel 1 and kernel 6 times a launch at fp32 (kernel 6
-beside its time before the 3xTF32 redesign). The line before the last lists
-the kernels as JSON (with each kernel's launches over phase 17's kernel-path
-runs, and for kernels 1, 3, 4, 5 and 6 an "fp32" entry: times, both
-bounds, the plain and library times); the last line is
+beside its time before the 3xTF32 redesign); (18) the remaining inference
+routes at full width (eval_config('spp', 15), D = 256, 4 pairs; random
+weights and batch-norm statistics carried through the reference layout),
+each on the kernel and the plain path with its launches per kernel, no
+kernel's plain version called on the kernel path, indices0 agreement (and
+keep agreement for EIMP), the kernel path's pairs_per_s and a profile: (a) IMP with the
+dual-softmax head (kernel 2 off the path), (b) EIMP mask-only with it, (c)
+DGNNS with batch norm at 2048 = 2048 and 2048 / 1536, (d) EIMP's masked loop
+at 2048 / 1536, (e) the masked loop under log_ot (kernel 7 every iteration,
+the keep counts after each pool, which must fall), (f) SuperGlue at 2048 /
+1536, (g) FMBenchEval's device F backend against cv2 on 16 synthetic pairs
+(precision after RANSAC, SGD, ms a pair). The line before the last lists
+the kernels as JSON (with each kernel's launches over phase 17's and phase
+18's kernel-path runs, and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
+times, both bounds, the plain and library times); the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
 """
@@ -122,7 +136,7 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9   # MUFU: 16 per SM per clock, 132 SMs, 1.98 G
 
 B, N, D, H = 4, 2048, 256, 4      # the main path: 4 pairs of 2048 keypoints
 ITERS = 20
-TIMED_RUNS = 12
+TIMED_RUNS = 8                    # 12 before phase 18 was added: the script stays within about 300 s
 WRAPPER_CALLS = 300               # host-clock calls of the attention wrapper, already-built inputs
 # the main path's attention group in the profile before the bf16 forward's
 # redesign (mma.sync, 64-query blocks), as PERF.md section 5 records it
@@ -151,7 +165,7 @@ EIMP_BIN_SCORE = 9.0
 EIMP_KEEP_AGREE_MIN = 0.99        # final keep masks equal, kernel vs plain path
 # training: configs/config_train_megadepth.json (batch 16, 1024 keypoints)
 TB, TN = 16, 1024
-TRAIN_STEPS = 10                  # timed make_train_step steps a route, fresh batches
+TRAIN_STEPS = 6                   # timed make_train_step steps a route, fresh batches (10 before phase 18)
 FIXED_STEPS = 10                  # steps on one fixed batch a route: the loss must fall
 TRAIN_STEPS_F32 = 3               # the same at fp32 (no fixed-batch loop: the bf16 routes hold it)
 FWD_LSE_TOL = 1e-5                # the row log-sum-exp, fp32, elementwise (atol = rtol)
@@ -185,6 +199,8 @@ SG_LAYERS, SG_ITERS = 9, 100
 # leave most true matches under the 0.2 threshold (tests/test_torch_logot.py)
 SG_DESC_SCALE = 2.0
 PLAIN_BODIES = ("mha_reference", "mha_lse_reference", "mha_bwd_reference", "mha_bwd_from_lse_reference")
+# phase 18: image 1's keypoints on the routes at N0 != N1 (image 0 keeps N)
+ROUTE_N1 = 1536
 
 
 def say(*parts):
@@ -265,10 +281,14 @@ def padded_counts(gen, batch: int, n: int, low: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- attention
-def attention_inputs(gen, dev, dtype, b=2 * B, h=H, n=N, dh=D // H, fully_masked=False):
-    q, k, v = (torch.randn((b, h, n, dh), generator=gen).to(dev, dtype) for _ in range(3))
-    counts = padded_counts(gen, b, n, n - 300)
-    mask = torch.arange(n)[None] < counts[:, None]
+def attention_inputs(gen, dev, dtype, b=2 * B, h=H, n=N, dh=D // H, fully_masked=False, nk=None):
+    """q [b, h, n, dh], k and v with nk keys (n by default), and a padded key
+    mask (up to 300 padded keys: at small sizes a batch may have none valid)."""
+    nk = n if nk is None else nk
+    q = torch.randn((b, h, n, dh), generator=gen).to(dev, dtype)
+    k, v = (torch.randn((b, h, nk, dh), generator=gen).to(dev, dtype) for _ in range(2))
+    counts = padded_counts(gen, b, nk, nk - 300)
+    mask = torch.arange(nk)[None] < counts[:, None]
     if fully_masked:
         mask[-1] = False
     return q, k, v, mask.to(dev)
@@ -315,17 +335,24 @@ def attention_bound(q, mask) -> tuple[float, str, float]:
     return bound(flops, PEAK_BF16, nbytes)
 
 
+# kernel 1 and 4's shapes in phase 3: the main path's, a ragged one, and both
+# with fewer keys than queries (the cross layers of a pair with 2048 and 1536
+# keypoints, and a ragged Nq != Nk)
+ATTN_CHECK_SHAPES = (dict(), dict(b=3, h=2, n=333, dh=32), dict(nk=ROUTE_N1),
+                     dict(b=3, h=2, n=333, nk=290, dh=32))
+
+
 def check_attention(dev, ka) -> dict:
     """Kernel 1 (bf16 and fp32) and kernel 4 at fp32 against their plain
-    versions at the main path's shape and a ragged one, the last batch fully
-    masked: o within ATTN_TOL, kernel 4's lse within FWD_LSE_TOL and -1e30
-    exactly on the fully masked batch; each twice for the same bits. Prints
-    every check before failing on any. Returns the largest error at the main
-    shape by (kernel, dtype)."""
+    versions at ATTN_CHECK_SHAPES, the last batch fully masked: o within
+    ATTN_TOL, kernel 4's lse within FWD_LSE_TOL and -1e30 exactly on the
+    fully masked batch; each twice for the same bits. Prints every check
+    before failing on any. Returns the largest error at the main shape by
+    (kernel, dtype)."""
     gen = torch.Generator().manual_seed(1)
     errs, failures = {}, []
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in (dict(), dict(b=3, h=2, n=333, dh=32)):   # main path; ragged edge
+        for shape in ATTN_CHECK_SHAPES:
             q, k, v, mask = attention_inputs(gen, dev, dtype, fully_masked=True, **shape)
             runs = {"mha_fused": [(ka.mha_fused(q, k, v, mask), None) for _ in range(2)]}
             if dtype == torch.float32:
@@ -338,7 +365,8 @@ def check_attention(dev, ka) -> dict:
                 bad = (err > tol + tol * ref.float().abs()).sum().item()
                 finite = bool(torch.isfinite(out.float()).all())
                 same = torch.equal(out, out2) and (lse is None or torch.equal(lse, lse2))
-                label = f"{name} {list(q.shape)} {str(dtype)[6:]}"
+                label = f"{name} {list(q.shape)}" + (f" keys {k.shape[2]}" if "nk" in shape else "") + (
+                    f" {str(dtype)[6:]}")
                 line = (f"check {label}: max_abs_err {err.max().item():.3e} (tol atol=rtol={tol:g}), out of "
                         f"tolerance {bad}, finite {finite}, second run bitwise equal {same}")
                 ok = not bad and finite and same
@@ -631,21 +659,46 @@ def carried_model(cls, cfg, dev, to_reference, from_reference, randomize=None):
     return model
 
 
-def drive_path(label, model, data, call, want, kernels):
+# the plain versions of the inference kernels, by the module their wrappers look them up in
+INFERENCE_PLAIN = {"attention": ("mha_reference", "mha_lse_reference", "attention_key_mass_reference",
+                                 "attention_key_mass_from_lse_reference"),
+                   "sinkhorn": ("sinkhorn_stats_reference",), "log_sinkhorn": ("log_sinkhorn_stats_reference",)}
+
+
+@contextlib.contextmanager
+def counting_inference_plain_bodies():
+    """Count the calls of every inference kernel's plain version: a list of
+    {name: calls}, one a module."""
+    import importlib
+
+    with contextlib.ExitStack() as stack:
+        yield [stack.enter_context(counting_plain_bodies(importlib.import_module(f"impx_torch.ops.kernels.{mod}"),
+                                                         names))
+               for mod, names in INFERENCE_PLAIN.items()]
+
+
+def drive_path(label, model, data, call, want, kernels, keeps=False):
     """One call through the kernels (every launch count set to 0 just
     before, read just after) and one through the plain path on the same
     inputs. Fails on launch counts other than `want` (every other kernel 0),
-    on a misshapen or non-finite output, on indices0 agreement under
-    E2E_AGREE_MIN over valid rows, or on fewer matches than a quarter of the
-    valid keypoints. Returns the launches."""
+    on a kernel's plain version called on the kernel path, on a misshapen or
+    non-finite output, on indices0 agreement under E2E_AGREE_MIN over valid
+    rows, on keep agreement under EIMP_KEEP_AGREE_MIN over valid keypoints
+    (keeps: EIMP), or on fewer matches than a quarter of the valid keypoints.
+    Returns the launches."""
     for fn in kernels.values():
         fn.launches = 0
-    out = call(data)
-    torch.cuda.synchronize()
+    with counting_inference_plain_bodies() as plain:
+        out = call(data)
+        torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
-    say(f"{label} launches per produce_matches call: {launches}")
+    plain_calls = {name: n for counts in plain for name, n in counts.items()}
+    say(f"{label} launches per produce_matches call: {launches}; plain bodies called on the kernel path "
+        f"{sum(plain_calls.values())}")
     if launches != {**dict.fromkeys(kernels, 0), **want}:
         fail(f"{label} did not run through the kernels as expected: {launches}")
+    if any(plain_calls.values()):
+        fail(f"{label}: a kernel's plain version ran on the kernel path: {plain_calls}")
 
     model.use_kernels = False
     ref = call(data)
@@ -658,17 +711,23 @@ def drive_path(label, model, data, call, want, kernels):
     say(f"{label}: indices0 agreement with the plain path {agree:.4f} (min {E2E_AGREE_MIN}) "
         f"over valid rows; matches {n_match} of valid {n_valid} (plain {(ridx >= 0).sum(1).tolist()});"
         f" mscores0 max_abs_err {ms_err:.3e}")
+    ok = agree >= E2E_AGREE_MIN
+    if keeps:
+        keep_agree = torch.cat([(out[f"keep{i}"] == ref[f"keep{i}"])[data[f"valid{i}"]] for i in (0, 1)])
+        keep_agree = keep_agree.float().mean().item()
+        say(f"{label}: keep agreement {keep_agree:.4f} (min {EIMP_KEEP_AGREE_MIN}) over valid keypoints; "
+            f"final keep0 {out['keep0'].sum(1).tolist()} keep1 {out['keep1'].sum(1).tolist()}")
+        ok = ok and keep_agree >= EIMP_KEEP_AGREE_MIN
     if idx.shape != valid.shape or not bool(torch.isfinite(out["mscores0"][-1]).all()):
         fail(f"{label} output has the wrong shape or non-finite scores")
     score = out["scores"][-1]
     if score is not None:
-        b, n = valid.shape
-        ok = torch.nn.functional.pad(valid[:, :, None] & data["valid1"][:, None, :], (0, 1, 0, 1), value=True)
-        say(f"{label}: log plan {list(score.shape)}, finite at every valid cell "
-            f"{bool(torch.isfinite(score[ok]).all())}")
-        if score.shape != (b, n + 1, n + 1) or not bool(torch.isfinite(score[ok]).all()):
-            fail(f"{label}: the log plan is misshapen or not finite at valid cells")
-    if agree < E2E_AGREE_MIN:
+        (b, n), m = valid.shape, data["valid1"].shape[1]
+        cells = torch.nn.functional.pad(valid[:, :, None] & data["valid1"][:, None, :], (0, 1, 0, 1), value=True)
+        say(f"{label}: plan {list(score.shape)}, finite at every valid cell {bool(torch.isfinite(score[cells]).all())}")
+        if score.shape != (b, n + 1, m + 1) or not bool(torch.isfinite(score[cells]).all()):
+            fail(f"{label}: the plan is misshapen or not finite at valid cells")
+    if not ok:
         fail(f"{label}: the kernel path disagrees with the plain path")
     if any(m < v / 4 for m, v in zip(n_match, n_valid)):
         fail(f"{label}: fewer matches than a quarter of the valid keypoints")
@@ -2354,7 +2413,8 @@ def check_log_sinkhorn(dev, log_sinkhorn_fused_stats, log_sinkhorn_stats_referen
     the largest error at the main shape and 20 iterations."""
     gen = torch.Generator().manual_seed(14)
     worst, failures = 0.0, []
-    for shape, iters in ((dict(), LOG_ITERS[0]), (dict(), LOG_ITERS[1]), (dict(b=2, n=256, m=200, pad=100), LOG_ITERS[0])):
+    for shape, iters in ((dict(), LOG_ITERS[0]), (dict(), LOG_ITERS[1]), (dict(b=2, n=256, m=200, pad=100), LOG_ITERS[0]),
+                         (dict(m=ROUTE_N1), LOG_ITERS[1])):   # SuperGlue's plan at N0 != N1 (phase 18)
         dist, bin_, v0, v1 = sinkhorn_inputs(gen, dev, **shape)
         out = log_sinkhorn_fused_stats(dist, bin_, iters, v0, v1)
         again = log_sinkhorn_fused_stats(dist, bin_, iters, v0, v1)
@@ -2477,6 +2537,171 @@ def superglue_path(dev, SuperGlue, MatcherConfig, load_superglue_state_dict, ker
     profile_calls(label, call, [superglue_pairs(gen, dev) for _ in range(4)])
     return launches
 
+# ---------------------------------------------------------------- the remaining inference routes
+ROUTE_PROFILE_CALLS = 2
+F_PAIRS = 16                      # FMBenchEval pairs, true correspondences plus RECOVERY_OUTLIER_SHARE outliers
+F_PRECISION_SLACK = 0.05          # the device backend's mean precision after RANSAC, at least cv2's less this
+F_SGD_MAX = 1e-2                  # the device backend's mean symmetric geometric distance to the true F
+
+
+def cut_image1(data, m=ROUTE_N1):
+    """The pairs with image 1 cut to its first m keypoints (N0 != N1)."""
+    return {k: (x[:, :m] if k.endswith("1") else x) for k, x in data.items()}
+
+
+def recording_pools(model):
+    """Wrap the model's pooling rule: (keep counts before, after) of each pool."""
+    pools = []
+
+    def recording(*args, _orig=model._pool_from_masses):
+        new0, new1 = _orig(*args)
+        pools.append(([args[6].sum(1).tolist(), args[7].sum(1).tolist()],
+                      [new0.sum(1).tolist(), new1.sum(1).tolist()]))
+        return new0, new1
+
+    model._pool_from_masses = recording
+    return pools
+
+
+def fundamental_path(dev):
+    """(g): FMBenchEval's device backend against its cv2 one on F_PAIRS
+    synthetic pairs (true correspondences plus RECOVERY_OUTLIER_SHARE of
+    random pairings of outlier keypoints, pixels): each backend's mean
+    precision after RANSAC and symmetric geometric distance, and the device
+    backend's ms a pair (host clock, ending in the copy of F and the inlier
+    mask to the host)."""
+    from impx_torch.data.synthetic import synthesize_pair
+    from impx_torch.eval.evaluator import FMBenchEval
+
+    rs = np.random.RandomState(23)
+    infos = []
+    while len(infos) < F_PAIRS:
+        p = synthesize_pair(rs, n_inliers=1000, n_outliers0=1000, n_outliers1=1000, desc_dim=8,
+                            image_size=(480, 640))
+        gt = p["gt_matches"]
+        if len(gt) < RECOVERY_MIN_TRUE:
+            continue                      # views that overlap little: too few true correspondences
+        n_out = int(round(len(gt) * RECOVERY_OUTLIER_SHARE / (1 - RECOVERY_OUTLIER_SHARE)))
+        out0 = np.setdiff1d(np.arange(len(p["kpt1"])), gt[:, 0])
+        out1 = np.setdiff1d(np.arange(len(p["kpt2"])), gt[:, 1])
+        i0 = np.concatenate([gt[:, 0], rs.choice(out0, n_out, replace=False)])
+        i1 = np.concatenate([gt[:, 1], rs.choice(out1, n_out, replace=False)])
+        infos.append({"corr1": p["kpt1"][i0, :2].copy(), "corr2": p["kpt2"][i1, :2].copy(), "f": p["f"],
+                      "img_size1": p["img_size1"], "img_size2": p["img_size2"]})
+    res = {}
+    for backend in ("device", "cv2"):
+        ev = FMBenchEval({"f_backend": backend, "inlier_th": 1.0, "seed": 0}, device=dev)
+        ev.run(infos[0])                                  # warm-up: the solver libraries' first calls
+        ev = FMBenchEval({"f_backend": backend, "inlier_th": 1.0, "seed": 0}, device=dev)
+        ms = []
+        for info in infos:
+            t0 = time.perf_counter()
+            ev.res_inqueue(ev.run(info))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        res[backend] = (float(np.mean(ev.pre)), float(np.mean(ev.pre_post)), float(np.mean(ev.sgd)),
+                        float(np.mean(ev.num_corr_post)), statistics.median(ms))
+        say(f"routes FMBenchEval f_backend {backend!r} on {F_PAIRS} pairs (about {int(np.mean(ev.num_corr))} "
+            f"correspondences, {RECOVERY_OUTLIER_SHARE:.0%} outliers, 1 px): precision before {res[backend][0]:.4f}, "
+            f"after RANSAC {res[backend][1]:.4f}, mean SGD {res[backend][2]:.3e}, inliers kept "
+            f"{res[backend][3]:.1f}; {res[backend][4]:.3f} ms a pair (median, host clock, ending in a copy to the "
+            f"host)")
+    dev_pre, cv_pre = res["device"][1], res["cv2"][1]
+    if not (dev_pre >= cv_pre - F_PRECISION_SLACK and res["device"][2] <= F_SGD_MAX):
+        fail(f"FMBenchEval's device backend falls short: precision after RANSAC {dev_pre:.4f} against cv2's "
+             f"{cv_pre:.4f} (slack {F_PRECISION_SLACK}), SGD {res['device'][2]:.3e} (max {F_SGD_MAX})")
+
+
+def routes_path(dev, kernels, DGNNS, AdaGMN, SuperGlue, MatcherConfig, load_reference_state_dict,
+                load_superglue_state_dict) -> dict:
+    """Phase 18: the inference routes of the thirteenth slice at full width
+    (eval_config('spp', 15), D = 256, 4 pairs; SuperGlue at its published
+    configuration), random weights carried through the reference layout,
+    each on the kernel and the plain path: (a) IMP with the dual-softmax head,
+    (b) EIMP mask-only with it, (c) DGNNS with batch norm at N0 = N1 and
+    N0 != N1, (d) EIMP's masked loop at N0 != N1, (e) the masked loop under
+    log_ot, (f) SuperGlue at N0 != N1, (g) FMBenchEval's device backend
+    against cv2. Returns the launches of each kernel over the kernel-path
+    runs."""
+    from impx_torch.models.fast import _eimp_do_pool
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(24)
+    eval15 = MatcherConfig.eval_config("spp", 15)
+    pools = sum(_eimp_do_pool(eval15))
+    total = dict.fromkeys(kernels, 0)
+    only_last = lambda m: (lambda d: m.produce_matches(d, only_last=True, with_scores=False))  # noqa: E731
+
+    def run(label, model, make, want, keeps=False, call=None):
+        call, label = call or only_last(model), f"routes {label}"
+        launches = drive_path(label, model, make(), call, want, kernels, keeps)
+        for k, v in launches.items():
+            total[k] += v
+        pairs = [make() for _ in range(4)]
+        k_ms = cuda_ms(call, [(p,) for p in pairs])       # the kernel path only: the script's time is bounded
+        say(f"time {label}: kernel path {k_ms:.3f} ms = pairs_per_s {1e3 * B / k_ms:.2f}")
+        profile_calls(label, call, pairs[:ROUTE_PROFILE_CALLS])
+
+    def with_bin_score(model):
+        model.bin_score.data.fill_(EIMP_BIN_SCORE)
+
+    # (a) IMP, dual-softmax head, bf16, stacked: kernel 2 off the path
+    cfg = dataclasses.replace(eval15, compute_dtype="bfloat16", with_sinkhorn=False)
+    model = carried_model(DGNNS, cfg, dev, reference_layout, load_reference_state_dict)
+    run("(a) IMP dual softmax bf16 N=2048", model, lambda: permuted_pairs(gen, dev), {"mha_fused": 2 * cfg.n_layers})
+    # (b) EIMP mask-only, dual-softmax head, bf16
+    model = carried_model(AdaGMN, cfg, dev, reference_layout, load_reference_state_dict, with_bin_score)
+    run("(b) EIMP mask-only dual softmax bf16 N=2048", model, lambda: overlap_pairs(gen, dev),
+        {"mha_fused": 2 * (cfg.n_layers - pools), "mha_fused_lse": 2 * pools, "attention_key_mass": 2 * pools},
+        keeps=True, call=lambda d: model.produce_matches(d, only_last=True, with_scores=False))
+    # (c) DGNNS with batch norm (random running statistics), fp32, GM's
+    # unrolled forward: stacked at N0 = N1, one launch an image at N0 != N1
+    cfg = dataclasses.replace(eval15, norm_fn="bn")
+    model = carried_model(DGNNS, cfg, dev, reference_layout, load_reference_state_dict,
+                          lambda m: randomize_batch_norm(m, gen))
+    say(f"routes (c): DGNNS norm_fn 'bn' in eval mode {not model.training}, fp32, plain Sinkhorn head")
+    run("(c) DGNNS bn fp32 N=2048", model, lambda: superglue_pairs(gen, dev), {"mha_fused": 2 * cfg.n_layers})
+    run(f"(c) DGNNS bn fp32 N0=2048 N1={ROUTE_N1}", model, lambda: cut_image1(superglue_pairs(gen, dev)),
+        {"mha_fused": 4 * cfg.n_layers})
+    del model
+    # (d) EIMP's masked loop, 'in', fp32, N0 != N1: per-image layers, a mass
+    # launch a direction on each pooling iteration, the plain Sinkhorn head
+    cfg = eval15
+    model = carried_model(AdaGMN, cfg, dev, reference_layout, load_reference_state_dict, with_bin_score)
+    pooled = recording_pools(model)
+    run(f"(d) EIMP masked loop fp32 N0=2048 N1={ROUTE_N1}", model, lambda: cut_image1(overlap_pairs(gen, dev)),
+        {"mha_fused": 4 * cfg.n_layers, "attention_key_mass": 4 * pools}, keeps=True,
+        call=lambda d: model.produce_matches(d, only_last=True, with_scores=False))
+    say(f"routes (d) keep counts (before, after) of the kernel path's pools: {pooled[:pools]}")
+    del model
+    # (e) the masked loop under log_ot, bf16: kernel 7 every iteration, pooling on the plan
+    cfg = dataclasses.replace(eval15, compute_dtype="bfloat16", log_ot=True)
+    model = carried_model(AdaGMN, cfg, dev, reference_layout, load_reference_state_dict, with_bin_score)
+    pooled = recording_pools(model)
+    run("(e) EIMP masked loop log_ot bf16 N=2048", model, lambda: overlap_pairs(gen, dev),
+        {"mha_fused": 2 * (cfg.n_layers - pools), "mha_fused_lse": 2 * pools, "attention_key_mass": 2 * pools,
+         "log_sinkhorn_fused_stats": cfg.n_layers}, keeps=True,
+        call=lambda d: model.produce_matches(d, only_last=True, with_scores=False))
+    first = pooled[:pools]
+    say(f"routes (e) keep counts (before, after) of the kernel path's pools: {first}")
+    fell = any(a < b for before, after in first for b_side, a_side in zip(before, after)
+               for b, a in zip(b_side, a_side))
+    say(f"routes (e): keep counts fall under log_ot (pooling on the plan, exp of the log plan) {fell}")
+    if not fell:
+        fail("routes (e): no pool under log_ot dropped a keypoint")
+    del model
+    # (f) SuperGlue at its published configuration, N0 != N1: kernel 7 on an N != M plan
+    cfg = MatcherConfig(descriptor_dim=D, n_layers=SG_LAYERS, sinkhorn_iterations=SG_ITERS, match_threshold=0.2,
+                        norm_fn="bn", compute_dtype="bfloat16")
+    model = carried_model(SuperGlue, cfg, dev, lambda m: reference_layout(m, single_final_proj=True),
+                          load_superglue_state_dict, lambda m: randomize_batch_norm(m, gen))
+    run(f"(f) SuperGlue N0=2048 N1={ROUTE_N1}", model, lambda: cut_image1(superglue_pairs(gen, dev)),
+        {"mha_fused": 4 * cfg.n_layers, "log_sinkhorn_fused_stats": 1},
+        call=lambda d: model.produce_matches(d, only_last=True))
+    del model
+    fundamental_path(dev)
+    say(f"routes phase {time.perf_counter() - t_phase:.1f} s; kernel launches over its kernel-path runs {total}")
+    return total
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2576,8 +2801,11 @@ def main() -> int:
                                   log_launches["log_sinkhorn_fused_stats"]))
     eval_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
     iterative = iterative_path(dev, kernels, ka, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
+    routes = routes_path(dev, kernels, DGNNS, AdaGMN, SuperGlue, MatcherConfig, load_reference_state_dict,
+                         load_superglue_state_dict)
     for row in rows:
         row["launches_iterative"] = iterative[row["name"]]
+        row["launches_routes"] = routes[row["name"]]
         if row["name"] in fp32:
             row["fp32"] = fp32[row["name"]]
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -8,7 +8,8 @@ A port of `impx` (JAX/Pallas) that mirrors its module layout:
   ops/kernels/  the CUDA kernels' wrappers, each beside its plain version
   geometry/ keypoints, epipolar, pose (errors, AUC), triangulation
   ransac/   eight_point, five_point, ransac, pose_solver (the device and cv2
-            pose backends, the iterative loop's checkpoint solver)
+            pose backends, the iterative loop's checkpoint solver),
+            fundamental (the device F backend of the FM bench)
   data/     reader (the standard HDF5 dump), synthetic (seeded two-view pairs)
   eval/     evaluator (pose AUC, FM bench), eval_imp (the eval CLI),
             eval_full, pipeline, iterative (the match-pose loop with early

@@ -51,7 +51,6 @@ from impx_torch.ransac.pose_solver import _norm_threshold, estimate_pose
 # impx's flags whose paths are not ported yet, and the ROADMAP item of each
 UNPORTED = {
     "data_parallel": "A11 (data parallelism)",
-    "use_dual_softmax": "A6 (the dual-softmax head)",
 }
 
 parser = argparse.ArgumentParser(
@@ -84,7 +83,7 @@ parser.add_argument("--device", type=str, default=None,
                     help="the matcher's device (default: the CUDA card; 'cpu' runs the "
                          "kernels' plain versions)")
 parser.add_argument("--use_dual_softmax", action="store_true", default=False,
-                    help="not ported yet (ROADMAP A6)")
+                    help="the dual-softmax score head in place of the dustbin Sinkhorn")
 parser.add_argument("--use_iterative", action="store_true", default=False,
                     help="the iterative match-pose loop with early stopping")
 parser.add_argument("--use_uncertainty", action="store_true", default=False,
@@ -138,12 +137,11 @@ def parse_compaction(spec: str) -> tuple:
 def build_model(matching_method: str, feature: str, use_sinkhorn: bool = True, n_layers: int = 15,
                 compute_dtype: str = "float32", compaction: tuple = (), device=None):
     """DGNNS (IMP) or AdaGMN (EIMP) at MatcherConfig.eval_config, with random
-    weights from seed 0 until `load_params`. use_sinkhorn=False (the
-    dual-softmax head) raises NotImplementedError."""
-    if not use_sinkhorn:
-        raise NotImplementedError(f"--use_dual_softmax is not ported yet: ROADMAP {UNPORTED['use_dual_softmax']}")
+    weights from seed 0 until `load_params`; use_sinkhorn=False is the
+    dual-softmax head (impx/eval/eval_imp.py:110-121)."""
     cfg = dataclasses.replace(MatcherConfig.eval_config(feature, n_layers=n_layers),
-                              compute_dtype=compute_dtype, compaction=tuple(compaction))
+                              with_sinkhorn=use_sinkhorn, compute_dtype=compute_dtype,
+                              compaction=tuple(compaction))
     cls = AdaGMN if matching_method.startswith("EIMP") else DGNNS
     return cls(cfg, device=device)
 
@@ -416,8 +414,8 @@ def main(argv=None):
     read_config = config["reader"]
     eval_config = config["evaluator"]
 
-    model = build_model(args.matching_method, feat, n_layers=args.layers,
-                        compute_dtype=args.compute_dtype,
+    model = build_model(args.matching_method, feat, use_sinkhorn=not args.use_dual_softmax,
+                        n_layers=args.layers, compute_dtype=args.compute_dtype,
                         compaction=parse_compaction(args.compaction),
                         device=resolve_device(args.device))
     weight_file = args.weight_path or osp.join(

@@ -4,7 +4,8 @@
 device backend), cheirality-checked; pose error against the ground truth by
 quaternion angles; epipolar-inlier precision and matching score; exact and
 approximate AUC at 5..30 degrees. `FMBenchEval`: the fundamental-matrix
-benchmark.
+benchmark, F by cv2 USAC_MAGSAC on the host or (f_backend 'device', or
+impx's name 'jax') by `ransac/fundamental.py` on the evaluator's device.
 
 pose_backend: 'cv2' (the published protocol, host) or 'device'
 (`estimate_pose_device` on the evaluator's device; 'jax', impx's name for it,
@@ -23,14 +24,13 @@ from impx_torch.geometry.epipolar import compute_epi_inlier_np
 from impx_torch.geometry.pose import evaluate_R_t_np
 
 POSE_BACKENDS = {"cv2": "cv2", "device": "device", "jax": "device"}
-FUNDAMENTAL_TODO = ("f_backend 'jax' needs the on-device fundamental-matrix RANSAC "
-                    "(impx/ransac/fundamental.py), not ported yet: ROADMAP A9")
 
 
-def pose_backend(name: str) -> str:
-    """'cv2' or 'device' ('jax' is read as 'device'); raises on other names."""
+def pose_backend(name: str, option: str = "pose_backend") -> str:
+    """'cv2' or 'device' ('jax' is read as 'device'); raises on other names,
+    naming `option`."""
     if name not in POSE_BACKENDS:
-        raise ValueError(f"unknown pose_backend {name!r} (expected one of {sorted(POSE_BACKENDS)})")
+        raise ValueError(f"unknown {option} {name!r} (expected one of {sorted(POSE_BACKENDS)})")
     return POSE_BACKENDS[name]
 
 
@@ -123,19 +123,41 @@ class AucEval:
 
 
 class FMBenchEval:
-    """Fundamental-matrix benchmark: F by cv2 USAC_MAGSAC on the host. The
-    on-device F RANSAC (f_backend 'jax') raises NotImplementedError."""
+    """Fundamental-matrix benchmark (impx/eval/evaluator.py:95). config:
+    inlier_th, seq and sgd_inlier_th (parse), and optionally f_backend
+    ('cv2' by default; 'device', or impx's 'jax', runs
+    `estimate_fundamental_ransac` at 1 px on `device`, the CUDA device unless
+    named) and seed (0). The device backend's pair i draws from
+    pair_generator(device, seed, i), i counting the pairs run so far, as
+    impx keys its draw by that count."""
 
-    def __init__(self, config: dict):
-        if config.get("f_backend") in ("jax", "device"):
-            raise NotImplementedError(FUNDAMENTAL_TODO)
+    def __init__(self, config: dict, device: str | torch.device | None = None):
         self.config = config
+        self.backend = pose_backend(config.get("f_backend", "cv2"), "f_backend")
+        self.device = resolve_device(device) if self.backend == "device" else None
+        self.seed = config.get("seed", 0)
         self.pre, self.pre_post, self.sgd = [], [], []
         self.num_corr, self.num_corr_post = [], []
 
-    def run(self, info: dict, **_) -> dict:
+    def _estimate(self, corr1, corr2):
+        """(F_hat, inlier mask) from matched pixel coordinates [n, 2]; cv2 may
+        give (None, None)."""
+        if self.backend == "device":
+            from impx_torch.ransac.fundamental import estimate_fundamental_ransac
+
+            as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)  # noqa: E731
+            out = estimate_fundamental_ransac(
+                pair_generator(self.device, self.seed, len(self.pre)), as_t(corr1), as_t(corr2),
+                torch.ones(len(corr1), dtype=torch.bool, device=self.device), threshold_px=1.0)
+            return out["F"].cpu().numpy(), out["inliers"].cpu().numpy()
         import cv2
 
+        return cv2.findFundamentalMat(corr1, corr2, method=cv2.USAC_MAGSAC, ransacReprojThreshold=1,
+                                      confidence=1 - 1e-5)
+
+    def run(self, info: dict, **_) -> dict:
+        """info: corr1/corr2 (matched pixel coordinates), f (the true F),
+        img_size1/img_size2 ((H, W))."""
         corr1, corr2 = info["corr1"], info["corr2"]
         F = info["f"]
         size1 = np.flip(np.asarray(info["img_size1"]))
@@ -144,12 +166,7 @@ class FMBenchEval:
             return {"pre": 0, "pre_post": 0, "sgd": 1e8, "num_corr": 0, "num_corr_post": 0}
 
         pre_bf = _fm_inlier_rate(corr1, corr2, size1, size2, F, self.config["inlier_th"]).mean()
-        if len(corr1) >= 8:
-            F_hat, mask_F = cv2.findFundamentalMat(
-                corr1, corr2, method=cv2.USAC_MAGSAC,
-                ransacReprojThreshold=1, confidence=1 - 1e-5)
-        else:
-            F_hat = None
+        F_hat, mask_F = self._estimate(corr1, corr2) if len(corr1) >= 8 else (None, None)
         if F_hat is None:
             F_hat = np.ones((3, 3))
             mask_F = np.ones(len(corr1), bool)

@@ -11,16 +11,23 @@ The masses come from the q/k states the layers carry and, on the kernel
 path, each layer's row log-sum-exp, through the attention-mass kernel, so the
 probabilities never reach device memory.
 
-Not ported yet (the training slice): pool_masks from probability tensors,
-forward_train and the ground-truth masking; EIMP under the log-domain head
-(config.log_ot) raises.
+Routing follows impx's produce_matches (impx/models/adgm.py:246-269): the
+stacked scans of impx/models/fast.py when norm_fn='in', not log_ot and both
+images have the same keypoint count; otherwise the masked unrolled loop
+`_iterate` (impx/models/adgm.py:167), which runs every layer under GM's dtype
+contract, one launch an image when N0 != N1, and a score head on every
+iteration. A compaction schedule on that loop runs mask-only, as impx's
+default attn_impl does. Under log_ot the loop pools on the plan, exp of the
+log plan, where impx pools on the log plan itself and so never pools
+(ROADMAP section C). Training (forward_train and the ground-truth masking)
+is not ported.
 """
 from __future__ import annotations
 
 import torch
 
 from impx_torch.models.dgnns import DGNNS
-from impx_torch.models.fast import forward_scan_eimp, forward_scan_eimp_compact
+from impx_torch.models.fast import _eimp_do_pool, forward_scan_eimp, forward_scan_eimp_compact
 from impx_torch.ops.kernels.attention import attention_key_mass, attention_key_mass_reference
 
 
@@ -38,13 +45,18 @@ def _normalise(mass: torch.Tensor) -> torch.Tensor:
     return mass / (mass.sum(dim=1, keepdim=True) + 1e-15)
 
 
+def _key_attention_mass(prob: torch.Tensor, query_mask: torch.Tensor | None) -> torch.Tensor:
+    """An attention probability tensor [B, H, Nq, Nk] summed over heads and
+    the queries of query_mask [B, Nq] (all when None), per key, normalised
+    to sum 1 (impx/models/adgm.py:40)."""
+    if query_mask is None:
+        mass = prob.sum(dim=(1, 2))
+    else:
+        mass = torch.einsum("bhqk,bq->bk", prob, query_mask.to(prob.dtype))
+    return _normalise(mass)
+
+
 class AdaGMN(DGNNS):
-    def __init__(self, config, device=None, seed: int = 0, use_kernels: bool = True):
-        if config.log_ot:
-            # impx sends EIMP under log_ot to its masked XLA loop
-            # (impx/models/adgm.py:250-264), not to the stacked forward
-            raise NotImplementedError("AdaGMN (EIMP) with log_ot is not ported")
-        super().__init__(config, device, seed, use_kernels)
 
     def _key_masses(self, qk_self, qk_cross, keep0, keep1, qmask0, qmask1, lse_self=None,
                     lse_cross=None):
@@ -101,20 +113,46 @@ class AdaGMN(DGNNS):
         return (side(keep0, (rowmass >= th) & keep0, norm00, norm01),
                 side(keep1, (colmass >= th) & keep1, norm11, norm10))
 
+    def _pool_from_plan(self, plan, masses, keep0, keep1, th, n_min_tokens: int):
+        """The pooling rule from a plan [B, N+1, M+1] (its interior's row and
+        column masses) and the normalised key masses (impx/models/adgm.py:99)."""
+        inner = plan[:, :-1, :-1]
+        return self._pool_from_masses(inner.sum(dim=2), inner.sum(dim=1), *masses, keep0, keep1, th,
+                                      n_min_tokens)
+
     def pool_masks(self, pred_score, s00, s01, s11, s10, keep0, keep1, mscore_th: float = 0.1,
                    uncertainty_ratio: float = 1.0, n_min_tokens: int | None = None,
                    qmask0=None, qmask1=None):
-        """One pooling step from the plan pred_score [B, N+1, M+1] and the
-        (q, k) states of `_masses_from_qk`; returns (keep0, keep1)
-        (impx/models/adgm.py:51). qmask0/qmask1: the queries that count in
-        the mass sums (default: the keep masks). mscore_th: a float, or
-        [B, 1] for a threshold a pair."""
+        """One pooling step from the plan pred_score [B, N+1, M+1]; returns
+        (keep0, keep1) (impx/models/adgm.py:51). The four attention states
+        are the (q, k) pairs of `_masses_from_qk`, or probability tensors
+        [B, H, Nq, Nk] (s01 queries in image 1, keys in image 0; s10 the
+        reverse), whose masses are summed directly. qmask0/qmask1: the
+        queries that count in the mass sums (default: the keep masks).
+        mscore_th: a float, or [B, 1] for a threshold a pair."""
         if n_min_tokens is None:
             n_min_tokens = self.config.n_min_tokens
-        inner = pred_score[:, :-1, :-1]
-        masses = self._masses_from_qk(s00, s01, s11, s10, keep0, keep1, qmask0, qmask1)
-        return self._pool_from_masses(inner.sum(dim=2), inner.sum(dim=1), *masses, keep0, keep1,
-                                      mscore_th * uncertainty_ratio, n_min_tokens)
+        qmask0 = keep0 if qmask0 is None else qmask0
+        qmask1 = keep1 if qmask1 is None else qmask1
+        if isinstance(s00, torch.Tensor):
+            masses = (_key_attention_mass(s00, qmask0), _key_attention_mass(s01, qmask1),
+                      _key_attention_mass(s11, qmask1), _key_attention_mass(s10, qmask0))
+        else:
+            masses = self._masses_from_qk(s00, s01, s11, s10, keep0, keep1, qmask0, qmask1)
+        return self._pool_from_plan(pred_score, masses, keep0, keep1, mscore_th * uncertainty_ratio,
+                                    n_min_tokens)
+
+    def pool(self, pred_score, prob00, prob01, prob11, prob10, mscore_th: float = 0.1,
+             uncertainty_ratio: float = 1.0, n_min_tokens: int = 256, keep0=None, keep1=None):
+        """Stand-alone pooling of the reference's API (impx/models/adgm.py:154):
+        `pool_masks` with every keypoint kept unless keep0/keep1 say
+        otherwise."""
+        b, n0p, n1p = pred_score.shape
+        ones = lambda n: torch.ones((b, n), dtype=torch.bool, device=pred_score.device)  # noqa: E731
+        keep0 = ones(n0p - 1) if keep0 is None else keep0
+        keep1 = ones(n1p - 1) if keep1 is None else keep1
+        return self.pool_masks(pred_score, prob00, prob01, prob11, prob10, keep0, keep1, mscore_th,
+                               uncertainty_ratio, n_min_tokens)
 
     def pool_masks_stacked(self, pred_score, qk_self, qk_cross, keep0, keep1, mscore_th,
                            lse_self=None, lse_cross=None, n_min_tokens: int | None = None):
@@ -127,25 +165,81 @@ class AdaGMN(DGNNS):
         then takes in one pass."""
         if n_min_tokens is None:
             n_min_tokens = self.config.n_min_tokens
-        inner = pred_score[:, :-1, :-1]
         masses = self._key_masses(qk_self, qk_cross, keep0, keep1, keep0, keep1, lse_self, lse_cross)
-        return self._pool_from_masses(inner.sum(dim=2), inner.sum(dim=1), *masses, keep0, keep1, mscore_th,
-                                      n_min_tokens)
+        return self._pool_from_plan(pred_score, masses, keep0, keep1, mscore_th, n_min_tokens)
+
+    def _iterate(self, data, p: float, mscore_th: float, uncertainty_ratio: float, with_scores: bool = True):
+        """The masked unrolled loop at inference (impx/models/adgm.py:167,
+        gt=None), on data already on the model's device. Every layer through
+        GM's layer API (stacked when N0 == N1, one launch an image
+        otherwise): attention keys under the keep masks, queries and
+        InstanceNorm under the padding validity full0/full1. After each
+        iteration the score head under the keep masks and its matches; on the
+        pooling iterations the key masses summed over full queries and the
+        pooling rule on the plan (exp of the log plan under log_ot). On the
+        kernel path with N0 == N1 a pooling iteration's layers run kernel 4,
+        whose row lse the masses take, as `_eimp_step` does; at N0 != N1 the
+        masses take one launch a direction. Returns (scores, indices0,
+        mscores0 per iteration, (keep0, keep1)); scores holds None without
+        with_scores."""
+        cfg = self.config
+        desc0, desc1, full0, full1 = self._encode_inputs(data)
+        keep0, keep1 = full0, full1
+        th = mscore_th * uncertainty_ratio
+        state = self.init_state()
+        scores, all_idx0, all_ms0 = [], [], []
+        for ni, do_pool in enumerate(_eimp_do_pool(cfg)):
+            with_lse = do_pool and self.use_kernels
+            desc0, desc1, state, lse_self = self._layer_pair(desc0, desc1, 2 * ni, state, keep0, keep1,
+                                                             full0, full1, with_lse)
+            desc0, desc1, state, lse_cross = self._layer_pair(desc0, desc1, 2 * ni + 1, state, keep0, keep1,
+                                                              full0, full1, with_lse)
+            score = self.compute_score(self.compute_distance(desc0, desc1, layer_id=ni), keep0, keep1)
+            idx0, _, ms0, _ = self.compute_matches(score, p=p, valid0=keep0, valid1=keep1)
+            all_idx0.append(idx0)
+            all_ms0.append(ms0)
+            scores.append(score if with_scores else None)
+            if not do_pool:
+                continue
+            if desc0.shape[1] == desc1.shape[1]:
+                masses = self._key_masses(state["self"], state["cross"], keep0, keep1, full0, full1,
+                                          lse_self, lse_cross)
+            else:
+                (s00, s11), (s10, s01) = state["self"], state["cross"]
+                masses = self._masses_from_qk(s00, s01, s11, s10, keep0, keep1, full0, full1)
+            plan = torch.exp(score) if self.scores_are_log else score
+            keep0, keep1 = self._pool_from_plan(plan, masses, keep0, keep1, th, cfg.n_min_tokens)
+        return scores, all_idx0, all_ms0, (keep0, keep1)
 
     @torch.no_grad()
     def produce_matches(self, data, p: float = 0.2, mscore_th: float = 0.1,
                         uncertainty_ratio: float = 1.0, only_last: bool = False,
                         with_scores: bool = True):
         """Matches for a batch of pairs with EIMP pooling
-        (impx/models/adgm.py:246); inputs as DGNNS.produce_matches. Runs
-        forward_scan_eimp_compact when config.compaction is set, else
-        forward_scan_eimp. Adds 'keep0'/'keep1' [B, N] bool (the keypoints
-        that survived pooling) and, compacted, 'overflow0'/'overflow1' [B]
-        (survivors dropped because a bucket was full: re-run those pairs with
+        (impx/models/adgm.py:246); inputs as DGNNS.produce_matches. With
+        norm_fn='in', no log_ot and equal keypoint counts: forward_scan_eimp_compact
+        when config.compaction is set, else forward_scan_eimp. Otherwise the
+        masked loop `_iterate` (mask-only, whatever config.compaction says),
+        whose 'scores' is the last iteration's plan whatever only_last says.
+        Adds 'keep0'/'keep1' [B, N] bool (the keypoints that survived
+        pooling) and, compacted, 'overflow0'/'overflow1' [B] (survivors
+        dropped because a bucket was full: re-run those pairs with
         compaction=())."""
         data = self._on_device(data)
+        cfg = self.config
+        if (cfg.norm_fn != "in" or cfg.log_ot
+                or data["descriptors0"].shape[1] != data["descriptors1"].shape[1]):
+            scores, idx0, ms0, (keep0, keep1) = self._iterate(data, p, mscore_th, uncertainty_ratio,
+                                                              with_scores)
+            if only_last:
+                idx0, ms0 = idx0[-1:], ms0[-1:]
+            return {"scores": scores[-1:], "indices0": idx0, "mscores0": ms0, "keep0": keep0, "keep1": keep1}
         kw = dict(p=p, mscore_th=mscore_th, uncertainty_ratio=uncertainty_ratio,
                   only_last=only_last)
-        if self.config.compaction:
+        if cfg.compaction:
             return forward_scan_eimp_compact(self, data, **kw)
         return forward_scan_eimp(self, data, with_scores=with_scores, **kw)
+
+    def forward_train(self, data):
+        """EIMP training (impx/models/adgm.py:271) is not ported."""
+        raise NotImplementedError("AdaGMN.forward_train (EIMP training) is not ported yet: ROADMAP A7")

@@ -10,14 +10,14 @@ Left out of the copy:
   * `train_remat`: it chooses only what XLA stores for the backward (its
     values are identical under every policy, tests/test_fast_train.py:44);
     eager autograd stores every activation;
-  * the dual-softmax switch (`with_sinkhorn`), `with_geo`, `geo_*` and
-    `train_compaction`: they arrive with the slices that port those paths.
-    Until then a config that names one is refused with a TypeError, as for
-    any unknown field.
+  * `with_geo`, `geo_*` and `train_compaction`: they arrive with the
+    training slices that port those objectives. Until then a config that
+    names one is refused with a TypeError, as for any unknown field.
 
-`log_ot` (the log-domain optimal-transport head) is carried for inference:
-DGNNS runs it, and SuperGlue runs it whatever the field says. Training under
-it, and EIMP (AdaGMN) under it, raise NotImplementedError.
+`log_ot` (the log-domain optimal-transport head) and `with_sinkhorn=False`
+(the dual-softmax head) are carried for inference: DGNNS and AdaGMN run
+both, and SuperGlue runs the log-domain head whatever the field says.
+Training under either raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -35,10 +35,13 @@ class MatcherConfig:
     num_heads: int = 4
     sinkhorn_iterations: int = 20
     match_threshold: float = 0.2
+    # score head: True is the dustbin Sinkhorn; False the dual softmax
+    # (impx/ops/sinkhorn.py:dual_softmax), unless log_ot is set
+    with_sinkhorn: bool = True
     ac_fn: str = "relu"
     # 'in' (masked InstanceNorm, the published IMP/EIMP eval and training
-    # configs) or 'bn' (batch norm from running statistics: SuperGlue only,
-    # in eval mode)
+    # configs) or 'bn' (batch norm from running statistics, in eval mode:
+    # SuperGlue, and DGNNS/AdaGMN at inference)
     norm_fn: str = "bn"
     # EIMP (AdaGMN): pooling never shrinks an image below n_min_tokens kept
     # keypoints, and starts at iteration first_it_to_update

@@ -2,7 +2,11 @@
 
 The layers that share (MatcherConfig.sharing_layers(True)) are built without
 q/k weights and attend with the q/k carried from the previous layer of their
-kind. The forward is the stacked-batch one of impx/models/fast.py.
+kind. With norm_fn='in' and the same keypoint count in both images the
+forward is the stacked-batch one of impx/models/fast.py; otherwise GM's
+unrolled forward, as impx routes every config but (pallas, 'in')
+(impx/models/dgnns.py:29-35). Batch norm (norm_fn='bn') runs from running
+statistics: the model is built in eval mode, and training under it raises.
 """
 from __future__ import annotations
 
@@ -16,12 +20,9 @@ class DGNNS(GM):
     sharing = True
 
     def __init__(self, config, device=None, seed: int = 0, use_kernels: bool = True):
-        if config.norm_fn != "in":
-            # batch norm runs only from running statistics, which a model
-            # that trains may not do; SuperGlue is the eval-mode user
-            raise NotImplementedError(f"norm_fn={config.norm_fn!r}: DGNNS and AdaGMN run 'in' "
-                                      "(batch norm is ported in eval mode, for SuperGlue)")
         super().__init__(config, device, seed, use_kernels)
+        if config.norm_fn == "bn":
+            self.eval()
 
     @torch.no_grad()
     def produce_matches(self, data, p: float = 0.2, only_last: bool = False,
@@ -33,11 +34,13 @@ class DGNNS(GM):
         valid0/1 [B, N] bool; arrays or tensors. Returns lists (one entry per
         collected iteration, or the last only) under 'scores' (the fp32
         [B, N+1, M+1] plan, or None when with_scores=False), 'indices0'
-        (-1 = unmatched) and 'mscores0'. With the same keypoint count in both
-        images the stacked forward runs; otherwise GM's unrolled one, as
-        impx's default attn_impl does (its Pallas scan needs equal counts)."""
+        (-1 = unmatched) and 'mscores0'. With norm_fn='in' and the same
+        keypoint count in both images the stacked forward runs; otherwise
+        GM's unrolled one under GM's dtype contract, as impx's routing does
+        (its scan needs 'in' and equal counts)."""
         data = self._on_device(data)
-        if data["descriptors0"].shape[1] != data["descriptors1"].shape[1]:
+        if (self.config.norm_fn != "in"
+                or data["descriptors0"].shape[1] != data["descriptors1"].shape[1]):
             return GM.produce_matches(self, data, p=p, only_last=only_last, with_scores=with_scores)
         return forward_scan(self, data, p=p, only_last=only_last, with_scores=with_scores)
 
@@ -48,8 +51,15 @@ class DGNNS(GM):
         impx_torch/models/fast.py:forward_train_scan (loss, its terms,
         matches0, matching_scores0, accuracy counters). config.train_fused
         picks route B's attention core, config.train_supervision the
-        supervised iterations."""
+        supervised iterations. Batch norm in train mode is not ported."""
+        if self.config.norm_fn != "in":
+            raise NotImplementedError(f"norm_fn={self.config.norm_fn!r} training (batch norm in train "
+                                      "mode) is not ported yet: ROADMAP A7")
         return forward_train_scan(self, self._on_device(data))
+
+    def pool(self, *args, **kwargs):
+        """No pooling in IMP (impx/models/dgnns.py:48)."""
+        return None, None
 
     def run(self, data):
         """Eval API (impx/models/dgnns.py:52): desc1/desc2, x1/x2 = (x, y,

@@ -16,6 +16,11 @@ the keypoint encoding; projections, merges, bias adds and the residual add
 run in bf16; the InstanceNorm inside each layer runs in fp32 and casts back;
 the final projection, the distance and the Sinkhorn head run in fp32.
 
+Without config.with_sinkhorn the score head is the dual softmax, whose plan
+gives the matches and the pooling masses, where impx's fast path takes the
+same branch (fast.py:295-312, :659-666, :778-786): kernel 2 is then not on
+the path.
+
 Training (`forward_train_scan`, impx/models/fast.py:432) runs the same
 stacked forward under autograd with a Sinkhorn head and a GraphLoss on every
 iteration ('all') or on the last ('last'), the plan kept in bf16 inside the
@@ -24,7 +29,8 @@ custom VJP (`_make_fused_layer` :165) only to control what its rematerialised
 scan stores; the layer's tail and head backward there are plain VJPs, which
 autograd computes the same way, so the port writes only the attention core
 of route B by hand (impx_torch/ops/kernels/attention.py:MhaLseFunction).
-Training under config.log_ot raises: the log head's backward is not ported.
+Training under config.log_ot or with the dual-softmax head raises: neither
+training route is ported.
 """
 from __future__ import annotations
 
@@ -50,9 +56,16 @@ def final_matches_from_desc(model, desc, b: int, valid0, valid1, p: float, with_
     """Last-iteration matches from the final stacked descriptors: final
     projection -> distance -> (log-)Sinkhorn statistics -> mutual-NN matches
     (impx/models/fast.py:265). Under config.log_ot the statistics are of the
-    log plan, so the match scores are exp(max0) and 'scores' is the log plan."""
+    log plan, so the match scores are exp(max0) and 'scores' is the log plan.
+    Without config.with_sinkhorn the score head (the dual softmax) builds the
+    plan and the matches come from it, as impx's third branch
+    (impx/models/fast.py:309-312)."""
     cfg = model.config
     dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=-1)
+    if not cfg.with_sinkhorn:
+        score = model.compute_score(dist, valid0, valid1)
+        idx0, _, ms0, _ = model.compute_matches(score, p=p, valid0=valid0, valid1=valid1)
+        return {"scores": [score if with_scores else None], "indices0": [idx0], "mscores0": [ms0]}
     if cfg.log_ot:
         stats_fn = log_sinkhorn_fused_stats if model.use_kernels else log_sinkhorn_stats_reference
         plan_fn = log_plan_from_uv
@@ -133,6 +146,8 @@ def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
     if cfg.log_ot:
         raise NotImplementedError("log_ot training (the log-OT head's backward) is not ported; "
                                   "train with log_ot=False")
+    if not cfg.with_sinkhorn:
+        raise NotImplementedError("dual-softmax training (with_sinkhorn=False) is not ported yet: ROADMAP A6")
     gt = data["matching_mask"]
     desc, valid0, valid1, b, _ = _encode(model, data)
     mask = torch.cat([valid0, valid1], dim=0)
@@ -184,8 +199,9 @@ def _eimp_step(model, i: int, state: tuple, b: int, p: float, th: float, do_pool
     keys see the keep masks; queries, InstanceNorm and the attention-mass
     sums see full0/full1, every real keypoint of the current tensors (the
     reference keeps discarded keypoints as queries). Then the per-iteration
-    head: final_proj[i], Sinkhorn statistics and matches under the keep masks,
-    and, on pooling iterations, two key-mass launches and the pooling rule.
+    head: final_proj[i], Sinkhorn statistics (or, without
+    config.with_sinkhorn, the dual-softmax plan) and matches under the keep
+    masks, and, on pooling iterations, two key-mass launches and the pooling rule.
     On the kernel path a pooling iteration's two layers also return their
     row lse (kernel 4), over the very q, k and key masks that the masses
     use, so each mass is one pass; the plain path computes them from q, k.
@@ -203,14 +219,23 @@ def _eimp_step(model, i: int, state: tuple, b: int, p: float, th: float, do_pool
     desc = desc + delta
 
     dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=i)
-    stats_fn = sinkhorn_fused_stats if model.use_kernels else sinkhorn_stats_reference
-    stats = stats_fn(dist, model.bin_score, cfg.sinkhorn_iterations, keep0, keep1)
-    idx0, _, ms0, _ = matches_from_stats(stats["max0"], stats["idx0"], stats["idx1"], p, keep0, keep1)
-    out = (idx0, ms0, stats["u"], stats["v"], keep0, keep1)
+    if cfg.with_sinkhorn:
+        stats_fn = sinkhorn_fused_stats if model.use_kernels else sinkhorn_stats_reference
+        stats = stats_fn(dist, model.bin_score, cfg.sinkhorn_iterations, keep0, keep1)
+        idx0, _, ms0, _ = matches_from_stats(stats["max0"], stats["idx0"], stats["idx1"], p, keep0, keep1)
+        rowmass, colmass, u, v = stats["rowmass"], stats["colmass"], stats["u"], stats["v"]
+    else:
+        # the dual-softmax head: the plan itself, u and v zero
+        # (impx/models/fast.py:659-666)
+        score = model.compute_score(dist, keep0, keep1)
+        idx0, _, ms0, _ = model.compute_matches(score, p=p, valid0=keep0, valid1=keep1)
+        inner = score[:, :-1, :-1]
+        rowmass, colmass = inner.sum(dim=2), inner.sum(dim=1)
+        u = v = torch.zeros((b, keep0.shape[1] + 1), dtype=torch.float32, device=dist.device)
+    out = (idx0, ms0, u, v, keep0, keep1)
     if do_pool:
         masses = model._key_masses(qk_self, qk_cross, keep0, keep1, full0, full1, *lse_self, *lse_cross)
-        keep0, keep1 = model._pool_from_masses(stats["rowmass"], stats["colmass"], *masses,
-                                               keep0, keep1, th, cfg.n_min_tokens)
+        keep0, keep1 = model._pool_from_masses(rowmass, colmass, *masses, keep0, keep1, th, cfg.n_min_tokens)
     return (desc, qk_self, qk_cross, keep0, keep1, full0, full1), out
 
 
@@ -236,7 +261,8 @@ def forward_scan_eimp(model, data: dict[str, Any], p: float = 0.2, mscore_th: fl
     if with_scores:
         _, _, u, v, k0, k1 = outs[-1]
         dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=-1)
-        score = sinkhorn_plan_from_uv(dist, model.bin_score, u, v, k0, k1)
+        score = (sinkhorn_plan_from_uv(dist, model.bin_score, u, v, k0, k1) if cfg.with_sinkhorn
+                 else model.compute_score(dist, k0, k1))
     picked = outs[-1:] if only_last else outs
     return {"scores": [score], "indices0": [o[0] for o in picked],
             "mscores0": [o[1] for o in picked], "keep0": keep0, "keep1": keep1}

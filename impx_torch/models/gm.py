@@ -1,14 +1,16 @@
 """GM — the base graph matcher (impx/models/gm.py).
 
 Keypoint encoding, the per-iteration final projection and scaled dot-product
-distance, the score head (non-log Sinkhorn, or the log-domain optimal
-transport under config.log_ot) and mutual-NN matches; the layer-stepping
+distance, the score head (the log-domain optimal transport under
+config.log_ot, else the non-log Sinkhorn, or the dual softmax when
+config.with_sinkhorn is False) and mutual-NN matches; the layer-stepping
 API (`init_state`, `_apply_layer`, `forward_one_layer`,
 `forward_stacked_layer`) and the unrolled inference forward over it
-(`produce_matches`, `run`), which takes N0 != N1. The iterative loop
-(impx_torch/eval/iterative.py) steps the layers through it. DGNNS's stacked
-forward is impx_torch/models/fast.py; the unrolled training forward is not
-ported.
+(`produce_matches`, `run`), which takes N0 != N1; the reference's other
+entry points (`produce_matches_test`, the module's `forward(data, mode,
+training)`). The iterative loop (impx_torch/eval/iterative.py) steps the
+layers through it. DGNNS's stacked forward is impx_torch/models/fast.py; the
+unrolled training forward is not ported.
 
 GM's dtype contract (impx/ops/attention.py:114-120): the stream stays fp32;
 q, k and v are projected in fp32 and cast to the compute dtype for the
@@ -29,7 +31,7 @@ from impx_torch.models.gnn import MLP, AttentionalPropagation, Dense
 from impx_torch.models.fast import _swap_half
 from impx_torch.ops.kernels.log_sinkhorn import log_optimal_transport_fused
 from impx_torch.ops.matching import compute_matches as _compute_matches
-from impx_torch.ops.sinkhorn import sink_algorithm
+from impx_torch.ops.sinkhorn import dual_softmax, sink_algorithm
 
 
 class GM(nn.Module):
@@ -107,13 +109,17 @@ class GM(nn.Module):
         return self.config.log_ot
 
     def compute_score(self, dist, valid0=None, valid1=None):
-        """The score head with the learned dustbin (impx/models/gm.py:88). The
-        log-domain head follows impx's attn_impl='pallas' path: u and v from
-        the log-Sinkhorn kernel (its plain version when use_kernels is False),
-        then the fp32 log plan. Otherwise the non-log Sinkhorn plan."""
+        """The score head with the learned dustbin, in impx's order
+        (impx/models/gm.py:88-112): the log-domain head first, as impx's
+        attn_impl='pallas' path runs it (u and v from the log-Sinkhorn kernel,
+        its plain version when use_kernels is False, then the fp32 log plan);
+        else the non-log Sinkhorn plan, or the dual softmax when
+        config.with_sinkhorn is False."""
         if self.scores_are_log:
             return log_optimal_transport_fused(dist, self.bin_score, self.config.sinkhorn_iterations,
                                                valid0, valid1, plain=not self.use_kernels)
+        if not self.config.with_sinkhorn:
+            return dual_softmax(dist, self.bin_score, valid0, valid1)
         plan_dtype = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else None
         return sink_algorithm(dist, self.bin_score, self.config.sinkhorn_iterations,
                               valid0, valid1, plan_dtype=plan_dtype)
@@ -169,19 +175,31 @@ class GM(nn.Module):
         ones = lambda n: torch.ones((b, n), dtype=torch.bool, device=desc0.device)  # noqa: E731
         valid0 = ones(n0) if valid0 is None else valid0
         valid1 = ones(n1) if valid1 is None else valid1
+        desc0, desc1, state, _ = self._layer_pair(desc0, desc1, layer_i, state, valid0, valid1,
+                                                  valid0, valid1)
+        return desc0, desc1, state
+
+    def _layer_pair(self, desc0, desc1, layer_i: int, state, key0, key1, query0, query1,
+                    with_lse: bool = False):
+        """forward_one_layer's body with the attention keys under key0/key1
+        and the queries' InstanceNorm under query0/query1 (AdaGMN's masked
+        loop keeps them apart). Returns (desc0, desc1, state, lse): the
+        stacked [2B, H, N] row lse of the layer's kernel 4 launch when
+        with_lse on the kernel path and N0 == N1, else None."""
+        b, n0, n1 = desc0.shape[0], desc0.shape[1], desc1.shape[1]
         if n0 == n1:
-            keep = torch.cat([valid0, valid1])
-            desc, state, _ = self.forward_stacked_layer(torch.cat([desc0, desc1]), layer_i, state, keep,
-                                                        torch.cat([valid1, valid0]), keep)
-            return desc[:b], desc[b:], state
+            desc, state, lse = self.forward_stacked_layer(
+                torch.cat([desc0, desc1]), layer_i, state, torch.cat([key0, key1]), torch.cat([key1, key0]),
+                torch.cat([query0, query1]), with_lse)
+            return desc[:b], desc[b:], state, lse
         cross = layer_i % 2 == 1
         kind = "cross" if cross else "self"
         qk0, qk1 = state[kind] or (None, None)
-        d0, qk0 = self._apply_layer(layer_i, desc0, desc1 if cross else desc0, qk0,
-                                    valid1 if cross else valid0, valid0)
-        d1, qk1 = self._apply_layer(layer_i, desc1, desc0 if cross else desc1, qk1,
-                                    valid0 if cross else valid1, valid1)
-        return desc0 + d0, desc1 + d1, {**state, kind: (qk0, qk1)}
+        d0, qk0 = self._apply_layer(layer_i, desc0, desc1 if cross else desc0, qk0, key1 if cross else key0,
+                                    query0)
+        d1, qk1 = self._apply_layer(layer_i, desc1, desc0 if cross else desc1, qk1, key0 if cross else key1,
+                                    query1)
+        return desc0 + d0, desc1 + d1, {**state, kind: (qk0, qk1)}, None
 
     # ------------------------------------------------------------------ forwards
     def _encode_inputs(self, data):
@@ -218,6 +236,26 @@ class GM(nn.Module):
             out["indices0"].append(idx0)
             out["mscores0"].append(ms0)
         return out
+
+    def forward_train(self, data):
+        """The unrolled training forward (impx/models/gm.py:223) is not
+        ported: ROADMAP A8, with training (A6-A7)."""
+        raise NotImplementedError(f"{type(self).__name__}.forward_train (the unrolled GM training "
+                                  "forward) is not ported yet: ROADMAP A8")
+
+    def produce_matches_test(self, data: dict[str, Any], p: float = 0.2, only_last: bool = False, **kw):
+        """The reference's alias of produce_matches (impx/models/gm.py:285)."""
+        return self.produce_matches(data, p=p, only_last=only_last, **kw)
+
+    def forward(self, data: dict[str, Any], mode: int = 0, training: bool = False):
+        """The reference's dispatch (impx/models/gm.py:289, called as
+        model(data, mode, training)): training -> forward_train, else mode 0
+        -> produce_matches, any other mode -> run."""
+        if training:
+            return self.forward_train(data)
+        if mode == 0:
+            return self.produce_matches(data)
+        return self.run(data)
 
     def run(self, data: dict[str, Any]):
         """SGMNet-style eval API (impx/models/gm.py:298): desc1/desc2, x1/x2 =

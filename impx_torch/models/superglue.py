@@ -12,8 +12,9 @@ of every pair go through each layer in one call, stacked on the batch axis,
 as DGNNS's forward does: in eval mode batch norm is a per-channel affine map
 and attention runs pair by pair, so the stack computes impx's unrolled
 GM.forward_one_layer (impx/models/gm.py:159-183) with half the attention
-launches. The stack needs the same keypoint count in both images (pad with
-valid0/valid1).
+launches. Pairs with unequal keypoint counts go through GM's unrolled
+forward (one launch an image), as impx's SuperGlue, a GM, takes them
+(impx/models/gm.py:196-221).
 
 The dtype contract is GM's (impx/ops/attention.py:114-120), not the fast
 path's: the stream stays fp32, q/k/v are projected in fp32 and cast to the
@@ -56,9 +57,14 @@ class SuperGlue(GM):
         """Matches for a batch of pairs (impx/models/gm.py:196-221): data as
         DGNNS.produce_matches takes it. Returns lists, one entry per cross
         layer or the last only, under 'scores' (the fp32 log plan
-        [B, N+1, M+1]), 'indices0' (-1 = unmatched) and 'mscores0'."""
+        [B, N+1, M+1]), 'indices0' (-1 = unmatched) and 'mscores0'. The
+        stacked loop below needs N0 == N1; other pairs take GM's unrolled
+        forward."""
         cfg = self.config
-        desc, valid0, valid1, b, _ = _encode(self, self._on_device(data), torch.float32)
+        data = self._on_device(data)
+        if data["descriptors0"].shape[1] != data["descriptors1"].shape[1]:
+            return GM.produce_matches(self, data, p=p, only_last=only_last)
+        desc, valid0, valid1, b, _ = _encode(self, data, torch.float32)
         mask = torch.cat([valid0, valid1], dim=0)
         mask_swap = torch.cat([valid1, valid0], dim=0)
         kw = dict(ac_fn=cfg.ac_fn, use_kernels=self.use_kernels, attn_dtype=self.compute_dtype)

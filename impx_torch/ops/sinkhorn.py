@@ -6,8 +6,8 @@ scores, which makes the padded iteration identical to running on the
 unpadded keypoint sets. `sink_algorithm` is the plain oracle of the Sinkhorn
 kernel (impx_torch/ops/kernels/sinkhorn.py) and the training head, whose
 gradient is `SinkhornUV`'s; `log_optimal_transport` is the plain log-domain
-head (forward only: its training slice brings impx's restructured backward).
-Dual softmax waits for its slice.
+head (forward only: its training slice brings impx's restructured backward);
+`dual_softmax` is the head of `with_sinkhorn=False`.
 """
 from __future__ import annotations
 
@@ -50,6 +50,18 @@ def marginals(f0: torch.Tensor, f1: torch.Tensor):
     r = torch.cat([f0, f0.sum(dim=1, keepdim=True) + 1.0], dim=1)  # [B, N+1]
     c = torch.cat([f1, f1.sum(dim=1, keepdim=True) + 1.0], dim=1)  # [B, M+1]
     return r, c
+
+
+def dual_softmax(dist: torch.Tensor, dustbin: torch.Tensor, valid0=None, valid1=None) -> torch.Tensor:
+    """exp(log_softmax over rows + log_softmax over columns) of the
+    dustbin-padded, masked scores [B, N+1, M+1] (impx/ops/sinkhorn.py:182);
+    every invalid cell, pad-pad cells included, is exactly 0."""
+    b, n, m = dist.shape
+    _, _, v0p, v1p = _padded_masks(b, n, m, valid0, valid1, dist.dtype, dist.device)
+    ok = v0p[:, :, None] & v1p[:, None, :]
+    scores = torch.where(ok, _pad_with_dustbin(dist, dustbin), NEG)
+    score = torch.log_softmax(scores, dim=-1) + torch.log_softmax(scores, dim=-2)
+    return torch.where(ok, torch.exp(score), 0.0)
 
 
 def sink_algorithm(

@@ -47,7 +47,7 @@ def test_no_jax_or_impx_import_at_run_time():
             "impx_torch.data.reader, impx_torch.data.synthetic, impx_torch.geometry, "
             "impx_torch.ransac.pose_solver, impx_torch.eval.evaluator, impx_torch.eval.eval_imp, "
             "impx_torch.eval.eval_full, impx_torch.eval.pipeline, impx_torch.eval.iterative, "
-            "impx_torch.ransac.five_point; "
+            "impx_torch.ransac.five_point, impx_torch.ransac.fundamental; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'impx')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -120,12 +120,12 @@ def test_wrappers_refuse_devices_without_a_kernel():
         sinkhorn_fused_stats(torch.empty((1, 4, 4), device="meta"), 1.0, 20)
 
 
-@pytest.mark.parametrize("field,value", [("with_sinkhorn", False), ("with_geo", True),
-                                         ("train_compaction", ((2, 8),)), ("train_remat", "attn")])
+@pytest.mark.parametrize("field,value", [("with_geo", True), ("train_compaction", ((2, 8),)),
+                                         ("train_remat", "attn")])
 def test_unported_options_raise(field, value):
     """A config that names a field the port does not carry is refused, not run
-    without it (with_sinkhorn, with_geo and train_compaction change the head
-    or the objective; the fields arrive with the slices that port them)."""
+    without it (with_geo and train_compaction change the objective; the
+    fields arrive with the slices that port them)."""
     with pytest.raises(TypeError, match=field):
         dataclasses.replace(SMALL, **{field: value})
 
@@ -185,14 +185,31 @@ def test_log_ot_training_raises():
         DGNNS(dataclasses.replace(SMALL, log_ot=True), device="cpu").forward_train(data)
 
 
-@pytest.mark.parametrize("model,config", [(AdaGMN, dataclasses.replace(SMALL, log_ot=True)),
-                                          (DGNNS, SMALL_BN), (AdaGMN, SMALL_BN)],
-                         ids=["eimp-log_ot", "dgnns-bn", "eimp-bn"])
-def test_unported_model_options_raise(model, config):
-    """EIMP under log_ot, and batch norm outside SuperGlue's eval-mode use,
-    raise rather than run something else."""
-    with pytest.raises(NotImplementedError):
-        model(config, device="cpu")
+@pytest.mark.parametrize("model,config,item", [
+    (DGNNS, SMALL_BN, "A7"), (AdaGMN, SMALL_BN, "A7"), (AdaGMN, SMALL, "A7"), (SuperGlue, SMALL_BN, "A8"),
+    (DGNNS, dataclasses.replace(SMALL, with_sinkhorn=False), "A6")],
+    ids=["dgnns-bn", "eimp-bn", "eimp", "superglue", "dgnns-dual-softmax"])
+def test_unported_training_routes_raise(model, config, item):
+    """Training routes that are not ported refuse, naming their ROADMAP item,
+    rather than train something else: batch norm in train mode and EIMP's
+    trainer (A7), the unrolled GM training forward (A8), the dual-softmax head
+    (A6). The models themselves run at inference (tests/test_torch_routes.py)."""
+    data = _small_pairs(b=2)
+    data["matching_mask"] = np.zeros((2, 17, 17), np.float32)
+    m = model(config, device="cpu")
+    for call in (m.forward_train, lambda d: m(d, training=True)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            call(data)
+
+
+def test_batch_norm_models_are_built_in_eval_mode():
+    """Batch norm runs from running statistics; a model put in training mode
+    raises in its MLPs instead of normalising with batch statistics."""
+    for cls in (DGNNS, AdaGMN):
+        model = cls(SMALL_BN, device="cpu")
+        assert not model.training
+        with pytest.raises(NotImplementedError, match="training mode"):
+            model.train().produce_matches(_small_pairs())
 
 
 def test_superglue_entry_point_needs_cuda_unless_cpu_is_named(monkeypatch):
@@ -322,7 +339,7 @@ def test_eval_path_imports_and_runs_without_cv2_h5py_yaml():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("flag,item", [(["--data_parallel"], "A11"), (["--use_dual_softmax"], "A6")],
+@pytest.mark.parametrize("flag,item", [(["--data_parallel"], "A11")],
                          ids=lambda v: v if isinstance(v, str) else v[0])
 def test_unported_eval_flags_raise(flag, item):
     """Each unported flag of the eval CLI raises, naming its ROADMAP item,
@@ -334,13 +351,6 @@ def test_unported_eval_flags_raise(flag, item):
     args = eval_imp.parser.parse_args(["--device", "cpu", *flag])
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
         eval_imp.evaluate(None, None, 1.0, {}, args)
-
-
-def test_dual_softmax_model_raises():
-    from impx_torch.eval.eval_imp import build_model
-
-    with pytest.raises(NotImplementedError, match="ROADMAP A6 "):
-        build_model("IMP", "spp", use_sinkhorn=False, n_layers=2, device="cpu")
 
 
 def test_five_point_sampling_runs():
@@ -412,11 +422,16 @@ def test_uncertainty_needs_an_eimp_model():
 
 
 @pytest.mark.parametrize("backend", ["jax", "device"])
-def test_device_fundamental_backend_raises(backend):
+def test_device_fundamental_backend_needs_cuda_unless_a_device_is_named(monkeypatch, backend):
     from impx_torch.eval.evaluator import FMBenchEval
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         FMBenchEval({"f_backend": backend, "inlier_th": 1.0})
+    assert FMBenchEval({"f_backend": backend}, device="cpu").device == torch.device("cpu")
+    assert FMBenchEval({"f_backend": "cv2"}).device is None
+    with pytest.raises(ValueError, match="f_backend"):
+        FMBenchEval({"f_backend": "magsac"})
 
 
 @pytest.mark.parametrize("backend", ["device", "jax"])

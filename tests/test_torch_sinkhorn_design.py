@@ -50,6 +50,17 @@ CASES = [
     (1, 100, 100, [90], [80]),
 ]
 CASE_IDS = ["fp32-rule", "bf16-rule-1280", "heavily-masked", "fewer-rows-than-ctas"]
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The emulation runs thousands of small ops: across threads they cost
+    the same time alone and many times more beside other test processes,
+    so this module runs torch on one thread, as tests/test_torch_logot.py."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 # kernel 7 without alignment rows under the bf16 rule (N + 1 = 32): impx
 # turns an invalid column to NaN there, the port stays finite
 NO_ALIGNMENT = (1, 31, 49152, [31], [40000])
