@@ -106,9 +106,22 @@ DGNNS with batch norm at 2048 = 2048 and 2048 / 1536, (d) EIMP's masked loop
 at 2048 / 1536, (e) the masked loop under log_ot (kernel 7 every iteration,
 the keep counts after each pool, which must fall), (f) SuperGlue at 2048 /
 1536, (g) FMBenchEval's device F backend against cv2 on 16 synthetic pairs
-(precision after RANSAC, SGD, ms a pair). The line before the last lists
-the kernels as JSON (with each kernel's launches over phase 17's and phase
-18's kernel-path runs, and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
+(precision after RANSAC, SGD, ms a pair); (19) from images to matches:
+SuperPoint at fp32 (cuDNN's TF32 off) on the card against the CPU at
+[1, 120, 160] (dense maps at rtol 1e-4 / atol 1e-5, keypoints by impx's
+margin rule) and bf16 against fp32 at 480 x 640 (overlap 0.85), SuperPoint's
+ms an image at bench_suite.py's 480 x 640 (B = 4, K = 1024, bf16 and fp32)
+and 1200 x 1600 (B = 2, K = 2048, bf16), its stages, the top-k on 1.92 M
+pixels and a profile by group (convolutions, pools and NMS, sort/top-k,
+descriptor sampling, other); the ScanNet protocol end to end (4 pairs of
+480 x 640 images, bf16 SuperPoint at 1024 keypoints, IMP bf16: 30 + 1
+launches, no plain body, indices0 agreement with the plain matcher path,
+pairs_per_s, SuperPoint's share, a profile); the demo CLI on two PNGs with
+--fx (SuperPoint, SIFT at D = 128, EIMP: PNG written, launches, host
+seconds); match_from_projection_points at 4096 keypoints a side against the
+CPU (equal labels, ms). The line before the last lists
+the kernels as JSON (with each kernel's launches over phase 17's, phase
+18's and phase 19's kernel-path runs, and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
 times, both bounds, the plain and library times); the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
@@ -117,11 +130,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1004,11 +1020,12 @@ PERSISTENT_GROUPS = (KERNEL_GROUPS[1][0], KERNEL_GROUPS[4][0])   # kernels 7 and
 PERSISTENT_LAUNCHES_MAX = 3        # device launches a wrapper call of kernel 2 or 7
 
 
-def profile_calls(label: str, call, inputs) -> dict | None:
+def profile_calls(label: str, call, inputs, kernel_groups=KERNEL_GROUPS) -> dict | None:
     """torch.profiler over one call per input: the device time per call by
-    kernel group and by kernel, and the device's idle share of the window from
-    its first to its last kernel. Returns (device ms, device launches) per
-    call of each kernel group, None if the profiler recorded no device event."""
+    kernel group (the first of `kernel_groups` whose keys a kernel's name
+    holds) and by kernel, and the device's idle share of the window from its
+    first to its last kernel. Returns (device ms, device launches) per call
+    of each kernel group, None if the profiler recorded no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1040,10 +1057,10 @@ def profile_calls(label: str, call, inputs) -> dict | None:
     by_name: dict[str, list[float]] = {}
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
-    groups = {g: [0.0, 0] for g, _ in KERNEL_GROUPS}
+    groups = {g: [0.0, 0] for g, _ in kernel_groups}
     groups["other PyTorch kernels (norm, elementwise, copies)"] = [0.0, 0]
     for name, ts in by_name.items():
-        g = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
+        g = next((g for g, keys in kernel_groups if any(k in name for k in keys)),
                  "other PyTorch kernels (norm, elementwise, copies)")
         groups[g][0] += sum(ts)
         groups[g][1] += len(ts)
@@ -1051,7 +1068,7 @@ def profile_calls(label: str, call, inputs) -> dict | None:
         say(f"profile group {g}: {t / 1e3 / calls:.3f} ms/call, {n / calls:.0f} launches/call, "
             f"{t / busy:.3f} of busy")
     for g, wrapped in wrapper_calls.items():
-        if wrapped:
+        if wrapped and g in groups:
             per = groups[g][1] / wrapped
             say(f"profile {label} {g}: {groups[g][1]} device launches over {wrapped} wrapper calls = "
                 f"{per:.2f} a wrapper call")
@@ -2703,6 +2720,299 @@ def routes_path(dev, kernels, DGNNS, AdaGMN, SuperGlue, MatcherConfig, load_refe
     return total
 
 
+# ---------------------------------------------------------------- phase 19: from images to matches
+SP_CHECK_SHAPE, SP_CHECK_KPT = (1, 120, 160), 256     # SuperPoint on the card vs the CPU, fp32
+SP_BF16_SHAPE, SP_BF16_KPT = (1, 480, 640), 1024      # bf16 vs fp32 on the card
+SP_RTOL, SP_ATOL = 1e-4, 1e-5     # dense scores and descriptors (the reference's parity bound)
+SP_OVERLAP_MIN, SP_BF16_COS_MIN = 0.85, 0.995   # impx's bf16 extraction test (tests/test_superpoint.py)
+# bench_suite.py:659's configurations: height, width, images a call, keypoints, dtype
+SP_CONFIGS = ((480, 640, 4, 1024, torch.bfloat16), (480, 640, 4, 1024, torch.float32),
+              (1200, 1600, 2, 2048, torch.bfloat16))
+SCANNET_HW, SCANNET_KPT = (480, 640), 1024   # bench_suite.py:598: scannet_sp.yaml's 1000, bucketed
+PAIR_SHIFT = 8                    # image 1 of a pair: image 0's texture moved this many pixels
+DEMO_FX = 500.0
+REPROJ_N = 4096                   # keypoints a side: dump_megadepth.py's SuperPoint budget
+POOL_KEYS = ("max_pool",)
+SORT_KEYS = ("sort", "topk", "TopK", "radix", "bitonic")
+CONV_KEYS = ("fprop", "conv", "implicit", "cudnn", "nchw", "nhwc", "winograd")
+# SuperPoint alone: its 1x1 convs may run as GEMMs, counted with the convolutions
+SP_GROUPS = (("pools and NMS (max_pool2d)", POOL_KEYS), ("sort/top-k", SORT_KEYS),
+             ("convolutions (cuDNN)", CONV_KEYS + ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+             ("descriptor sampling (gathers)", ("gather",)))
+E2E_GROUPS = SP_GROUPS[:2] + (("convolutions (cuDNN)", CONV_KEYS),) + KERNEL_GROUPS + SP_GROUPS[3:]
+
+
+def textures(gen, b: int, h: int, w: int) -> torch.Tensor:
+    """b blurred noise images [b, 1, h, w] in [0, 1] (a 5x5 binomial blur:
+    blobs a few pixels across, which the detector and SIFT respond to)."""
+    x = torch.rand((b, 1, h + 4, w + 4), generator=gen)
+    k = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0]) / 16
+    x = torch.nn.functional.conv2d(x, (k[:, None] * k[None, :])[None, None])
+    return (x - x.amin()) / (x.amax() - x.amin())
+
+
+def image_pairs(gen, dev, b: int, h: int, w: int):
+    """b pairs: image 1 is image 0's texture moved PAIR_SHIFT pixels to the left."""
+    t = textures(gen, b, h, w + PAIR_SHIFT)
+    return t[..., :w].contiguous().to(dev), t[..., PAIR_SHIFT:].contiguous().to(dev)
+
+
+def check_superpoint(dev, SuperPoint, compare_extractions, ieee_fp32_convs, conv) -> list[str]:
+    """Phase 19 (a): SuperPoint on the card at fp32 (cuDNN's TF32 off) against
+    the same module on the CPU, and bf16 against fp32 on the card, by impx's
+    margin rule; the bf16 conv's one-pass bias epilogue against its two-pass
+    form. Returns the failures; prints every check first."""
+    failures = []
+    with ieee_fp32_convs():
+        inside = torch.backends.cudnn.allow_tf32
+    say(f"frontend: cudnn allow_tf32 {torch.backends.cudnn.allow_tf32}, inside SuperPoint's fp32 convs {inside}")
+    if inside:
+        failures.append("SuperPoint's fp32 convs run with cuDNN's TF32 on")
+    gen = torch.Generator().manual_seed(40)
+    cpu, card = SuperPoint(device="cpu", seed=3), SuperPoint(device=dev, seed=3)
+    img = textures(gen, *SP_CHECK_SHAPE)
+    (sc, dc), (sg, dg) = cpu.backbone(img), card.backbone(img.to(dev))
+    for name, got, want in (("dense scores", sg.cpu(), sc), ("dense descriptors", dg.cpu(), dc)):
+        err = (got - want).abs()
+        excess = float((err - SP_RTOL * want.abs()).max())
+        say(f"frontend superpoint fp32 card vs CPU {list(img.shape)} {name}: max_abs_err {float(err.max()):.3e}, "
+            f"max excess over rtol {SP_RTOL} {excess:.3e} (atol {SP_ATOL})")
+        if excess > SP_ATOL:
+            failures.append(f"SuperPoint {name} on the card differ from the CPU's")
+    margin = float((sg.cpu() - sc).abs().max())
+    cmp = compare_extractions(card(img.to(dev), max_keypoints=SP_CHECK_KPT), cpu(img, max_keypoints=SP_CHECK_KPT),
+                              margin)
+    say(f"frontend superpoint fp32 card vs CPU keypoints: {cmp['n']} valid, overlap {cmp['overlap']:.4f} "
+        f"(min {SP_OVERLAP_MIN}), unexplained {cmp['unexplained'][:8]}, min descriptor cosine "
+        f"{cmp['min_cosine']:.6f}")
+    if cmp["overlap"] < SP_OVERLAP_MIN or cmp["unexplained"]:
+        failures.append("SuperPoint's keypoints on the card break the margin rule against the CPU's")
+    x = torch.rand((2, 64, 120, 160), generator=gen).to(dev, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    params = card.params()
+    w, bias = params["conv1b.weight"], params["conv1b.bias"]
+    want = (torch.nn.functional.conv2d(x, w.to(torch.bfloat16), padding=1).float() + bias[:, None, None]).to(
+        torch.bfloat16).detach()
+    with torch.no_grad():
+        same = torch.equal(conv(params, "conv1b", x), want)
+    say(f"frontend superpoint bf16 conv epilogue (fp32 bias add, one rounding, in place) equals "
+        f"(conv.float() + bias).to(bf16): {same}")
+    if not same:
+        failures.append("SuperPoint's bf16 conv epilogue differs from its two-pass form")
+    big = textures(gen, *SP_BF16_SHAPE).to(dev)
+    s32, _ = card.backbone(big)
+    s16, _ = card.backbone(big, compute_dtype=torch.bfloat16)
+    span, margin16 = float(s32.max() - s32.min()), float((s16 - s32).abs().max())
+    cmp = compare_extractions(card(big, max_keypoints=SP_BF16_KPT),
+                              card(big, compute_dtype=torch.bfloat16, max_keypoints=SP_BF16_KPT), margin16)
+    say(f"frontend superpoint bf16 vs fp32 on the card {list(big.shape)}: dense score drift {margin16:.3e} of span "
+        f"{span:.3e}; keypoints {cmp['n']}, overlap {cmp['overlap']:.4f} (min {SP_OVERLAP_MIN}), unexplained "
+        f"{cmp['unexplained'][:8]}, min descriptor cosine {cmp['min_cosine']:.6f} (min {SP_BF16_COS_MIN})")
+    if (cmp["overlap"] < SP_OVERLAP_MIN or cmp["unexplained"] or cmp["min_cosine"] < SP_BF16_COS_MIN
+            or margin16 >= 0.15 * span):
+        failures.append("SuperPoint bf16 breaks impx's bf16 rule against fp32 on the card")
+    return failures
+
+
+def time_superpoint(dev, SuperPoint, sp_fns):
+    """Phase 19 (b): SuperPoint ms an image at bench_suite.py's configurations
+    (CUDA events, fresh images), its stages at 480 x 640 bf16 one by one, the
+    top-k alone on 1200 x 1600's 1.92 M pixels, and a profile by group."""
+    backbone, simple_nms, top_k, sample_descriptors = sp_fns
+    gen = torch.Generator().manual_seed(41)
+    model = SuperPoint(device=dev, seed=1)
+    for h, w, b, k, dtype in SP_CONFIGS:
+        images = [(textures(gen, b, h, w).to(dev),) for _ in range(3)]
+        call = lambda x, dtype=dtype, k=k: model(x, compute_dtype=dtype, max_keypoints=k)  # noqa: E731
+        ms = cuda_ms(call, images)
+        say(f"time superpoint {h}x{w} B={b} K={k} {str(dtype)[6:]}: {ms:.3f} ms a call = {ms / b:.3f} ms an image")
+        if (h, w, dtype) == (480, 640, torch.bfloat16):
+            params, x = model.params(), images[0][0]
+            scores, desc = backbone(params, x, dtype)
+            nms = simple_nms(scores, 4)
+            flat = nms.reshape(b, -1)
+            _, idx = top_k(flat, k)
+            kp = torch.stack([(idx % w).float(), (idx // w).float()], -1)
+            stages = {"backbone (convs, softmax, norm)": (lambda x: backbone(params, x, dtype), (x,)),
+                      "simple_nms": (lambda s: simple_nms(s, 4), (scores,)),
+                      "top_k": (lambda f: top_k(f, k), (flat,)),
+                      "sample_descriptors": (sample_descriptors, (kp, desc))}
+            for name, (fn, args) in stages.items():
+                say(f"time superpoint {h}x{w} bf16 stage {name}: {cuda_ms(fn, [args]):.3f} ms a call of {b}")
+            profile_calls(f"superpoint {h}x{w} B={b} bf16", call, [x for (x,) in images[:2]], SP_GROUPS)
+        if (h, w) == (1200, 1600):
+            flat = torch.rand((b, h * w), generator=gen).to(dev)
+            say(f"time superpoint top_k [{b}, {h * w}] K={k} (composite int64 key, torch.topk): "
+                f"{cuda_ms(lambda f: top_k(f, k), [(flat,)]):.3f} ms")
+    return model
+
+
+def frontend_features(model, pair, hw=SCANNET_HW, k=SCANNET_KPT):
+    """The ScanNet protocol's features of a batch of pairs: bf16 SuperPoint at
+    k keypoints on each image, keypoints normalised as the matcher takes them."""
+    from impx_torch.geometry.keypoints import normalize_keypoints
+
+    feed = {}
+    for i, img in enumerate(pair):
+        f = model(img, compute_dtype=torch.bfloat16, max_keypoints=k)
+        feed.update({f"descriptors{i}": f["descriptors"], f"norm_keypoints{i}": normalize_keypoints(f["keypoints"], *hw),
+                     f"scores{i}": f["scores"], f"valid{i}": f["valid"]})
+    return feed
+
+
+def scannet_e2e(dev, sp_model, DGNNS, MatcherConfig, load_reference_state_dict, kernels) -> dict:
+    """Phase 19 (c), bench_suite.py:598 (bench_scannet_e2e) on the card: 4
+    pairs of 480 x 640 images -> bf16 SuperPoint at 1024 keypoints -> IMP
+    bf16 produce_matches (eval_config('spp', 15)). Launches a call, no plain
+    body on the kernel path, indices0 agreement with the plain matcher path
+    on the same features, pairs/s and SuperPoint's share, a profile."""
+    cfg = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="bfloat16")
+    matcher = carried_model(DGNNS, cfg, dev, reference_layout, load_reference_state_dict)
+    gen = torch.Generator().manual_seed(42)
+    pairs = [image_pairs(gen, dev, B, *SCANNET_HW) for _ in range(3)]
+    match = lambda feed: matcher.produce_matches(feed, p=0.2, only_last=True, with_scores=False)  # noqa: E731
+    e2e = lambda pair: match(frontend_features(sp_model, pair))  # noqa: E731
+    for fn in kernels.values():
+        fn.launches = 0
+    with counting_inference_plain_bodies() as plain:
+        feed = frontend_features(sp_model, pairs[0])
+        out = match(feed)
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    n_plain = sum(n for counts in plain for n in counts.values())
+    want = {**dict.fromkeys(kernels, 0), "mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1}
+    matcher.use_kernels = False
+    ref = match(feed)
+    matcher.use_kernels = True
+    idx, ridx, valid = out["indices0"][-1], ref["indices0"][-1], feed["valid0"]
+    agree = (idx == ridx)[valid].float().mean().item()
+    say(f"frontend scannet e2e launches per call {launches}; plain bodies on the kernel path {n_plain}; valid "
+        f"keypoints {valid.sum(1).tolist()} / {feed['valid1'].sum(1).tolist()}; matches "
+        f"{(idx >= 0).sum(1).tolist()} (plain {(ridx >= 0).sum(1).tolist()}); indices0 agreement {agree:.4f} "
+        f"(min {E2E_AGREE_MIN}) over valid rows")
+    failures = []
+    if launches != want or n_plain:
+        failures.append(f"the ScanNet protocol did not run through kernels 1 and 2 alone: {launches}, {n_plain} plain")
+    if agree < E2E_AGREE_MIN or idx.shape != valid.shape or not bool(torch.isfinite(out["mscores0"][-1]).all()):
+        failures.append("the ScanNet protocol's matches disagree with the plain path or are not finite")
+    e2e_ms = cuda_ms(e2e, [(p,) for p in pairs])
+    sp_ms = cuda_ms(lambda p: frontend_features(sp_model, p), [(p,) for p in pairs])
+    say(f"time frontend scannet e2e B={B} {SCANNET_HW[0]}x{SCANNET_HW[1]} K={SCANNET_KPT}: {e2e_ms:.3f} ms = "
+        f"pairs_per_s {1e3 * B / e2e_ms:.2f}; SuperPoint on both images {sp_ms:.3f} ms, share {sp_ms / e2e_ms:.3f}")
+    profile_calls(f"scannet e2e B={B}", e2e, pairs[:2], E2E_GROUPS)
+    return {"launches": launches, "failures": failures}
+
+
+def demo_runs(dev, SuperPoint, kernels, eimp_pools: int) -> dict:
+    """Phase 19 (d): impx_torch.demo.main on two synthetic PNGs written to a
+    temporary directory, --fx set: SuperPoint (random weights saved in the
+    reference layout), SIFT (IMP at D = 128: kernel 1 at dh 32), and EIMP.
+    Each must write its PNG and launch its kernels; host seconds each."""
+    import cv2
+
+    from impx_torch import demo
+
+    total, failures = dict.fromkeys(kernels, 0), []
+    gen = torch.Generator().manual_seed(43)
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = image_pairs(gen, "cpu", 1, *SCANNET_HW)
+        paths = [f"{tmp}/image0.png", f"{tmp}/image1.png"]
+        for path, img in zip(paths, (a, b)):
+            cv2.imwrite(path, (img[0, 0].numpy() * 255).round().astype(np.uint8))
+        torch.save(SuperPoint(device="cpu", seed=2).state_dict(), f"{tmp}/superpoint_v1.pth")
+        imp = {"mha_fused": 30, "sinkhorn_fused_stats": 1}
+        eimp = {"mha_fused": 30 - 2 * eimp_pools, "mha_fused_lse": 2 * eimp_pools,
+                "attention_key_mass": 2 * eimp_pools, "sinkhorn_fused_stats": 15}
+        for label, flags, want in (("spp IMP", ["--feature", "spp"], imp), ("sift IMP", ["--feature", "sift"], imp),
+                                   ("sift EIMP", ["--feature", "sift", "--matching_method", "EIMP"], eimp)):
+            out_png = f"{tmp}/{label.replace(' ', '_')}.png"
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            out = demo.main(["--image0", paths[0], "--image1", paths[1], *flags, "--fx", str(DEMO_FX),
+                             "--sp_weights", f"{tmp}/superpoint_v1.pth", "--output", out_png, "--device", str(dev)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in kernels.items()}
+            for k, v in launches.items():
+                total[k] += v
+            size = os.path.getsize(out_png) if os.path.isfile(out_png) else 0
+            say(f"frontend demo {label}: features {out['features']}, matches {len(out['matches'])}, pose inliers "
+                f"{None if out['inliers'] is None else int(out['inliers'].sum())}, PNG {size} bytes, launches "
+                f"{launches}, host {seconds:.2f} s")
+            if not size or launches != {**dict.fromkeys(kernels, 0), **want}:
+                failures.append(f"the demo ({label}) wrote no PNG or did not launch its kernels")
+    return {"launches": total, "failures": failures}
+
+
+def planted_views(rs, n: int):
+    """Two views of n keypoints each, half of view 2 the reprojection of
+    view 1's (0.5 px noise, depths consistent for the cycle check)."""
+    K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]])
+    poses = []
+    for _ in range(2):
+        axis = rs.randn(3) * 0.1                      # a rotation of about 0.1 rad (Rodrigues' formula)
+        theta = np.linalg.norm(axis)
+        kx = np.cross(np.eye(3), axis / theta)
+        T = np.eye(4)
+        T[:3, :3] = np.eye(3) + np.sin(theta) * kx + (1 - np.cos(theta)) * kx @ kx
+        T[:3, 3] = rs.randn(3) * 0.1
+        poses.append(T)
+    pos1, pos2 = rs.rand(n, 2) * [640, 480], rs.rand(n, 2) * [640, 480]
+    depth1, depth2 = rs.uniform(2, 10, n), rs.uniform(2, 10, n)
+    m = n // 2
+    X = np.concatenate([(pos1[:m] + 0.5 - K[:2, 2]) * depth1[:m, None] / K[0, 0], depth1[:m, None],
+                        np.ones((m, 1))], axis=1)
+    X2 = (poses[1] @ np.linalg.inv(poses[0]) @ X.T).T
+    pos2[:m] = X2[:, :2] / X2[:, 2:3] * K[0, 0] + K[:2, 2] - 0.5 + rs.randn(m, 2) * 0.5
+    depth2[:m] = X2[:, 2]
+    return pos1, depth1, K, poses[0], pos2, depth2, K, poses[1]
+
+
+def check_reprojection(dev) -> list[str]:
+    """Phase 19 (e): match_from_projection_points on the card at REPROJ_N
+    keypoints a side against the CPU: equal labels, and its ms."""
+    from impx_torch.geometry.reprojection import match_from_projection_points
+
+    views = planted_views(np.random.RandomState(44), REPROJ_N)
+    on = lambda d: [torch.as_tensor(np.asarray(a, np.float32), device=d) for a in views]  # noqa: E731
+    kw = dict(inlier_th=5.0, outlier_th=15.0, cycle_check=True)   # dump_megadepth.py's thresholds
+    m_cpu, o_cpu = match_from_projection_points(*on("cpu"), **kw)
+    card = on(dev)
+    m_card, o_card = match_from_projection_points(*card, **kw)
+    equal = torch.equal(m_card.cpu(), m_cpu) and torch.equal(o_card.cpu(), o_cpu)
+    ms = cuda_ms(lambda *a: match_from_projection_points(*a, **kw), [card])
+    say(f"frontend match_from_projection_points {REPROJ_N} x {REPROJ_N} card vs CPU: labels equal {equal}, "
+        f"matches {int((m_card >= 0).sum())} (planted {REPROJ_N // 2}), {ms:.3f} ms on the card")
+    return [] if equal and int((m_card >= 0).sum()) > REPROJ_N // 4 else ["match_from_projection_points: the card's "
+                                                                         "labels differ from the CPU's"]
+
+
+def frontend_path(dev, kernels, DGNNS, MatcherConfig, load_reference_state_dict) -> dict:
+    """Phase 19: SuperPoint's checks (a) and times (b), the ScanNet protocol
+    end to end (c), the demo CLI (d), the depth reprojection labels (e); the
+    dumps write HDF5 and are held on the CPU only (f). Returns the kernel
+    launches over its kernel-path runs: (c)'s checked call and (d)'s runs."""
+    from impx_torch.models.fast import _eimp_do_pool
+    from impx_torch.models.superpoint import (
+        SuperPoint, _conv, backbone, compare_extractions, ieee_fp32_convs, sample_descriptors, simple_nms, top_k)
+
+    t_phase = time.perf_counter()
+    failures = check_superpoint(dev, SuperPoint, compare_extractions, ieee_fp32_convs, _conv)
+    sp_model = time_superpoint(dev, SuperPoint, (backbone, simple_nms, top_k, sample_descriptors))
+    e2e = scannet_e2e(dev, sp_model, DGNNS, MatcherConfig, load_reference_state_dict, kernels)
+    demo = demo_runs(dev, SuperPoint, kernels, sum(_eimp_do_pool(MatcherConfig.eval_config("sift", 15))))
+    failures += e2e["failures"] + demo["failures"] + check_reprojection(dev)
+    say(f"frontend (f): the YFCC, ScanNet and MegaDepth dumps write HDF5 (h5py here: "
+        f"{importlib.util.find_spec('h5py') is not None}); they are held against impx on the CPU "
+        f"(tests/test_torch_dump.py) and not run here")
+    total = {k: e2e["launches"][k] + demo["launches"][k] for k in kernels}
+    say(f"frontend phase {time.perf_counter() - t_phase:.1f} s; kernel launches over its kernel-path runs {total}")
+    if failures:
+        fail("; ".join(failures))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2803,9 +3113,11 @@ def main() -> int:
     iterative = iterative_path(dev, kernels, ka, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
     routes = routes_path(dev, kernels, DGNNS, AdaGMN, SuperGlue, MatcherConfig, load_reference_state_dict,
                          load_superglue_state_dict)
+    frontend = frontend_path(dev, kernels, DGNNS, MatcherConfig, load_reference_state_dict)
     for row in rows:
         row["launches_iterative"] = iterative[row["name"]]
         row["launches_routes"] = routes[row["name"]]
+        row["launches_frontend"] = frontend[row["name"]]
         if row["name"] in fp32:
             row["fp32"] = fp32[row["name"]]
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -3,20 +3,26 @@
 A port of `impx` (JAX/Pallas) that mirrors its module layout:
 
   models/   config, gnn, gm, dgnns, adgm, superglue, fast, loss (the matchers
-            as nn.Modules, their forwards and the training loss)
+            as nn.Modules, their forwards and the training loss), superpoint
+            (the detector and descriptor)
   ops/      norms, mlp, attention, sinkhorn, matching (plain tensor functions)
   ops/kernels/  the CUDA kernels' wrappers, each beside its plain version
-  geometry/ keypoints, epipolar, pose (errors, AUC), triangulation
+  geometry/ keypoints, epipolar, pose (errors, AUC), triangulation,
+            reprojection (depth reprojection, ground-truth matches), misc
   ransac/   eight_point, five_point, ransac, pose_solver (the device and cv2
             pose backends, the iterative loop's checkpoint solver),
             fundamental (the device F backend of the FM bench)
-  data/     reader (the standard HDF5 dump), synthetic (seeded two-view pairs)
+  data/     reader (the standard HDF5 dump), synthetic (seeded two-view pairs),
+            extractors (SuperPoint, SIFT, the component registry), sift_native,
+            dump/ (the YFCC, ScanNet and MegaDepth dumps, the downloader)
   eval/     evaluator (pose AUC, FM bench), eval_imp (the eval CLI),
             eval_full, pipeline, iterative (the match-pose loop with early
-            stopping)
+            stopping), reproduce (download -> dump -> eval)
   train/    step (Adam, LR schedule, NaN guard), trainer
   tools/    convert (weights from the JAX pytree, the reference state_dict or
-            a reference checkpoint file)
+            a reference checkpoint file), viz (match drawings), the *_phases
+            timing tools
+  demo.py   the two-image demo
   csrc/     the CUDA C++ sources, built at first use by ops/kernels/_build.py
 
 The package imports torch and never jax. Entry points run on the CUDA device

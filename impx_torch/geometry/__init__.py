@@ -1,4 +1,4 @@
-"""Keypoint, epipolar and pose geometry (impx/geometry)."""
+"""Keypoint, epipolar and pose geometry, depth reprojection (impx/geometry)."""
 from impx_torch.geometry.keypoints import (
     normalize_keypoints,
     normalize_size,
@@ -26,4 +26,8 @@ from impx_torch.geometry.triangulation import (
     triangulate_points,
     decompose_essential_mat,
     cheirality_mask,
+)
+from impx_torch.geometry.reprojection import (
+    reproject_points,
+    match_from_projection_points,
 )

@@ -16,6 +16,12 @@ layout, for `load_state_dict`:
   gnn.{i}.mlp.blocks.{0,1}.{weight,bias}, gnn.{i}.mlp.norms.0.*
   final_proj.{i}.{weight,bias}                       SuperGlue: final_proj.0
   bin_score
+
+SuperPoint (impx/tools/convert_torch.py:181-190): `superpoint_params_from_jax`
+takes impx's SuperPoint pytree (HWIO kernels), `load_superpoint_state_dict`
+the reference superpoint_v1.pth layout, which is the port's own
+(`conv1a.weight` OIHW, `conv1a.bias`, ... `convDb`), and
+`load_superpoint_checkpoint` reads that from a file.
 """
 from __future__ import annotations
 
@@ -139,3 +145,33 @@ def load_matcher_checkpoint(path: str, config: MatcherConfig, sharing: bool) -> 
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state = ckpt["model"] if "model" in ckpt else ckpt
     return load_reference_state_dict(state, config, sharing)
+
+
+SUPERPOINT_CONVS = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b", "conv4a", "conv4b",
+                    "convPa", "convPb", "convDa", "convDb")
+
+
+def superpoint_params_from_jax(tree: Mapping) -> dict:
+    """impx's SuperPoint pytree ({name: {'w': HWIO, 'b'}}, numpy leaves) ->
+    the port's state_dict (OIHW)."""
+    sd: dict[str, torch.Tensor] = {}
+    for name in SUPERPOINT_CONVS:
+        sd[f"{name}.weight"] = _t(tree[name]["w"]).permute(3, 2, 0, 1).contiguous()
+        sd[f"{name}.bias"] = _t(tree[name]["b"])
+    return sd
+
+
+def load_superpoint_state_dict(state: Mapping) -> dict:
+    """The reference superpoint_v1.pth layout -> the port's state_dict (the
+    same names and OIHW shapes, as float32; other entries are ignored)."""
+    missing = [f"{n}.{leaf}" for n in SUPERPOINT_CONVS for leaf in ("weight", "bias")
+               if f"{n}.{leaf}" not in state]
+    if missing:
+        raise KeyError(f"not a SuperPoint state_dict: missing {missing}")
+    return {f"{n}.{leaf}": _t(state[f"{n}.{leaf}"]) for n in SUPERPOINT_CONVS for leaf in ("weight", "bias")}
+
+
+def load_superpoint_checkpoint(path: str) -> dict:
+    """superpoint_v1.pth -> the port's state_dict, read with weights_only=True
+    as `load_matcher_checkpoint` reads a matcher's."""
+    return load_superpoint_state_dict(torch.load(path, map_location="cpu", weights_only=True))

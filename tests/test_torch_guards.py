@@ -47,7 +47,11 @@ def test_no_jax_or_impx_import_at_run_time():
             "impx_torch.data.reader, impx_torch.data.synthetic, impx_torch.geometry, "
             "impx_torch.ransac.pose_solver, impx_torch.eval.evaluator, impx_torch.eval.eval_imp, "
             "impx_torch.eval.eval_full, impx_torch.eval.pipeline, impx_torch.eval.iterative, "
-            "impx_torch.ransac.five_point, impx_torch.ransac.fundamental; "
+            "impx_torch.ransac.five_point, impx_torch.ransac.fundamental, impx_torch.models.superpoint, "
+            "impx_torch.data.extractors, impx_torch.data.sift_native, impx_torch.tools.viz, impx_torch.demo, "
+            "impx_torch.geometry.reprojection, impx_torch.geometry.misc, impx_torch.data.dump.dump, "
+            "impx_torch.data.dump.download_data, impx_torch.data.dump.dump_megadepth, impx_torch.eval.reproduce, "
+            "impx_torch.tools.superpoint_phases; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'impx')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -445,3 +449,78 @@ def test_device_pose_backend_needs_cuda_unless_a_device_is_named(monkeypatch, ba
     assert AucEval({"pose_backend": "cv2"}).device is None
     with pytest.raises(ValueError, match="pose_backend"):
         AucEval({"pose_backend": "magsac"})
+
+
+def test_frontend_imports_and_runs_without_cv2_h5py_yaml():
+    """The front end's modules (SuperPoint, the extractors, the demo, the
+    dumps, reproduce, viz) import without OpenCV, h5py and PyYAML, and
+    SuperPoint extracts."""
+    code = ("import sys\n"
+            "sys.modules['cv2'] = sys.modules['h5py'] = sys.modules['yaml'] = None\n"
+            "import numpy as np, torch\n"
+            "import impx_torch.demo, impx_torch.eval.reproduce, impx_torch.tools.viz\n"
+            "import impx_torch.data.dump, impx_torch.data.dump.dump, impx_torch.data.dump.dump_megadepth\n"
+            "import impx_torch.data.dump.download_data, impx_torch.data.sift_native\n"
+            "from impx_torch.data.extractors import ExtractSuperpoint\n"
+            "from impx_torch.models.superpoint import SuperPoint\n"
+            "out = SuperPoint(device='cpu')(np.random.RandomState(0).rand(1, 40, 48), max_keypoints=16)\n"
+            "assert out['keypoints'].shape == (1, 16, 2) and out['descriptors'].shape == (1, 16, 256)\n"
+            "ExtractSuperpoint({'num_kpt': 8}, device='cpu')\n"
+            "bad = sorted(m for m in ('cv2', 'h5py', 'yaml') if sys.modules.get(m) is not None)\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _two_images(tmp_path):
+    import cv2
+
+    rs = np.random.RandomState(0)
+    img = cv2.GaussianBlur((rs.rand(64, 96) * 255).astype(np.uint8), (0, 0), 1.5)
+    paths = [str(tmp_path / "a.png"), str(tmp_path / "b.png")]
+    cv2.imwrite(paths[0], img)
+    cv2.imwrite(paths[1], np.roll(img, 4, axis=1))
+    return paths
+
+
+@pytest.mark.parametrize("entry", ["SuperPoint", "ExtractSuperpoint", "demo"])
+def test_frontend_entry_points_need_cuda_unless_a_device_is_named(monkeypatch, tmp_path, entry):
+    from impx_torch import demo
+    from impx_torch.data.extractors import ExtractSuperpoint
+    from impx_torch.models.superpoint import SuperPoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a, b = _two_images(tmp_path)
+    calls = {
+        "SuperPoint": lambda *dev: SuperPoint(device=dev[0] if dev else None).device,
+        "ExtractSuperpoint": lambda *dev: ExtractSuperpoint({"num_kpt": 8}, *dev).device,
+        "demo": lambda *dev: demo.main(["--image0", a, "--image1", b, "--output", str(tmp_path / "m.png"),
+                                        "--num_kpt", "64", *(("--device", dev[0]) if dev else ())]),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+    out = calls[entry]("cpu")
+    if entry == "demo":
+        assert out["features"][0] > 0 and (tmp_path / "m.png").is_file()
+    else:
+        assert out == torch.device("cpu")
+    if entry == "ExtractSuperpoint":
+        assert ExtractSuperpoint({"num_kpt": 8, "device": "cpu"}).device == torch.device("cpu")
+
+
+def test_missing_superpoint_weights_raise_file_not_found(tmp_path):
+    """As impx's extractor: the weights are read on the first run, and a
+    missing file raises FileNotFoundError naming it; so does the demo's
+    --feature spp."""
+    from impx_torch import demo
+    from impx_torch.data.extractors import ExtractSuperpoint
+
+    missing = str(tmp_path / "superpoint_v1.pth")
+    ex = ExtractSuperpoint({"num_kpt": 8, "weight_path": missing}, device="cpu")
+    with pytest.raises(FileNotFoundError, match="superpoint_v1.pth"):
+        ex.run(np.zeros((32, 32), np.uint8))
+    a, b = _two_images(tmp_path)
+    with pytest.raises(FileNotFoundError, match="superpoint_v1.pth"):
+        demo.main(["--image0", a, "--image1", b, "--feature", "spp", "--sp_weights", missing, "--device", "cpu"])

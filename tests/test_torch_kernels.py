@@ -601,3 +601,56 @@ def test_forward_train_kernel_path_matches_plain_path(cuda_device, fused, comput
         if not zero.search(name):
             cos = torch.nn.functional.cosine_similarity(g.flatten(), gp[name].flatten(), dim=0).item()
             assert cos >= 0.99, (name, cos)
+
+
+@pytest.mark.cuda
+def test_superpoint_on_the_card_matches_the_cpu(cuda_device):
+    """SuperPoint at fp32 (cuDNN's TF32 off) on the card against the same
+    module on the CPU: dense scores and descriptors within rtol 1e-4 / atol
+    1e-5, keypoints by the margin rule; bf16 against fp32 on the card by the
+    same rule with an overlap of at least 0.85."""
+    from impx_torch.models.superpoint import SuperPoint, compare_extractions
+
+    cpu = SuperPoint(device="cpu", seed=3)
+    card = SuperPoint(device=cuda_device, seed=3)
+    img = np.random.RandomState(4).rand(1, 120, 160).astype(np.float32)
+    (sc, dc), (sg, dg) = cpu.backbone(img), card.backbone(img)
+    torch.testing.assert_close(sg.cpu(), sc, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dg.cpu(), dc, rtol=1e-4, atol=1e-5)
+    margin = float((sg.cpu() - sc).abs().max())
+    cmp = compare_extractions(card(img, max_keypoints=256), cpu(img, max_keypoints=256), margin)
+    assert cmp["overlap"] >= 0.85 and not cmp["unexplained"], cmp
+    s16, _ = card.backbone(img, compute_dtype=torch.bfloat16)
+    margin16 = float((s16 - sg).abs().max())
+    cmp = compare_extractions(card(img, max_keypoints=256),
+                              card(img, compute_dtype=torch.bfloat16, max_keypoints=256), margin16)
+    assert cmp["overlap"] >= 0.85 and not cmp["unexplained"] and cmp["min_cosine"] > 0.995, cmp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature,method", [("sift", "IMP"), ("spp", "EIMP")])
+def test_demo_launches_the_kernels(cuda_device, tmp_path, feature, method):
+    """The demo on the card: one produce_matches call of the 15-layer matcher
+    launches kernel 1 on every layer (IMP: 30, and kernel 2 once; EIMP: the
+    pooling iterations' layers through kernel 4, whose row lse kernel 6 takes)."""
+    import cv2
+
+    from impx_torch import demo
+    from impx_torch.models.superpoint import SuperPoint
+
+    rs = np.random.RandomState(5)
+    img = cv2.GaussianBlur((rs.rand(240, 360) * 255).astype(np.uint8), (0, 0), 2.0)
+    cv2.imwrite(str(tmp_path / "a.png"), img[:, :320])
+    cv2.imwrite(str(tmp_path / "b.png"), img[:, 12:332])
+    torch.save(SuperPoint(device="cpu").state_dict(), tmp_path / "sp.pth")
+    kernels = (mha_fused, mha_fused_lse, attention_key_mass, sinkhorn_fused_stats)
+    before = [fn.launches for fn in kernels]
+    out = demo.main(["--image0", str(tmp_path / "a.png"), "--image1", str(tmp_path / "b.png"),
+                     "--feature", feature, "--matching_method", method, "--sp_weights", str(tmp_path / "sp.pth"),
+                     "--fx", "300", "--output", str(tmp_path / "m.png")])
+    launches = [fn.launches - b for fn, b in zip(kernels, before)]
+    assert (tmp_path / "m.png").stat().st_size > 0 and len(out["matches"]) > 0
+    if method == "IMP":
+        assert launches == [30, 0, 0, 1]
+    else:
+        assert launches[0] + launches[1] == 30 and launches[1] == launches[2] > 0 and launches[3] == 15
