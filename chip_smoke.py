@@ -119,15 +119,27 @@ launches, no plain body, indices0 agreement with the plain matcher path,
 pairs_per_s, SuperPoint's share, a profile); the demo CLI on two PNGs with
 --fx (SuperPoint, SIFT at D = 128, EIMP: PNG written, launches, host
 seconds); match_from_projection_points at 4096 keypoints a side against the
-CPU (equal labels, ms). The line before the last lists
-the kernels as JSON (with each kernel's launches over phase 17's, phase
-18's and phase 19's kernel-path runs, and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
+CPU (equal labels, ms); (20) the queue loops (impx_torch/eval/iterative_{fused,
+refill,staged}.py) on one queue of 64 pairs of 2048 keypoints from
+synthesize_feed_device (matchable pairs and pairs with no true
+correspondence alternating), eval_config('spp', 15) at bf16, 16 pairs in
+flight: the lockstep loop in 4 batches (also with uncertainty pooling on
+AdaGMN), slot refill at 16 slots, staged cohorts of 16, and
+BatchedIterativeMatcher for scale, each with its pairs/s (host clock), stop
+histogram, steps, checkpoints, host reads and launches of kernels 1, 2 and
+6, and a device-only profile (busy, idle share, operations); checks (a)
+varied stops, (b) every pair completed, (c) refill and staged on the
+permuted queue give every pair the same stop, (d) each loop at fp32 on 16
+pairs on the kernel path (no plain body) against the plain path. The line
+before the last lists the kernels as JSON (with each kernel's launches over
+phase 17's, 18's, 19's and 20's kernel-path runs, and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
 times, both bounds, the plain and library times); the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import importlib.util
@@ -3013,6 +3025,268 @@ def frontend_path(dev, kernels, DGNNS, MatcherConfig, load_reference_state_dict)
     return total
 
 
+# ---------------------------------------------------------------- phase 20: the queue loops
+# impx's three on-device loops (impx_torch/eval/iterative_{fused,refill,staged}.py)
+# at bench_suite.py's iterative cells (:1103-1140): eval_config('spp', 15) bf16,
+# 2048 keypoints, 64 pairs a queue, 16 in flight, 256 minimal sets, threshold
+# 2e-3. At random weights a pair stops only if its descriptors carry the
+# match (EVAL_DESC_SCALE); half the queue has no true correspondence and runs
+# every layer.
+QUEUE_PAIRS, QUEUE_IN_FLIGHT, QUEUE_KPT = 64, 16, 2048
+QUEUE_INLIER_FRAC = 0.25
+QUEUE_THRESH, QUEUE_HYPOTHESES = 2e-3, 256
+QUEUE_PERMUTED_AGREE = 0.99       # indices0 of valid rows, a queue loop against itself on the permuted queue
+QUEUE_CHECK_PAIRS = 16            # check (d): fp32, kernel against plain path
+QUEUE_STOPS_EQUAL_MIN = 15        # of QUEUE_CHECK_PAIRS
+QUEUE_AGREE_MIN = 0.99            # indices0 on pairs with equal stops
+QUEUE_POSE_DEG = 0.5              # converged pairs with equal stops
+QUEUE_KERNELS = ("mha_fused", "sinkhorn_fused_stats", "attention_key_mass")
+
+
+def queue_feed(dev, pairs: int, seed: int) -> dict:
+    """`pairs` pairs from synthesize_feed_device, matchable ones
+    (QUEUE_INLIER_FRAC) and ones with no true correspondence alternating,
+    descriptors x EVAL_DESC_SCALE, norm_threshs QUEUE_THRESH."""
+    from impx_torch.data.synthetic_device import synthesize_feed_device
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    half = [synthesize_feed_device(gen, pairs // 2, QUEUE_KPT, D, inlier_frac=frac, device=dev)[0]
+            for frac in (QUEUE_INLIER_FRAC, 0.0)]
+    feed = {k: torch.stack([half[0][k], half[1][k]], 1).flatten(0, 1) for k in half[0]}
+    for k in ("descriptors0", "descriptors1"):
+        feed[k] = feed[k] * EVAL_DESC_SCALE
+    feed["norm_threshs"] = torch.full((pairs,), QUEUE_THRESH, device=dev)
+    return feed
+
+
+def batches_of(feed: dict, size: int) -> list[dict]:
+    return [{k: v[i:i + size] for k, v in feed.items()} for i in range(0, len(feed["norm_threshs"]), size)]
+
+
+def lockstep(loop):
+    """A lockstep loop over the queue in batches of QUEUE_IN_FLIGHT: each
+    batch's outputs concatenated, its counters summed."""
+    def run(feed):
+        outs = [loop(b) for b in batches_of(feed, QUEUE_IN_FLIGHT)]
+        out = {k: torch.cat([o[k] for o in outs]) for k in ("indices0", "R", "t", "converged", "stopped_at")}
+        for k in ("n_steps", "checkpoints", "host_reads"):
+            out[k] = sum(o[k] for o in outs) if k in outs[0] else None
+        return out
+    return run
+
+
+def queue_run(label, run, feed, kernels) -> dict:
+    """One timed run over the queue (host clock, ending in a copy of the
+    outputs to the host) with every launch count set to 0 just before and
+    read just after: pairs/s, the stop histogram, the loop's counters."""
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(feed)
+    host = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in out.items()}
+    seconds = time.perf_counter() - t0
+    host["launches"] = {k: kernels[k].launches for k in QUEUE_KERNELS}
+    host["pairs_per_s"] = len(feed["norm_threshs"]) / seconds
+    stops = host["stopped_at"].tolist()
+    host["histogram"] = dict(sorted(collections.Counter(stops).items()))
+    say(f"queue {label}: {len(stops)} pairs in {seconds:.3f} s = pairs_per_s {host['pairs_per_s']:.2f} (host clock, "
+        f"outputs copied to the host); stops {host['histogram']}; converged {int(host['converged'].sum())}; "
+        f"n_steps {host['n_steps']}, layer steps {host.get('layer_steps', host['n_steps'])}, checkpoints "
+        f"{host['checkpoints']}, host reads {host['host_reads']}, completed {host.get('completed', len(stops))}; "
+        f"launches {host['launches']}")
+    if not bool(torch.isfinite(host["R"]).all() and torch.isfinite(host["t"]).all()):
+        fail(f"queue {label}: non-finite poses")
+    return host
+
+
+def queue_profile(label, run, feed) -> dict:
+    """One run under torch.profiler with the device activity alone, read from
+    the raw trace (a queue's run holds a few hundred thousand device
+    operations; with the host's events beside them, recording and reading
+    the trace took minutes): device busy, the idle share of the window from
+    the first to the last device operation, device operations, and the
+    device ms of each kernel group. Returns the run's output."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run(feed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    results = getattr(prof.profiler, "kineto_results", None)
+    events = [] if results is None else [e for e in results.events() if e.device_type() == DeviceType.CUDA]
+    if not events:
+        say(f"profile queue {label}: the profiler recorded no device events; busy and idle not measured")
+        return out
+    other = "other PyTorch kernels (norm, elementwise, copies)"
+    groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + [other], 0)
+    spans = []
+    for e in events:
+        start, dur = e.start_ns(), e.duration_ns()
+        spans.append((start, start + dur))
+        name = e.name()
+        groups[next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), other)] += dur
+    spans.sort()
+    busy, end = 0, spans[0][0]
+    for s, e in spans:                       # union of operation intervals, ns
+        busy += max(0, e - max(s, end))
+        end = max(end, e)
+    say(f"profile queue {label}: host wall {1e3 * wall:.3f} ms, device busy {busy / 1e6:.3f} ms, idle share "
+        f"{1 - busy / (spans[-1][1] - spans[0][0]):.3f} of the window, {len(events)} device operations; by group "
+        + ", ".join(f"{g.split(' (')[0]} {t / 1e6:.3f} ms" for g, t in groups.items() if t))
+    return out
+
+
+def compare_paths(label, kernel, plain, valid0) -> list[str]:
+    """Check (d): equal stops on QUEUE_STOPS_EQUAL_MIN pairs, indices0
+    agreement on pairs with equal stops, poses of converged pairs with equal
+    stops within QUEUE_POSE_DEG."""
+    same = kernel["stopped_at"] == plain["stopped_at"]
+    agree = (kernel["indices0"] == plain["indices0"])[same[:, None] & valid0].float().mean().item()
+    both = same & kernel["converged"] & plain["converged"]
+    deg = pose_diff64(kernel["R"][both], kernel["t"][both], plain["R"][both], plain["t"][both])
+    worst = deg.max().item() if len(deg) else 0.0
+    say(f"queue (d) {label}: equal stops on {int(same.sum())} of {len(same)} pairs (min {QUEUE_STOPS_EQUAL_MIN}); "
+        f"kernel stops {kernel['stopped_at'].tolist()}, plain {plain['stopped_at'].tolist()}; indices0 agreement "
+        f"{agree:.4f} (min {QUEUE_AGREE_MIN}) on them; pose difference at most {worst:.4f} deg over {int(both.sum())} "
+        f"converged pairs (max {QUEUE_POSE_DEG})")
+    bad = []
+    if int(same.sum()) < QUEUE_STOPS_EQUAL_MIN or agree < QUEUE_AGREE_MIN or worst > QUEUE_POSE_DEG:
+        bad.append(f"(d) {label}: the kernel path disagrees with the plain path")
+    return bad
+
+
+def queue_loops_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict) -> dict:
+    """Phase 20: the lockstep loop (4 batches of 16, and with uncertainty on
+    AdaGMN), slot refill at 16 slots, staged cohorts at 16, and
+    BatchedIterativeMatcher for scale, on one 64-pair queue at bf16; checks
+    (a) varied stops, (b) every pair completed, (c) refill and staged on the
+    permuted queue (the profiled runs), (d) each loop at fp32 on the kernel
+    path against the plain path on 16 pairs. Returns the kernel launches
+    over the phase's kernel-path runs."""
+    from impx_torch.eval.evaluator import pair_generator
+    from impx_torch.eval.iterative import BatchedIterativeMatcher
+    from impx_torch.eval.iterative_fused import run_iterative_fused
+    from impx_torch.eval.iterative_refill import run_iterative_refill
+    from impx_torch.eval.iterative_staged import run_iterative_staged
+
+    t_phase = time.perf_counter()
+    kw = dict(num_hypotheses=QUEUE_HYPOTHESES)
+    cfg = MatcherConfig.eval_config("spp", 15)
+
+    def models(dtype):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        return (carried_model(DGNNS, c, dev, reference_layout, load_reference_state_dict),
+                carried_model(AdaGMN, c, dev, reference_layout, load_reference_state_dict,
+                              randomize=lambda m: m.bin_score.data.fill_(ITER_EIMP_BIN_SCORE)))
+
+    def runners(imp, eimp):
+        bim = BatchedIterativeMatcher(imp, norm_thresh=QUEUE_THRESH, num_hypotheses=QUEUE_HYPOTHESES)
+        return {
+            "fused": lockstep(lambda b: run_iterative_fused(imp, b, 1, b["norm_threshs"], **kw)),
+            "fused uncertainty": lockstep(lambda b: run_iterative_fused(eimp, b, 1, b["norm_threshs"],
+                                                                        with_uncertainty=True, **kw)),
+            "refill": lambda q: run_iterative_refill(imp, q, 1, slots=QUEUE_IN_FLIGHT, **kw),
+            "staged": lambda q: run_iterative_staged(imp, q, 1, batch=QUEUE_IN_FLIGHT, **kw),
+            "BatchedIterativeMatcher": lockstep(lambda b: bim.run_batch(
+                b, [pair_generator(dev, 1, i) for i in range(len(b["norm_threshs"]))], b["norm_threshs"])),
+        }
+
+    imp, eimp = models("bfloat16")
+    say(f"queue loops: eval_config('spp', 15) bf16, {QUEUE_PAIRS} pairs of {QUEUE_KPT} keypoints "
+        f"(synthesize_feed_device, inlier_frac {QUEUE_INLIER_FRAC} and 0 alternating, descriptors x{EVAL_DESC_SCALE}), "
+        f"{QUEUE_IN_FLIGHT} in flight, {QUEUE_HYPOTHESES} minimal sets, threshold {QUEUE_THRESH}")
+    feed = queue_feed(dev, QUEUE_PAIRS, 21)
+    total = dict.fromkeys(kernels, 0)
+    failures, runs = [], {}
+    # each loop twice, in turns (A B C D E E D C B A): the first run of the
+    # phase pays one-time costs, and the host's pace drifts between runs
+    order = list(runners(imp, eimp).items())
+    for label, run in order + order[::-1]:
+        out = queue_run(label, run, feed, kernels)
+        for k, n in out["launches"].items():
+            total[k] += n
+        if label in runs:
+            runs[label]["pairs_per_s"] = (runs[label]["pairs_per_s"], out["pairs_per_s"])
+            continue
+        runs[label] = out
+        if label == "BatchedIterativeMatcher":   # the plain Sinkhorn plan at its checkpoints
+            ok = out["launches"]["mha_fused"] > 0 and out["launches"]["sinkhorn_fused_stats"] == 0
+        else:
+            ok = (out["launches"]["mha_fused"] == 2 * out.get("layer_steps", out["n_steps"])
+                  and out["launches"]["sinkhorn_fused_stats"] == out["checkpoints"]
+                  and out["launches"]["attention_key_mass"] == (2 * out["checkpoints"] if "uncertainty" in label
+                                                                else 0))
+        if not ok:
+            failures.append(f"{label}: launches {out['launches']} do not match its layer steps and checkpoints")
+        if label in ("fused", "refill", "staged") and len(out["histogram"]) < 2:
+            failures.append(f"(a) {label}: every pair stopped at the same iteration {out['histogram']}")
+        if label in ("refill", "staged") and out["completed"] != QUEUE_PAIRS:
+            failures.append(f"(b) {label}: completed {out['completed']} of {QUEUE_PAIRS}")
+    say("queue pairs_per_s, first and second run: " + "; ".join(
+        f"{label} {a:.2f}, {b:.2f}" for label, (a, b) in ((k, v["pairs_per_s"]) for k, v in runs.items())))
+
+    # (c) the profiled runs: refill and staged on the permuted queue, the others on one batch
+    perm = torch.randperm(QUEUE_PAIRS, generator=torch.Generator().manual_seed(22)).to(dev)
+    permuted = {k: v[perm] for k, v in feed.items()}
+    permuted["pair_ids"] = perm
+    inv = torch.argsort(perm).cpu()
+    valid0 = feed["valid0"].cpu()
+    for label, run in runners(imp, eimp).items():
+        queue = permuted if label in ("refill", "staged") else batches_of(feed, QUEUE_IN_FLIGHT)[0]
+        out = queue_profile(label, run, queue)
+        if label not in ("refill", "staged"):
+            continue
+        p = {k: v.cpu()[inv] for k, v in out.items() if isinstance(v, torch.Tensor)}
+        a = runs[label]
+        same_stop = torch.equal(p["stopped_at"], a["stopped_at"]) and torch.equal(p["converged"], a["converged"])
+        agree = (p["indices0"] == a["indices0"])[valid0].float().mean().item()
+        bitwise = sum(all(torch.equal(p[k][i], a[k][i]) for k in ("indices0", "R", "t")) for i in range(QUEUE_PAIRS))
+        say(f"queue (c) {label} on the permuted queue: equal stopped_at and converged on every pair {same_stop}; "
+            f"indices0 agreement {agree:.4f} (min {QUEUE_PERMUTED_AGREE}) over valid rows; {bitwise} of {QUEUE_PAIRS} "
+            f"pairs bitwise equal (indices0, R, t)")
+        if not same_stop or agree < QUEUE_PERMUTED_AGREE:
+            failures.append(f"(c) {label}: the permuted queue changes the results")
+    del imp, eimp
+
+    # (d) fp32, each loop on the kernel path against the plain path
+    imp, eimp = models("float32")
+    small = queue_feed(dev, QUEUE_CHECK_PAIRS, 23)
+    small_valid0 = small["valid0"].cpu()
+    for label, run in runners(imp, eimp).items():
+        if label == "BatchedIterativeMatcher":
+            continue
+        for fn in kernels.values():
+            fn.launches = 0
+        with counting_inference_plain_bodies() as plain_calls:
+            kernel = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in run(small).items()}
+        launches = {k: kernels[k].launches for k in QUEUE_KERNELS}
+        bodies = sum(n for counts in plain_calls for n in counts.values())
+        for k, n in launches.items():
+            total[k] += n
+        for m in (imp, eimp):
+            m.use_kernels = False
+        for fn in kernels.values():
+            fn.launches = 0
+        plain = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in run(small).items()}
+        plain_launches = sum(kernels[k].launches for k in QUEUE_KERNELS)
+        for m in (imp, eimp):
+            m.use_kernels = True
+        say(f"queue (d) {label} float32: kernel path launches {launches}, plain bodies called on it {bodies}; "
+            f"plain path launches {plain_launches}")
+        if (bodies or plain_launches or not launches["mha_fused"] or not launches["sinkhorn_fused_stats"]
+                or ("uncertainty" in label) != bool(launches["attention_key_mass"])):
+            failures.append(f"(d) {label}: the kernel path did not run through the kernels alone")
+        failures += compare_paths(f"{label} float32", kernel, plain, small_valid0)
+    say(f"queue loops phase {time.perf_counter() - t_phase:.1f} s; kernel launches over its kernel-path runs {total}")
+    if failures:
+        fail("; ".join(failures))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3114,10 +3388,12 @@ def main() -> int:
     routes = routes_path(dev, kernels, DGNNS, AdaGMN, SuperGlue, MatcherConfig, load_reference_state_dict,
                          load_superglue_state_dict)
     frontend = frontend_path(dev, kernels, DGNNS, MatcherConfig, load_reference_state_dict)
+    queue = queue_loops_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
     for row in rows:
         row["launches_iterative"] = iterative[row["name"]]
         row["launches_routes"] = routes[row["name"]]
         row["launches_frontend"] = frontend[row["name"]]
+        row["launches_queue_loops"] = queue[row["name"]]
         if row["name"] in fp32:
             row["fp32"] = fp32[row["name"]]
     say(f"total {time.perf_counter() - t_start:.1f} s")

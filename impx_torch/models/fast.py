@@ -8,8 +8,10 @@ loop here, and each layer knows statically whether it shares attention, so
 a shared layer skips the q/k projections that the JAX scan computes and
 discards (impx/models/fast.py:141, `shared_static=True`); the numbers are the
 same. The per-layer body (`_attn_block`, `_tail`) is
-impx_torch/models/gnn.py:AttentionalPropagation. `stack_params` has no
-counterpart: eager PyTorch needs no homogeneous parameter stack.
+impx_torch/models/gnn.py:AttentionalPropagation. The forwards here need no
+homogeneous parameter stack; the slot-refill loop, whose slots sit at
+different depths, gathers its layers from `stack_params`'s
+(impx_torch/eval/iterative_refill.py).
 
 The dtype contract (compute_dtype='bfloat16'): descriptors go to bf16 after
 the keypoint encoding; projections, merges, bias adds and the residual add
@@ -98,6 +100,54 @@ def _encode(model, data: dict[str, Any], stream_dtype: torch.dtype | None = None
     enc1 = model.encode_keypoint(model._norm_kpts(data, 1), data["scores1"], valid1)
     desc = torch.cat([data["descriptors0"] + enc0, data["descriptors1"] + enc1], dim=0)
     return desc.to(stream_dtype or model.compute_dtype), valid0, valid1, b, n
+
+
+def encode_stacked(model, data: dict[str, Any]):
+    """`_encode` plus zero q/k carries (impx/models/fast.py:_eimp_encode
+    :850): (desc [2B, N, D] in the compute dtype, valid0, valid1 [B, N],
+    zero_qk = (q, k) zeros [2B, H, N, dh] in the compute dtype, B, N). A
+    shared layer never reads the zeros: the first layer of every model
+    projects its own q/k."""
+    desc, valid0, valid1, b, n = _encode(model, data)
+    h = model.config.num_heads
+    zero = torch.zeros((2 * b, h, n, model.config.descriptor_dim // h), dtype=desc.dtype, device=desc.device)
+    return desc, valid0, valid1, (zero, zero), b, n
+
+
+def stack_params(model) -> dict:
+    """The model's layer weights with a leading n_layers axis
+    (impx/models/fast.py:stack_params :61, `_full_layer` :41), built from
+    its own parameters on each call: 'self' (layers 2i) and 'cross'
+    (2i + 1), each a dict of q, k, v, merge, mlp0, mlp1 ({'w': [L, in, out],
+    'b': [L, out]} in the compute dtype) and 'shared' [L]
+    bool, a shared layer's q and k zeros; 'final_w' [L, D, D] and
+    'final_b' [L, D] in fp32, where the checkpoints score."""
+    cfg = model.config
+
+    def dense(m):
+        return {"w": m.weight.detach().to(model.compute_dtype), "b": m.bias.detach().to(model.compute_dtype)}
+
+    def full(layer):
+        if layer.shared:
+            v, merge = dense(layer.proj), dense(layer.merge)
+            q = k = {name: torch.zeros_like(x) for name, x in v.items()}
+        else:
+            q, k, v, merge = (dense(layer.attn[name]) for name in ("q", "k", "v", "merge"))
+        mlp0, mlp1 = (dense(blk) for blk in layer.mlp.blocks)
+        return {"q": q, "k": k, "v": v, "merge": merge, "mlp0": mlp0, "mlp1": mlp1}
+
+    def stack(layers):
+        return {name: {leaf: torch.stack([L[name][leaf] for L in layers]) for leaf in ("w", "b")}
+                for name in layers[0]}
+
+    kinds = {}
+    for kind, first in (("self", 0), ("cross", 1)):
+        layers = [model.gnn[2 * i + first] for i in range(cfg.n_layers)]
+        kinds[kind] = {**stack([full(layer) for layer in layers]),
+                       "shared": torch.tensor([layer.shared for layer in layers], device=model.device)}
+    return {**kinds,
+            "final_w": torch.stack([p.weight.detach().float() for p in model.final_proj]),
+            "final_b": torch.stack([p.bias.detach().float() for p in model.final_proj])}
 
 
 def forward_scan(model, data: dict[str, Any], p: float = 0.2, only_last: bool = True,

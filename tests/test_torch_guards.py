@@ -51,7 +51,8 @@ def test_no_jax_or_impx_import_at_run_time():
             "impx_torch.data.extractors, impx_torch.data.sift_native, impx_torch.tools.viz, impx_torch.demo, "
             "impx_torch.geometry.reprojection, impx_torch.geometry.misc, impx_torch.data.dump.dump, "
             "impx_torch.data.dump.download_data, impx_torch.data.dump.dump_megadepth, impx_torch.eval.reproduce, "
-            "impx_torch.tools.superpoint_phases; "
+            "impx_torch.tools.superpoint_phases, impx_torch.data.synthetic_device, impx_torch.eval.iterative_fused, "
+            "impx_torch.eval.iterative_refill, impx_torch.eval.iterative_staged; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'impx')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -524,3 +525,41 @@ def test_missing_superpoint_weights_raise_file_not_found(tmp_path):
     a, b = _two_images(tmp_path)
     with pytest.raises(FileNotFoundError, match="superpoint_v1.pth"):
         demo.main(["--image0", a, "--image1", b, "--feature", "spp", "--sp_weights", missing, "--device", "cpu"])
+
+
+def test_device_synthesis_needs_cuda_unless_cpu_is_named(monkeypatch):
+    from impx_torch.data.synthetic_device import synthesize_feed_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthesize_feed_device(torch.Generator(), 1, 8, 4)
+    feed, _, _ = synthesize_feed_device(torch.Generator(), 1, 8, 4, device="cpu")
+    assert feed["descriptors0"].device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("loop", ["fused", "refill", "staged"])
+def test_queue_loops_on_a_cpu_model_count_no_launch(loop):
+    """The loops run on their model's device, which needs CUDA unless the CPU
+    is named (test_entry_point_needs_cuda_unless_cpu_is_named); on the CPU
+    they count no kernel launch."""
+    from impx_torch.data.synthetic_device import synthesize_feed_device
+    from impx_torch.eval.iterative_fused import run_iterative_fused
+    from impx_torch.eval.iterative_refill import run_iterative_refill
+    from impx_torch.eval.iterative_staged import run_iterative_staged
+
+    config = dataclasses.replace(SMALL, n_layers=4, n_min_tokens=4)
+    model = (AdaGMN if loop == "fused" else DGNNS)(config, device="cpu")
+    feed, _, _ = synthesize_feed_device(torch.Generator().manual_seed(0), 3, 16, 32, device="cpu")
+    feed["norm_threshs"] = torch.full((3,), 2e-3)
+    kernels = (mha_fused, sinkhorn_fused_stats, attention_key_mass)
+    before = [fn.launches for fn in kernels]
+    kw = dict(valid_its=(1, 3), min_kpts=2, num_hypotheses=8)
+    if loop == "fused":
+        out = run_iterative_fused(model, feed, 0, feed["norm_threshs"], with_uncertainty=True, **kw)
+    elif loop == "refill":
+        out = run_iterative_refill(model, feed, 0, slots=2, **kw)
+    else:
+        out = run_iterative_staged(model, feed, 0, batch=2, **kw)
+    assert out["indices0"].shape == (3, 16) and out["indices0"].device == torch.device("cpu")
+    assert out["checkpoints"] > 0
+    assert [fn.launches for fn in kernels] == before
