@@ -2063,11 +2063,13 @@ def training_kernel_bounds(q, mask) -> dict:
     return out
 
 
-def training_inputs(gen, dev, dtype, b=2 * TB, h=H, n=TN, dh=D // H):
+def training_inputs(gen, dev, dtype, b=2 * TB, h=H, n=TN, dh=D // H, nk=None):
     """q, k, v, do and a key mask with up to 100 padded keys of 1024 (up to
-    a third at small sizes); the last batch's keys all masked."""
-    q, k, v, do = (torch.randn((b, h, n, dh), generator=gen).to(dev, dtype) for _ in range(4))
-    mask = torch.arange(n)[None] < padded_counts(gen, b, n, max(n - 100, 2 * n // 3))[:, None]
+    a third at small sizes); the last batch's keys all masked. nk: the key
+    count (n when None)."""
+    nk = nk or n
+    q, k, v, do = (torch.randn((b, h, x, dh), generator=gen).to(dev, dtype) for x in (n, nk, nk, n))
+    mask = torch.arange(nk)[None] < padded_counts(gen, b, nk, max(nk - 100, 2 * nk // 3))[:, None]
     mask[-1] = False
     return q, k, v, mask.to(dev), do
 
@@ -2084,8 +2086,8 @@ TRAIN_CHECK_SHAPES = ((torch.bfloat16, dict()), (torch.float32, dict()),
                       (torch.float32, dict(b=3, h=2, n=333, dh=32)), (torch.float32, dict(b=3, h=2, n=250, dh=16)))
 
 
-def check_training_kernels(dev, ka) -> dict:
-    """Kernels 4, 3 and 5 against their plain versions at TRAIN_CHECK_SHAPES:
+def check_training_kernels(dev, ka, shapes=TRAIN_CHECK_SHAPES) -> dict:
+    """Kernels 4, 3 and 5 against their plain versions at `shapes`:
     o, dq, dk and dv by the relative L2 error of each batch (the fully masked
     batch on a line of its own), the lse elementwise; the backwards twice,
     for the same bits. Prints every check before failing on any. Returns
@@ -2093,7 +2095,7 @@ def check_training_kernels(dev, ka) -> dict:
     fp32 under (name, torch.float32)."""
     gen = torch.Generator().manual_seed(10)
     errs, failures = {}, []
-    for dtype, shape in TRAIN_CHECK_SHAPES:
+    for dtype, shape in shapes:
         q, k, v, mask, do = training_inputs(gen, dev, dtype, **shape)
         o, lse = ka.mha_fused_lse(q, k, v, mask)
         g3, g3b = ka.mha_bwd(q, k, v, mask, do), ka.mha_bwd(q, k, v, mask, do)
@@ -2106,7 +2108,7 @@ def check_training_kernels(dev, ka) -> dict:
                 ("mha_bwd_from_lse", g5, g5b, ka.mha_bwd_from_lse_reference(q, k, v, mask, lse, o, do))):
             for part, a, a2, r in zip(("dq", "dk", "dv"), got, again, ref):
                 checks.append((name, part, a, r, torch.equal(a, a2), TRAIN_REL_L2[dtype]))
-        where = f"{list(q.shape)} {str(dtype)[6:]}"
+        where = f"{list(q.shape)}{'' if k.shape == q.shape else f' x {k.shape[2]} keys'} {str(dtype)[6:]}"
         for name, part, a, r, same, limit in checks:
             rel = rel_l2_per_batch(a, r)
             err = (a.float() - r.float()).abs().max().item()
@@ -2311,47 +2313,57 @@ def training_step_check(dev, models, kernels, ka) -> dict:
     want = {"A": {"mha_fused": 30, "mha_bwd": 30}, "B": {"mha_fused_lse": 30, "mha_bwd_from_lse": 30}}
     step_launches = {}
     for route, model in models.items():
-        results = {}
-        for use_kernels in (True, False):
-            model.use_kernels = use_kernels
-            model.zero_grad(set_to_none=True)
-            for fn in kernels.values():
-                fn.launches = 0
-            with counting_plain_bodies(ka) as plain_calls:
-                out = model.forward_train(batch)
-                out["loss"].backward()
-                torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in kernels.items()}
-            results[use_kernels] = (out, grads_of(model), launches, dict(plain_calls))
-        model.use_kernels = True
-        dtype = model.config.compute_dtype
-        (out, gk, launches, plain_calls), (ref, gp, plain_launches, _) = results[True], results[False]
-        expected = {k: want[route].get(k, 0) for k in kernels}
-        say(f"train route {route} {dtype}: launches per training step {launches}; plain bodies called on the "
-            f"kernel path {plain_calls}; plain path launches {sum(plain_launches.values())}")
-        if launches != expected or any(plain_calls.values()) or any(plain_launches.values()):
-            fail(f"route {route} did not run through its kernels as expected: {launches}, {plain_calls}")
-        step_launches.update({k: v for k, v in launches.items() if v})
-        lk, lp = out["loss"].item(), ref["loss"].item()
-        rel = abs(lk - lp) / abs(lp)
-        cos = {n: torch.nn.functional.cosine_similarity(gk[n].flatten(), gp[n].flatten(), dim=0).item()
-               for n in gp}
-        zero = zero_grad_leaves(model)
-        held = {n: c for n, c in cos.items() if not zero.search(n)}
-        worst = min(held, key=held.get)
-        worst_zero = min((c for n, c in cos.items() if zero.search(n)), default=float("nan"))
-        finite = all(bool(torch.isfinite(g).all()) for g in gk.values()) and bool(torch.isfinite(out["loss"]))
-        n_match = (out["matches0"] >= 0).sum(1).tolist()
-        say(f"train route {route} {dtype}: loss {lk:.6f} plain {lp:.6f} relative difference {rel:.3e} "
-            f"(max {TRAIN_LOSS_RTOL[dtype]:g}); smallest gradient cosine {held[worst]:.8f} at {worst} over "
-            f"{len(held)} leaves (min {GRAD_COS_MIN[dtype]}); over the {len(cos) - len(held)} leaves whose exact "
-            f"gradient is 0 {worst_zero:.3f} (rounding noise, not held); matches0 {n_match}; "
-            f"acc_corr {out['acc_corr'].item():.2f} of {out['total_acc_corr'].item():.2f}; finite {finite}")
-        if not finite or gk.keys() != gp.keys() or out["matches0"].shape != batch["valid0"].shape:
-            fail(f"route {route}: non-finite or misshapen training output")
-        if rel > TRAIN_LOSS_RTOL[dtype] or held[worst] < GRAD_COS_MIN[dtype]:
-            fail(f"route {route}: the kernel path's loss or gradients disagree with the plain path")
+        step_launches.update(step_check(f"route {route}", model, batch, want[route], kernels, ((ka, PLAIN_BODIES),)))
     return step_launches
+
+
+def step_check(label, model, batch, want, kernels, plain_bodies) -> dict:
+    """One forward_train + backward of `model` on the kernel path and on the
+    plain path (use_kernels=False), same batch and weights: the kernel path
+    must launch `want` and call none of `plain_bodies` ((module, names),
+    ...), the plain path launch nothing; loss and gradient cosines held to
+    the model's compute dtype's limits. Returns the kernel path's launches."""
+    results = {}
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        model.zero_grad(set_to_none=True)
+        for fn in kernels.values():
+            fn.launches = 0
+        with contextlib.ExitStack() as stack:
+            counters = [stack.enter_context(counting_plain_bodies(m, names)) for m, names in plain_bodies]
+            out = model.forward_train(batch)
+            out["loss"].backward()
+            torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        results[use_kernels] = (out, grads_of(model), launches, {k: v for c in counters for k, v in c.items()})
+    model.use_kernels = True
+    dtype = model.config.compute_dtype
+    (out, gk, launches, plain_calls), (ref, gp, plain_launches, _) = results[True], results[False]
+    expected = {k: want.get(k, 0) for k in kernels}
+    say(f"train {label} {dtype}: launches per training step {launches}; plain bodies called on the "
+        f"kernel path {plain_calls}; plain path launches {sum(plain_launches.values())}")
+    if launches != expected or any(plain_calls.values()) or any(plain_launches.values()):
+        fail(f"{label} did not run through its kernels as expected: {launches}, {plain_calls}")
+    lk, lp = out["loss"].item(), ref["loss"].item()
+    rel = abs(lk - lp) / abs(lp)
+    cos = {n: torch.nn.functional.cosine_similarity(gk[n].flatten(), gp[n].flatten(), dim=0).item()
+           for n in gp}
+    zero = zero_grad_leaves(model)
+    held = {n: c for n, c in cos.items() if not zero.search(n)}
+    worst = min(held, key=held.get)
+    worst_zero = min((c for n, c in cos.items() if zero.search(n)), default=float("nan"))
+    finite = all(bool(torch.isfinite(g).all()) for g in gk.values()) and bool(torch.isfinite(out["loss"]))
+    n_match = (out["matches0"] >= 0).sum(1).tolist()
+    say(f"train {label} {dtype}: loss {lk:.6f} plain {lp:.6f} relative difference {rel:.3e} "
+        f"(max {TRAIN_LOSS_RTOL[dtype]:g}); smallest gradient cosine {held[worst]:.8f} at {worst} over "
+        f"{len(held)} leaves (min {GRAD_COS_MIN[dtype]}); over the {len(cos) - len(held)} leaves whose exact "
+        f"gradient is 0 {worst_zero:.3f} (rounding noise, not held); matches0 {n_match}; "
+        f"acc_corr {out['acc_corr'].item():.2f} of {out['total_acc_corr'].item():.2f}; finite {finite}")
+    if not finite or gk.keys() != gp.keys() or out["matches0"].shape != batch["valid0"].shape:
+        fail(f"{label}: non-finite or misshapen training output")
+    if rel > TRAIN_LOSS_RTOL[dtype] or held[worst] < GRAD_COS_MIN[dtype]:
+        fail(f"{label}: the kernel path's loss or gradients disagree with the plain path")
+    return {k: v for k, v in launches.items() if v}
 
 
 def training_runs(dev, models, launches, TrainHyperParams, make_train_step, init_opt_state,
@@ -3287,6 +3299,213 @@ def queue_loops_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_
     return total
 
 
+# ---------------------------------------------------------------- phase 21: the training CLI
+CLI_N1 = 768                      # image 1's keypoints at N0 != N1 (GM's unrolled step, kernels 3 and 5)
+# kernels 3 and 5 (and 4) at Nq != Nk: 16 pairs x 1024 queries against 768
+# keys, and a ragged shape with a fully masked batch, each at bf16 and fp32
+NK_CHECK_SHAPES = tuple((dtype, shape) for shape in (dict(nk=CLI_N1), dict(b=3, h=2, n=333, dh=32, nk=290))
+                        for dtype in (torch.bfloat16, torch.float32))
+CLI_CONFIG = "configs/config_train_megadepth.json"
+CLI_STEPS = 6                     # steps a CLI run: one warm-up, four timed, one profiled
+ATTN_A = {"mha_fused": 30, "mha_bwd": 30}
+LOG_OT = {**ATTN_A, "log_sinkhorn_fused_stats": 15}
+CLI_RUNS = (("base", (), ATTN_A), ("premade samples", (), ATTN_A), ("gm", ("--network", "gm"), ATTN_A),
+            ("log_ot", ("--log_ot",), LOG_OT),
+            ("dual softmax", ("--with_sinkhorn", "0"), ATTN_A), ("with_geo", ("--with_geo",), ATTN_A),
+            ("train_fused", ("--train_fused",), {"mha_fused_lse": 30, "mha_bwd_from_lse": 30}))
+
+
+class PremadeSamples:
+    """The first n samples of a dataset, made before the run: the trainer's
+    data thread then only stacks them (the "premade samples" run, which
+    takes the samples' making out of the step's way)."""
+
+    def __init__(self, dataset, n: int):
+        self.samples = [dataset[i] for i in range(n)]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        return self.samples[idx]
+
+
+def cut_train_batch(data, m):
+    """A training batch with image 1 cut to its first m keypoints: image-0
+    rows matched beyond m go to the dustbin column."""
+    out = {k: (x[:, :m] if k in ("descriptors1", "norm_keypoints1", "scores1", "valid1") else x)
+           for k, x in data.items()}
+    gt = data["matching_mask"]
+    n1 = gt.shape[2] - 1
+    cut = torch.cat([gt[:, :, :m], gt[:, :, n1:]], dim=2)
+    cut[:, :-1, m] = torch.clamp(cut[:, :-1, m] + gt[:, :-1, m:n1].sum(2), max=1.0)
+    out["matching_mask"] = cut
+    return out
+
+
+def cli_step_checks(dev, DGNNS, GM, MatcherConfig, kernels, ka, log_module) -> None:
+    """Phase 21 (b): one step, kernel path against plain path, of GM's
+    unrolled training forward at the published shape (16 pairs x 1024, 15
+    layers, fp32) and at 1024 / 768, and of DGNNS under the log-OT head and
+    with the dual softmax."""
+    gen = torch.Generator().manual_seed(21)
+    batch = train_pairs(gen, dev, TB, TN)
+    base = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="float32")
+    plain = ((ka, PLAIN_BODIES), (log_module, ("log_sinkhorn_stats_reference",)))
+    cases = (("GM.forward_train", GM, base, batch, ATTN_A),
+             (f"GM.forward_train {TN} / {CLI_N1}", GM, base, cut_train_batch(batch, CLI_N1),
+              {"mha_fused": 60, "mha_bwd": 60}),
+             ("DGNNS log_ot", DGNNS, dataclasses.replace(base, log_ot=True), batch, LOG_OT),
+             ("DGNNS dual softmax", DGNNS, dataclasses.replace(base, with_sinkhorn=False), batch, ATTN_A))
+    for label, cls, cfg, data, want in cases:
+        model = cls(cfg, device=dev, seed=0)
+        step_check(label, model, data, want, kernels, plain)
+        del model
+
+
+def device_busy(prof) -> tuple[float, int] | None:
+    """(ms the device was busy, the union of its operations, and their
+    count) from a profiler run with device activity; None without
+    device events."""
+    from torch.autograd import DeviceType
+
+    results = getattr(prof.profiler, "kineto_results", None)
+    events = [] if results is None else [e for e in results.events() if e.device_type() == DeviceType.CUDA]
+    if not events:
+        return None
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in events)
+    busy, end = 0, spans[0][0]
+    for s, e in spans:
+        busy += max(0, e - max(s, end))
+        end = max(end, e)
+    return busy / 1e6, len(events)
+
+
+def training_cli_path(dev, kernels, ka) -> dict:
+    """Phase 21 (c): the training CLI in process, `main([...])`, at the
+    published config on --synthetic, CLI_STEPS steps a run (base; base with
+    its samples made before the run; gm, --log_ot, --with_sinkhorn 0,
+    --with_geo, --train_fused), then a resume from the base run's
+    checkpoint. Trainer.step_fn is timed by wrapping
+    make_train_step here (synchronised before and after); the last step of a
+    run runs under the profiler (device activity only) for the device's
+    idle share of the step. Returns the kernel launches over the runs."""
+    import shutil
+    import signal
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from impx_torch.train import train as cli
+    from impx_torch.train import trainer as trainer_module
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs_dir = os.path.join(root, "impx_torch", "_build", "train_cli_runs")
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    sigterm = signal.getsignal(signal.SIGTERM)
+    record = {"spans": [], "idle": None}
+    real_make = trainer_module.make_train_step
+    real_build = cli.build_dataset
+
+    def timed_make_train_step(model, hp):
+        step = real_make(model, hp)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            last = len(record["spans"]) == CLI_STEPS - 1
+            with profile(activities=[ProfilerActivity.CUDA]) if last else contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            record["spans"].append((t0, t1))
+            if last:
+                busy = device_busy(prof)
+                record["idle"] = None if busy is None else (1 - busy[0] / (1e3 * (t1 - t0)), busy[1], 1e3 * (t1 - t0))
+            return out
+        return timed
+
+    base = ["--config", os.path.join(root, CLI_CONFIG), "--synthetic", "--epochs", "1",
+            "--its_per_epoch", str(CLI_STEPS), "--log_intervals", "1"]
+    total = dict.fromkeys(kernels, 0)
+    failures, base_ckpt = [], None
+    t_phase = time.perf_counter()
+    trainer_module.make_train_step = timed_make_train_step
+    try:
+        for label, extra, want in CLI_RUNS + (("resume", None, ATTN_A),):
+            argv = ([*base, *extra] if extra is not None else
+                    [*base, "--epochs", "2", "--resume_path", base_ckpt])
+            argv += ["--save_path", os.path.join(runs_dir, label.replace(" ", "_"))]
+            cli.build_dataset = ((lambda args: PremadeSamples(real_build(args), CLI_STEPS * TB))
+                                 if label == "premade samples" else real_build)
+            for fn in kernels.values():
+                fn.launches = 0
+            record["spans"], record["idle"] = [], None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with counting_plain_bodies(ka) as plain_calls:
+                trainer = cli.main(argv)
+            signal.signal(signal.SIGTERM, sigterm)   # the Trainer's handler only sets a flag
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            spans = record["spans"]
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            for k, n in launches.items():
+                total[k] += n
+            per_step = {k: n / max(len(spans), 1) for k, n in launches.items() if n}
+            steps_ms = [1e3 * (b - a) for a, b in spans]
+            med = statistics.median(steps_ms[1:-1])
+            loop = TB * (len(spans) - 2) / (spans[-2][1] - spans[0][1])   # step 1 to the last timed step
+            with open(os.path.join(trainer.save_dir, "metrics.jsonl")) as f:
+                losses = [json.loads(line)["loss"] for line in f]
+            ckpt = os.path.join(trainer.save_dir, f"{trainer.args.network}.{trainer.epoch - 1:02d}")
+            idle = record["idle"]
+            say(f"train cli {label}: {len(spans)} steps, median {med:.1f} ms a step (Trainer.step_fn between two "
+                f"synchronisations, steps 1-{len(spans) - 2}; all steps ms {[round(t, 1) for t in steps_ms]}) = "
+                f"train_pairs_per_s {TB / (med / 1e3):.2f}; the loop, data waits included, {loop:.2f} pairs/s; peak device "
+                f"memory {peak:.2f} GiB; idle share of the profiled step "
+                + (f"{idle[0]:.3f} ({idle[1]} device operations in {idle[2]:.1f} ms)" if idle else "not measured")
+                + f"; kernel launches a step {per_step}; plain bodies called {dict(plain_calls)}; losses "
+                f"{[round(x, 5) for x in losses]}; epoch {trainer.epoch}, checkpoint {os.path.basename(ckpt)} "
+                f"written {os.path.isfile(ckpt)}")
+            if (len(spans) != CLI_STEPS or per_step != {k: float(n) for k, n in want.items()}
+                    or any(plain_calls.values())):
+                failures.append(f"{label}: {len(spans)} steps, launches a step {per_step}, plain bodies {plain_calls}")
+            if len(losses) != CLI_STEPS or not all(np.isfinite(losses)) or not os.path.isfile(ckpt):
+                failures.append(f"{label}: losses {losses}, checkpoint {ckpt}")
+            if extra is None and (trainer.epoch != 2 or trainer.iteration != 2 * CLI_STEPS
+                                  or os.path.isfile(ckpt[:-2] + "00")):
+                failures.append(f"resume: epoch {trainer.epoch}, iteration {trainer.iteration}: it did not start "
+                                f"at epoch 1 from the base run's checkpoint")
+            if label == "base":
+                base_ckpt = ckpt
+            trainer.writer.close()
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        trainer_module.make_train_step = real_make
+        cli.build_dataset = real_build
+        signal.signal(signal.SIGTERM, sigterm)
+        shutil.rmtree(runs_dir, ignore_errors=True)
+    say(f"train cli phase {time.perf_counter() - t_phase:.1f} s; kernel launches over its runs "
+        f"{ {k: n for k, n in total.items() if n} }")
+    if failures:
+        fail("training CLI: " + "; ".join(failures))
+    return total
+
+
+def training_cli_phase(dev, kernels, ka, DGNNS, MatcherConfig) -> dict:
+    """Phase 21: (a) kernels 3 and 5 (and 4) at Nq != Nk against their plain
+    versions, (b) the step checks, (c) the training CLI. Returns the kernel
+    launches of (c)."""
+    from impx_torch.models.gm import GM
+    from impx_torch.ops.kernels import log_sinkhorn as log_module
+
+    t_phase = time.perf_counter()
+    check_training_kernels(dev, ka, NK_CHECK_SHAPES)
+    cli_step_checks(dev, DGNNS, GM, MatcherConfig, kernels, ka, log_module)
+    say(f"train cli checks (a) and (b) {time.perf_counter() - t_phase:.1f} s")
+    return training_cli_path(dev, kernels, ka)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3389,11 +3608,13 @@ def main() -> int:
                          load_superglue_state_dict)
     frontend = frontend_path(dev, kernels, DGNNS, MatcherConfig, load_reference_state_dict)
     queue = queue_loops_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
+    training_cli = training_cli_phase(dev, kernels, ka, DGNNS, MatcherConfig)
     for row in rows:
         row["launches_iterative"] = iterative[row["name"]]
         row["launches_routes"] = routes[row["name"]]
         row["launches_frontend"] = frontend[row["name"]]
         row["launches_queue_loops"] = queue[row["name"]]
+        row["launches_training_cli"] = training_cli[row["name"]]
         if row["name"] in fp32:
             row["fp32"] = fp32[row["name"]]
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -13,12 +13,13 @@ A port of `impx` (JAX/Pallas) that mirrors its module layout:
             pose backends, the iterative loop's checkpoint solver),
             fundamental (the device F backend of the FM bench)
   data/     reader (the standard HDF5 dump), synthetic (seeded two-view pairs),
-            extractors (SuperPoint, SIFT, the component registry), sift_native,
-            dump/ (the YFCC, ScanNet and MegaDepth dumps, the downloader)
+            megadepth (the training datasets), extractors (SuperPoint, SIFT,
+            the component registry), sift_native, dump/ (the YFCC, ScanNet
+            and MegaDepth dumps, the downloader)
   eval/     evaluator (pose AUC, FM bench), eval_imp (the eval CLI),
             eval_full, pipeline, iterative (the match-pose loop with early
             stopping), reproduce (download -> dump -> eval)
-  train/    step (Adam, LR schedule, NaN guard), trainer
+  train/    step (Adam, LR schedule, NaN guard), trainer, train (the CLI)
   tools/    convert (weights from the JAX pytree, the reference state_dict or
             a reference checkpoint file), viz (match drawings), the *_phases
             timing tools

@@ -10,14 +10,13 @@ Left out of the copy:
   * `train_remat`: it chooses only what XLA stores for the backward (its
     values are identical under every policy, tests/test_fast_train.py:44);
     eager autograd stores every activation;
-  * `with_geo`, `geo_*` and `train_compaction`: they arrive with the
-    training slices that port those objectives. Until then a config that
-    names one is refused with a TypeError, as for any unknown field.
+  * `train_compaction`: it arrives with EIMP's training slice (ROADMAP A7).
+    Until then a config that names it is refused with a TypeError, as for
+    any unknown field.
 
 `log_ot` (the log-domain optimal-transport head) and `with_sinkhorn=False`
-(the dual-softmax head) are carried for inference: DGNNS and AdaGMN run
-both, and SuperGlue runs the log-domain head whatever the field says.
-Training under either raises NotImplementedError.
+(the dual-softmax head) hold at inference and in training; SuperGlue runs
+the log-domain head whatever the field says.
 """
 from __future__ import annotations
 
@@ -66,6 +65,12 @@ class MatcherConfig:
     # every iteration (the reference objective), 'last' on the last only.
     train_fused: bool = False
     train_supervision: str = "all"
+    # geometry-supervised training: with_geo adds geo_weight times the
+    # epipolar error of the assigned mass under the ground-truth pose
+    # (models/loss.py:geo_loss), the all-pairs error clamped at geo_clamp
+    with_geo: bool = False
+    geo_weight: float = 50.0
+    geo_clamp: float = 0.05
 
     def __post_init__(self):
         if self.train_supervision not in TRAIN_SUPERVISION:

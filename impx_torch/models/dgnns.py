@@ -48,14 +48,18 @@ class DGNNS(GM):
         """Training forward (impx/models/dgnns.py:37): `produce_matches`'s
         data plus matching_mask [B, N+1, M+1], on the model's device or moved
         there. Differentiable; returns the dict of
-        impx_torch/models/fast.py:forward_train_scan (loss, its terms,
-        matches0, matching_scores0, accuracy counters). config.train_fused
-        picks route B's attention core, config.train_supervision the
-        supervised iterations. Batch norm in train mode is not ported."""
-        if self.config.norm_fn != "in":
-            raise NotImplementedError(f"norm_fn={self.config.norm_fn!r} training (batch norm in train "
-                                      "mode) is not ported yet: ROADMAP A7")
-        return forward_train_scan(self, self._on_device(data))
+        impx_torch/models/fast.py:train_outputs (loss, its terms, matches0,
+        matching_scores0, accuracy counters). With norm_fn='in' and the same
+        keypoint count in both images the stacked forward
+        (fast.py:forward_train_scan); otherwise GM's unrolled one, as
+        `produce_matches` routes. config.train_fused picks route B's
+        attention core, config.train_supervision the supervised iterations.
+        Batch norm in train mode is not ported (ROADMAP A7)."""
+        data = self._on_device(data)
+        if (self.config.norm_fn != "in"
+                or data["descriptors0"].shape[1] != data["descriptors1"].shape[1]):
+            return GM.forward_train(self, data)
+        return forward_train_scan(self, data)
 
     def pool(self, *args, **kwargs):
         """No pooling in IMP (impx/models/dgnns.py:48)."""

@@ -24,15 +24,18 @@ same branch (fast.py:295-312, :659-666, :778-786): kernel 2 is then not on
 the path.
 
 Training (`forward_train_scan`, impx/models/fast.py:432) runs the same
-stacked forward under autograd with a Sinkhorn head and a GraphLoss on every
-iteration ('all') or on the last ('last'), the plan kept in bf16 inside the
-u/v loop under the bf16 stream. impx's route B wraps a whole layer in one
-custom VJP (`_make_fused_layer` :165) only to control what its rematerialised
-scan stores; the layer's tail and head backward there are plain VJPs, which
-autograd computes the same way, so the port writes only the attention core
-of route B by hand (impx_torch/ops/kernels/attention.py:MhaLseFunction).
-Training under config.log_ot or with the dual-softmax head raises: neither
-training route is ported.
+stacked forward under autograd with the model's score head and a GraphLoss
+on every iteration ('all') or on the last ('last'): the log-OT head (kernel 7
+forward, the plain fp32 head's gradient), the Sinkhorn plan (its plan kept in
+bf16 inside the u/v loop under the bf16 stream) or the dual softmax (plain
+autograd), plus the epipolar loss under config.with_geo. impx's route B
+wraps a whole layer in one custom VJP (`_make_fused_layer` :165) only to
+control what its rematerialised scan stores; the layer's tail and head
+backward there are plain VJPs, which autograd computes the same way, so the
+port writes only the attention core of route B by hand
+(impx_torch/ops/kernels/attention.py:MhaLseFunction). GM's unrolled
+training forward (impx_torch/models/gm.py:GM.forward_train) shares the
+supervised head and the outputs (`supervised_head`, `train_outputs`).
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from impx_torch.ops.kernels.log_sinkhorn import (
     log_plan_from_uv, log_sinkhorn_fused_stats, log_sinkhorn_stats_reference)
 from impx_torch.ops.kernels.sinkhorn import (
     sinkhorn_fused_stats, sinkhorn_plan_from_uv, sinkhorn_stats_reference)
-from impx_torch.models.loss import graph_loss, matching_accuracy
+from impx_torch.models.loss import geo_loss, graph_loss, matching_accuracy, maybe_epipolar_matrix
 from impx_torch.ops.matching import matches_from_stats
 
 
@@ -185,32 +188,57 @@ def forward_scan(model, data: dict[str, Any], p: float = 0.2, only_last: bool = 
     return {"scores": out_scores, "indices0": out_idx0, "mscores0": out_ms0}
 
 
+def supervised_head(model, desc0, desc1, layer_id: int, gt, epi, valid0, valid1):
+    """One supervised iteration (impx/models/fast.py:head_part :488,
+    impx/models/gm.py:255-264): final projection layer_id, distance, the
+    model's score head, then graph_loss of the plan (a log plan under the
+    log-OT head) and, when epi is given, the geo_loss of its probabilities
+    under 'geo'. Returns (terms, score)."""
+    dist = model.compute_distance(desc0.float(), desc1.float(), layer_id=layer_id)
+    score = model.compute_score(dist, valid0, valid1)
+    terms = graph_loss(score, gt, scores_are_log=model.scores_are_log)
+    if epi is not None:
+        terms["geo"] = geo_loss(torch.exp(score) if model.scores_are_log else score, epi, valid0, valid1)
+    return terms, score
+
+
+def train_outputs(model, terms: dict, score, gt, valid0, valid1) -> dict:
+    """The dict of impx's forward_train from the supervised terms (meaned over
+    the supervised iterations) and the last plan: loss = corr + incorr + neg
+    (+ geo_weight * geo under with_geo), its terms, geo_loss (0 without
+    with_geo), matching_scores0 and matches0 of the last plan, and the
+    accuracy counters."""
+    cfg = model.config
+    matching = terms["corr"] + terms["incorr"] + terms["neg"]
+    loss = matching + cfg.geo_weight * terms["geo"] if "geo" in terms else matching
+    with torch.no_grad():
+        idx0, _, ms0, _ = model.compute_matches(score, p=cfg.match_threshold, valid0=valid0, valid1=valid1)
+        acc = matching_accuracy(idx0, gt)
+    geo = terms.get("geo", torch.zeros((), dtype=torch.float32, device=matching.device))
+    return {"loss": loss, "matching_loss": matching, "matching_loss_corr": terms["corr"],
+            "matching_loss_incorr": terms["incorr"], "matching_loss_neg": terms["neg"],
+            "geo_loss": geo, "matching_scores0": ms0, "matches0": idx0, **acc}
+
+
 def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
     """DGNNS training forward on tensors already on the model's device
     (impx/models/fast.py:432): data as `forward_scan`'s plus matching_mask
-    [B, N+1, M+1]. Returns the dict of impx's forward_train: loss (the mean
-    over supervised iterations of the corr + incorr + neg terms), its terms,
-    geo_loss (0), matching_scores0 and matches0 of the last plan, and the
-    accuracy counters."""
+    [B, N+1, M+1] (and, for with_geo, keypoints0/1, intrinsics0/1 and gt_E).
+    Returns the dict of `train_outputs`."""
     cfg = model.config
-    if cfg.log_ot:
-        raise NotImplementedError("log_ot training (the log-OT head's backward) is not ported; "
-                                  "train with log_ot=False")
-    if not cfg.with_sinkhorn:
-        raise NotImplementedError("dual-softmax training (with_sinkhorn=False) is not ported yet: ROADMAP A6")
     gt = data["matching_mask"]
+    epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
     desc, valid0, valid1, b, _ = _encode(model, data)
     mask = torch.cat([valid0, valid1], dim=0)
     mask_swap = torch.cat([valid1, valid0], dim=0)
     kw = dict(ac_fn=cfg.ac_fn, use_kernels=model.use_kernels, lse_core=cfg.train_fused)
 
-    def head(desc, layer_id):
-        dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=layer_id)
-        score = model.compute_score(dist, valid0, valid1)
-        return graph_loss(score, gt), score
+    def head(desc, layer_id, terms):
+        t, score = supervised_head(model, desc[:b], desc[b:], layer_id, gt, epi, valid0, valid1)
+        return {k: terms[k] + t[k] for k in terms}, score
 
     zero = torch.zeros((), dtype=torch.float32, device=desc.device)
-    terms = {"corr": zero, "incorr": zero, "neg": zero}
+    terms = dict.fromkeys(("corr", "incorr", "neg") + (("geo",) if epi is not None else ()), zero)
     sup_all = cfg.train_supervision == "all"
     qk_self = qk_cross = score = None
     for i in range(cfg.n_layers):
@@ -219,19 +247,12 @@ def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
         delta, qk_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, mask_swap, mask, **kw)
         desc = desc + delta
         if sup_all:
-            t, score = head(desc, i)
-            terms = {k: terms[k] + t[k] for k in terms}
+            terms, score = head(desc, i, terms)
     if sup_all:
         terms = {k: x / cfg.n_layers for k, x in terms.items()}
     else:
-        terms, score = head(desc, -1)
-    loss = terms["corr"] + terms["incorr"] + terms["neg"]
-    with torch.no_grad():
-        idx0, _, ms0, _ = model.compute_matches(score, p=cfg.match_threshold, valid0=valid0, valid1=valid1)
-        acc = matching_accuracy(idx0, gt)
-    return {"loss": loss, "matching_loss": loss, "matching_loss_corr": terms["corr"],
-            "matching_loss_incorr": terms["incorr"], "matching_loss_neg": terms["neg"],
-            "geo_loss": zero, "matching_scores0": ms0, "matches0": idx0, **acc}
+        terms, score = head(desc, -1, terms)
+    return train_outputs(model, terms, score, gt, valid0, valid1)
 
 
 # --------------------------------------------------------------------- EIMP

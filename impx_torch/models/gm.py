@@ -9,8 +9,9 @@ API (`init_state`, `_apply_layer`, `forward_one_layer`,
 (`produce_matches`, `run`), which takes N0 != N1; the reference's other
 entry points (`produce_matches_test`, the module's `forward(data, mode,
 training)`). The iterative loop (impx_torch/eval/iterative.py) steps the
-layers through it. DGNNS's stacked forward is impx_torch/models/fast.py; the
-unrolled training forward is not ported.
+layers through it. The unrolled training forward (`forward_train`) runs the
+same layers under autograd with a supervised head after every cross layer.
+DGNNS's stacked forwards are impx_torch/models/fast.py.
 
 GM's dtype contract (impx/ops/attention.py:114-120): the stream stays fp32;
 q, k and v are projected in fp32 and cast to the compute dtype for the
@@ -28,7 +29,8 @@ from impx_torch.device import resolve_device
 from impx_torch.geometry.keypoints import normalize_keypoints
 from impx_torch.models.config import MatcherConfig
 from impx_torch.models.gnn import MLP, AttentionalPropagation, Dense
-from impx_torch.models.fast import _swap_half
+from impx_torch.models.fast import _swap_half, supervised_head, train_outputs
+from impx_torch.models.loss import maybe_epipolar_matrix
 from impx_torch.ops.kernels.log_sinkhorn import log_optimal_transport_fused
 from impx_torch.ops.matching import compute_matches as _compute_matches
 from impx_torch.ops.sinkhorn import dual_softmax, sink_algorithm
@@ -147,8 +149,11 @@ class GM(nn.Module):
         under GM's dtype contract; returns (delta, (q, k)), and with_lse (the
         kernel path only) the row lse [B, H, N] fp32 of kernel 4 third."""
         attn_dtype = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else None
+        # under autograd config.train_fused picks route B's attention core
+        # (kernels 4 and 5), as on the stacked training forward
         return self.gnn[layer_i](x, source, qk, key_mask, query_mask, ac_fn=self.config.ac_fn,
                                  use_kernels=self.use_kernels, attn_dtype=attn_dtype,
+                                 lse_core=self.config.train_fused and torch.is_grad_enabled(),
                                  with_lse=with_lse and self.use_kernels)
 
     def forward_stacked_layer(self, desc, layer_i: int, state, keep, keep_swap, query_mask,
@@ -238,10 +243,37 @@ class GM(nn.Module):
         return out
 
     def forward_train(self, data):
-        """The unrolled training forward (impx/models/gm.py:223) is not
-        ported: ROADMAP A8, with training (A6-A7)."""
-        raise NotImplementedError(f"{type(self).__name__}.forward_train (the unrolled GM training "
-                                  "forward) is not ported yet: ROADMAP A8")
+        """The unrolled training forward (impx/models/gm.py:223): every layer
+        through `forward_one_layer` (stacked, one attention launch a layer,
+        when N0 == N1; else one an image, Nq != Nk on the cross layers), and
+        after each cross layer i the supervised head of final projection
+        i // 2 (`supervised_head`: score head, graph_loss, geo_loss under
+        with_geo); the terms are meaned over the iterations. data as
+        `produce_matches`'s plus matching_mask [B, N0+1, N1+1] (and
+        keypoints0/1, intrinsics0/1, gt_E for with_geo), moved to the model's
+        device. Returns the dict of fast.py:train_outputs. Supervises every
+        iteration: train_supervision='last' raises ValueError, as in impx.
+        Batch norm in train mode (norm_fn='bn', SuperGlue) raises."""
+        cfg = self.config
+        if cfg.train_supervision != "all":
+            raise ValueError(f"train_supervision={cfg.train_supervision!r} needs the stacked training forward "
+                             "(DGNNS with norm_fn='in' and the same keypoint count in both images)")
+        if cfg.norm_fn != "in":
+            raise NotImplementedError(f"{type(self).__name__} training with norm_fn={cfg.norm_fn!r} (batch norm "
+                                      "in train mode) is not ported yet: ROADMAP A7")
+        data = self._on_device(data)
+        desc0, desc1, valid0, valid1 = self._encode_inputs(data)
+        gt = data["matching_mask"]
+        epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
+        state = self.init_state()
+        terms, score = None, None
+        for i in range(len(self.gnn)):
+            desc0, desc1, state = self.forward_one_layer(desc0, desc1, i, state, valid0, valid1)
+            if i % 2 == 1:
+                t, score = supervised_head(self, desc0, desc1, i // 2, gt, epi, valid0, valid1)
+                terms = t if terms is None else {k: terms[k] + t[k] for k in terms}
+        terms = {k: x / cfg.n_layers for k, x in terms.items()}
+        return train_outputs(self, terms, score, gt, valid0, valid1)
 
     def produce_matches_test(self, data: dict[str, Any], p: float = 0.2, only_last: bool = False, **kw):
         """The reference's alias of produce_matches (impx/models/gm.py:285)."""

@@ -1,22 +1,31 @@
 """Matching losses on the dustbin-augmented assignment matrix
 (impx/models/loss.py): the NLL of the ground-truth correspondences and of
 the dustbin row and column for unmatched keypoints, the optional
-hard-negative margin loss, and the match counters. Masked sums over fixed
-shapes, as in impx. The log-domain scores (`scores_are_log`) and the
-geometric loss wait for the slices that port the log-OT head and `with_geo`.
+hard-negative margin loss, the geometric (epipolar) loss of `with_geo`, and
+the match counters. Masked sums over fixed shapes, as in impx.
 """
 from __future__ import annotations
 
 import torch
 
+from impx_torch.geometry.epipolar import normalize_by_intrinsics, pairwise_epipolar_distance
+
 LOG_EPS = 1e-8  # impx/models/loss.py:12
 
 
 def graph_loss(pred_scores: torch.Tensor, gt_matching_mask: torch.Tensor,
-               with_hard_negative: bool = False, neg_margin: float = 0.1) -> dict:
-    """dict(corr=, incorr=, neg=) of scalar losses (impx/models/loss.py:15,
-    scores_are_log=False): pred_scores and gt_matching_mask [B, N+1, M+1]."""
-    log_p = torch.log(torch.abs(pred_scores) + LOG_EPS)
+               with_hard_negative: bool = False, neg_margin: float = 0.1,
+               scores_are_log: bool = False) -> dict:
+    """dict(corr=, incorr=, neg=) of scalar losses (impx/models/loss.py:15):
+    pred_scores and gt_matching_mask [B, N+1, M+1]. scores_are_log: the
+    scores are a log plan (the log-domain head), used as log p directly and
+    exponentiated only for the hard-negative term."""
+    if scores_are_log:
+        log_p = pred_scores
+        if with_hard_negative:
+            pred_scores = torch.exp(pred_scores)
+    else:
+        log_p = torch.log(torch.abs(pred_scores) + LOG_EPS)
     gt = gt_matching_mask.to(pred_scores.dtype)
 
     num_corr = gt[:, :-1, :-1].sum(dim=(1, 2))
@@ -50,6 +59,37 @@ def hard_negative_loss(pred_scores: torch.Tensor, gt: torch.Tensor, neg_margin: 
     loss_neg_row = -torch.clamp_max(pos_row - neg_row - neg_margin, 0.0).mean()
     loss_neg_col = -torch.clamp_max(pos_col - neg_col - neg_margin, 0.0).mean()
     return (loss_neg_row + loss_neg_col) / 2.0
+
+
+def epipolar_loss(pred_scores: torch.Tensor, epipolar_error: torch.Tensor) -> torch.Tensor:
+    """Score-weighted epipolar error, a mean over every cell
+    (impx/models/loss.py:70)."""
+    return torch.mean(pred_scores * epipolar_error)
+
+
+def geo_loss(pred_scores: torch.Tensor, epi: torch.Tensor, valid0=None, valid1=None) -> torch.Tensor:
+    """The pose-consistency loss of `with_geo` (impx/models/loss.py:75): the
+    epipolar error of the assigned probability mass, sum(p * epi) / sum(p)
+    over the valid cells off the dustbin, a mean over the batch.
+    pred_scores [B, N+1, M+1] (a plan, not a log plan); epi [B, N, M],
+    clamped by the caller; valid0/valid1 [B, N] / [B, M] bool."""
+    p = pred_scores[:, :-1, :-1]
+    if valid0 is not None:
+        p = p * (valid0[:, :, None] & valid1[:, None, :]).to(p.dtype)
+    mass = p.sum(dim=(1, 2))
+    return torch.mean((p * epi).sum(dim=(1, 2)) / torch.clamp_min(mass, 1e-6))
+
+
+def maybe_epipolar_matrix(data: dict, clamp: float):
+    """The clamped all-pairs epipolar error [B, N, M] of a training batch
+    (impx/models/loss.py:101), or None when the batch lacks pixel keypoints,
+    intrinsics or gt_E (the MegaDepth layout has them)."""
+    needed = ("keypoints0", "keypoints1", "intrinsics0", "intrinsics1", "gt_E")
+    if not all(k in data for k in needed):
+        return None
+    x0n = normalize_by_intrinsics(data["keypoints0"], data["intrinsics0"])
+    x1n = normalize_by_intrinsics(data["keypoints1"], data["intrinsics1"])
+    return torch.clamp_max(pairwise_epipolar_distance(x0n, x1n, data["gt_E"]), clamp)
 
 
 def matching_accuracy(indices0: torch.Tensor, gt_matching_mask: torch.Tensor, n_iters: int = 1) -> dict:

@@ -50,7 +50,7 @@ import torch
 from impx_torch.ops.kernels import _build
 from impx_torch.ops.kernels.sinkhorn import (
     _flags, barrier_words, kernel_mask, plan_dtype, query_schedule)
-from impx_torch.ops.sinkhorn import NEG, log_marginals, masked_scores
+from impx_torch.ops.sinkhorn import NEG, log_marginals, log_optimal_transport, masked_scores
 
 
 def log_sinkhorn_stats_reference(dist, dustbin, iterations: int, valid0=None, valid1=None):
@@ -92,14 +92,16 @@ def log_sinkhorn_fused_stats(dist, dustbin, iterations: int, valid0=None, valid1
     norm, see `log_plan_from_uv`), max0/idx0 [B, N] (row max and argmax of
     the log plan's interior) and idx1 [B, M]. CPU tensors run
     `log_sinkhorn_stats_reference`; CUDA tensors launch the kernel or raise.
-    The kernel has no backward: under autograd a CUDA call raises."""
+    The statistics have no gradient: under autograd a CUDA call raises (the
+    differentiable head is `log_optimal_transport_fused`)."""
     if dist.device.type == "cpu":
         return log_sinkhorn_stats_reference(dist, dustbin, iterations, valid0, valid1)
     if dist.device.type != "cuda":
         raise ValueError(f"no log-Sinkhorn kernel for device {dist.device}")
     if torch.is_grad_enabled() and (dist.requires_grad or getattr(dustbin, "requires_grad", False)):
-        raise NotImplementedError("the log-Sinkhorn kernel has no backward yet (log-OT training "
-                                  "is not ported); call it under torch.no_grad()")
+        raise NotImplementedError("the log-Sinkhorn kernel's statistics have no gradient; train "
+                                  "through log_optimal_transport_fused, whose backward recomputes the "
+                                  "plain fp32 head, or call this under torch.no_grad()")
     if dist.dtype != torch.float32 or dist.dim() != 3 or not dist.is_contiguous():
         raise ValueError(f"dist: want a contiguous fp32 [B, N, M], got "
                          f"{tuple(dist.shape)} {dist.dtype}")
@@ -155,10 +157,39 @@ def log_plan_from_uv(dist, dustbin, u, v, valid0=None, valid1=None):
 
 def log_optimal_transport_fused(dist, dustbin, iterations: int, valid0=None, valid1=None,
                                 plain: bool = False):
-    """Drop-in for `log_optimal_transport`, forward only
-    (impx/ops/pallas/log_sinkhorn.py:307): the kernel's u and v, then the log
-    plan in one pass. plain=True takes u and v from
-    `log_sinkhorn_stats_reference` on any device."""
-    stats_fn = log_sinkhorn_stats_reference if plain else log_sinkhorn_fused_stats
-    stats = stats_fn(dist, dustbin, iterations, valid0, valid1)
-    return log_plan_from_uv(dist, dustbin, stats["u"], stats["v"], valid0, valid1)
+    """Drop-in for `log_optimal_transport` (impx/ops/pallas/log_sinkhorn.py:307):
+    the kernel's u and v, then the log plan in one pass; differentiable
+    with respect to dist and the dustbin (`LogOTFused`). plain=True takes u
+    and v from `log_sinkhorn_stats_reference` on any device."""
+    dustbin = torch.as_tensor(dustbin, dtype=torch.float32, device=dist.device)
+    return LogOTFused.apply(dist, dustbin, iterations, valid0, valid1, plain)
+
+
+class LogOTFused(torch.autograd.Function):
+    """impx's custom VJP of the fused head (impx/ops/pallas/log_sinkhorn.py:
+    _lot_fwd, _lot_bwd :328-338). The forward takes u and v from one kernel 7
+    launch (its plain version when plain) and stores nothing per sweep; the
+    backward recomputes the plain fp32 `log_optimal_transport` and returns
+    its gradient (LogUV's restructured reverse pass) for dist and for the
+    dustbin, the learned bin score. So the gradient is the same on every
+    device and with either forward. At the training shape (N = M = 1024)
+    kernel 7 keeps Z in fp32, so forward and recomputation read the same Z;
+    under the bf16 rule (larger N and M) the forward's Z is rounded and the
+    gradient is that of the fp32 head, as in impx."""
+
+    @staticmethod
+    def forward(ctx, dist, dustbin, iterations: int, valid0, valid1, plain: bool):
+        stats_fn = log_sinkhorn_stats_reference if plain else log_sinkhorn_fused_stats
+        stats = stats_fn(dist, dustbin, iterations, valid0, valid1)
+        ctx.iterations = iterations
+        ctx.save_for_backward(dist, dustbin, valid0, valid1)
+        return log_plan_from_uv(dist, dustbin, stats["u"], stats["v"], valid0, valid1)
+
+    @staticmethod
+    def backward(ctx, g):
+        dist, dustbin, valid0, valid1 = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = (dist.detach().requires_grad_(), dustbin.detach().requires_grad_())
+            out = log_optimal_transport(*leaves, ctx.iterations, valid0, valid1)
+            gd, gb = torch.autograd.grad(out, leaves, g)
+        return gd, gb, None, None, None, None

@@ -6,8 +6,8 @@ scores, which makes the padded iteration identical to running on the
 unpadded keypoint sets. `sink_algorithm` is the plain oracle of the Sinkhorn
 kernel (impx_torch/ops/kernels/sinkhorn.py) and the training head, whose
 gradient is `SinkhornUV`'s; `log_optimal_transport` is the plain log-domain
-head (forward only: its training slice brings impx's restructured backward);
-`dual_softmax` is the head of `with_sinkhorn=False`.
+head, whose gradient is `LogUV`'s; `dual_softmax` is the head of
+`with_sinkhorn=False`, differentiated by plain autograd.
 """
 from __future__ import annotations
 
@@ -187,8 +187,65 @@ def log_optimal_transport(
     f0, f1, _, _ = _padded_masks(b, n, m, valid0, valid1, dist.dtype, dist.device)
     log_mu, log_nu, norm = log_marginals(f0, f1)
     z = masked_scores(dist, dustbin, valid0, valid1)
-    u, v = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
-    for _ in range(iterations):
-        u = log_mu - torch.logsumexp(z + v[:, None, :], dim=2)
-        v = log_nu - torch.logsumexp(z + u[:, :, None], dim=1)
-    return z + u[:, :, None] + v[:, None, :] - norm[:, :, None]
+    return LogUV.apply(z, log_mu, log_nu, iterations) - norm[:, :, None]
+
+
+class LogUV(torch.autograd.Function):
+    """The log-domain u/v iteration and its output Z + u + v, with the
+    restructured reverse pass of impx/ops/sinkhorn.py:_log_uv_bwd (:273).
+
+    The row-softmax weights of sweep t factor through the fixed matrix
+    E = exp(Z - rowmax) over the valid cells: w_t = E * exp(s + u_t -
+    log_mu) exp(v_{t-1}), and the column sweep's alike. So the forward keeps
+    only each sweep's u and v (when an input needs a gradient), the reverse
+    recurrence runs on vectors with two products with E a sweep, and the
+    gradient of Z is g + E * (one [N+1, 2T] x [2T, M+1] product of the
+    stacked rank-1 factors), formed once, instead of a plan-sized softmax
+    backward a sweep under plain autograd. The gradients of log_mu and
+    log_nu are the summed totals of each sweep. Plain PyTorch: impx
+    computes it outside any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, z, log_mu, log_nu, iterations: int):
+        keep = any(ctx.needs_input_grad[:3])
+        u, v = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
+        us, vs = [], []
+        for _ in range(iterations):
+            u = log_mu - torch.logsumexp(z + v[:, None, :], dim=2)
+            v = log_nu - torch.logsumexp(z + u[:, :, None], dim=1)
+            if keep:
+                us.append(u)
+                vs.append(v)
+        if keep:
+            ctx.save_for_backward(z, log_mu, log_nu, torch.stack(us), torch.stack(vs))
+        return z + u[:, :, None] + v[:, None, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        z, log_mu, log_nu, us, vs = ctx.saved_tensors
+        row_ok = log_mu > NEG / 2
+        col_ok = log_nu > NEG / 2
+        ok = row_ok[:, :, None] & col_ok[:, None, :]
+        s = torch.where(ok, z, NEG).amax(dim=2)                          # [B, N+1] row shift
+        e = torch.where(ok, torch.exp(z - s[:, :, None]), 0.0)           # in [0, 1]
+        u_bar, v_bar = g.sum(dim=2), g.sum(dim=1)                        # output Z + u_T + v_T
+        v_prevs = torch.cat([torch.zeros_like(vs[:1]), vs[:-1]])
+        a_ts, vds, uas, ev_prevs, u_tots, v_bars = [], [], [], [], [], []
+        for t in reversed(range(us.shape[0])):
+            u_t, v_t, v_prev = us[t], vs[t], v_prevs[t]
+            # v_t = log_nu - LSE_n(Z + u_t): weights E a_t[n] d_t[m]
+            a_t = torch.where(row_ok, torch.exp(s + u_t), 0.0)
+            d_t = torch.where(col_ok, torch.exp(v_t - log_nu), 0.0)
+            vd = v_bar * d_t
+            u_tot = u_bar - a_t * torch.matmul(e, vd[:, :, None])[:, :, 0]
+            # u_t = log_mu - LSE_m(Z + v_{t-1}): weights E alpha_t[n] exp(v_prev[m])
+            ua = u_tot * torch.where(row_ok, torch.exp(s + u_t - log_mu), 0.0)
+            ev_prev = torch.where(col_ok, torch.exp(v_prev), 0.0)
+            for lst, x in ((a_ts, a_t), (vds, vd), (uas, ua), (ev_prevs, ev_prev), (u_tots, u_tot),
+                           (v_bars, v_bar)):
+                lst.append(x)
+            u_bar, v_bar = torch.zeros_like(u_bar), -ev_prev * torch.matmul(ua[:, None, :], e)[:, 0, :]
+        a = -torch.stack(a_ts[::-1] + uas[::-1])                         # [2T, B, N+1], sweeps in order
+        bm = torch.stack(vds[::-1] + ev_prevs[::-1])                     # [2T, B, M+1]
+        z_bar = g + e * torch.einsum("tbn,tbm->bnm", a, bm)
+        return z_bar, torch.stack(u_tots).sum(0), torch.stack(v_bars).sum(0), None

@@ -116,7 +116,7 @@ def make_train_step(model, hp: TrainHyperParams) -> Callable:
                        "acc_corr": out["acc_corr"], "acc_incorr": out["acc_incorr"],
                        "total_acc_corr": out["total_acc_corr"],
                        "total_acc_incorr": out["total_acc_incorr"],
-                       "geo_loss": out["geo_loss"], "max_mscore": out["matching_scores0"].max(),
+                       "geo_loss": out["geo_loss"].detach(), "max_mscore": out["matching_scores0"].max(),
                        "lr": lr, "bad_loss": bad.to(torch.int32)}
         return metrics, stats
 

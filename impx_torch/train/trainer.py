@@ -14,12 +14,16 @@ As impx's trainer:
   * the dataset is duck-typed (`__len__`, `__getitem__` returning numpy
     dicts, an optional `build_dataset(seed)` called with the next epoch);
   * a background thread assembles the next batches, and an exception there is
-    raised in the training loop.
+    raised in the training loop;
+  * SIGTERM (a preemption notice) sets a flag, in a handler installed from
+    the main thread only; the epoch stops dispatching steps, `train` saves
+    `{tag}.preempt` and returns, and `restore_checkpoint` resumes from it
+    (impx/train/trainer.py:129-140, 249-250, 320-326).
 Checkpoints are `torch.save` files of the parameters, the optimizer state
 and the meta (epoch, iteration, best value).
 
-Not ported: tensor and data parallelism (model_parallel > 1 raises), and the
-SIGTERM preemption checkpoint.
+Not ported: tensor and data parallelism (model_parallel > 1 raises, ROADMAP
+A11).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import json
 import os
 import os.path as osp
 import queue
+import signal
 import threading
 import time
 from typing import Any, Callable, Iterable
@@ -80,7 +85,7 @@ class Trainer:
         weight_decay, its_per_epoch, log_intervals, max_keypoints;
         eval_fn(model) -> dict of scalars (higher is better)."""
         if int(getattr(args, "model_parallel", 1) or 1) > 1:
-            raise NotImplementedError("model_parallel > 1: tensor parallelism is not ported yet")
+            raise NotImplementedError("model_parallel > 1: tensor parallelism is not ported yet: ROADMAP A11")
         self.model = model
         self.dataset = dataset
         self.args = args
@@ -107,6 +112,12 @@ class Trainer:
         self.iteration = 0
         self.epoch = 0
         self.best_value = -np.inf
+
+        # the preemption flag; the handler only sets it (a signal handler
+        # may run between any two bytecodes of the training loop)
+        self._preempted = False
+        if threading.current_thread() is threading.main_thread():
+            self._prev_sigterm = signal.signal(signal.SIGTERM, lambda *_: setattr(self, "_preempted", True))
 
     # ------------------------------------------------------------- checkpoints
     def save_checkpoint(self, opt_state: dict, name: str | None = None) -> str:
@@ -183,7 +194,7 @@ class Trainer:
         loss_sum, n_good = 0.0, 0.0
         metrics = None
         for bidx, batch in enumerate(self._batches()):
-            if 0 <= its_per_epoch <= bidx:
+            if 0 <= its_per_epoch <= bidx or self._preempted:
                 break
             metrics, stats = self.step_fn(opt_state, self.iteration, batch, stats)
             self.iteration += 1
@@ -228,6 +239,10 @@ class Trainer:
         while self.epoch < self.args.epochs:
             t0 = time.time()
             opt_state, train_loss = self.process_epoch(opt_state)
+            if self._preempted:  # SIGTERM: save mid-epoch and return
+                path = self.save_checkpoint(opt_state, name=f"{self.tag}.preempt")
+                self.writer.text(f"SIGTERM: preemption checkpoint -> {path}")
+                return opt_state
             if train_loss is None:  # NaN abort: run the epoch again
                 continue
             if self.eval_fn is not None and self.epoch % 5 == 0:

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from impx_torch.models import AdaGMN, DGNNS, MatcherConfig, SuperGlue
+from impx_torch.models.gm import GM
 from impx_torch.ops.kernels.attention import attention_key_mass, mha_fused
 from impx_torch.ops.kernels.log_sinkhorn import log_sinkhorn_fused_stats
 from impx_torch.ops.kernels.sinkhorn import sinkhorn_fused_stats
@@ -52,7 +53,8 @@ def test_no_jax_or_impx_import_at_run_time():
             "impx_torch.geometry.reprojection, impx_torch.geometry.misc, impx_torch.data.dump.dump, "
             "impx_torch.data.dump.download_data, impx_torch.data.dump.dump_megadepth, impx_torch.eval.reproduce, "
             "impx_torch.tools.superpoint_phases, impx_torch.data.synthetic_device, impx_torch.eval.iterative_fused, "
-            "impx_torch.eval.iterative_refill, impx_torch.eval.iterative_staged; "
+            "impx_torch.eval.iterative_refill, impx_torch.eval.iterative_staged, impx_torch.train.train, "
+            "impx_torch.data.megadepth; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'impx')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -125,12 +127,12 @@ def test_wrappers_refuse_devices_without_a_kernel():
         sinkhorn_fused_stats(torch.empty((1, 4, 4), device="meta"), 1.0, 20)
 
 
-@pytest.mark.parametrize("field,value", [("with_geo", True), ("train_compaction", ((2, 8),)),
+@pytest.mark.parametrize("field,value", [("attn_block_q", 256), ("train_compaction", ((2, 8),)),
                                          ("train_remat", "attn")])
 def test_unported_options_raise(field, value):
     """A config that names a field the port does not carry is refused, not run
-    without it (with_geo and train_compaction change the objective; the
-    fields arrive with the slices that port them)."""
+    without it (train_compaction changes the objective and arrives with EIMP
+    training; attn_block_q and train_remat are choices of impx's TPU step)."""
     with pytest.raises(TypeError, match=field):
         dataclasses.replace(SMALL, **{field: value})
 
@@ -182,23 +184,25 @@ SMALL_BN = dataclasses.replace(SMALL, norm_fn="bn")
 
 
 def test_log_ot_training_raises():
-    """log_ot training is not ported: forward_train refuses rather than train
-    the non-log head in its place."""
+    """log_ot training runs on DGNNS and GM (tests/test_torch_train_heads.py);
+    on the routes still to port, EIMP and batch norm in train mode, it
+    refuses, naming ROADMAP A7, rather than train something else."""
     data = _small_pairs(b=2)
     data["matching_mask"] = np.zeros((2, 17, 17), np.float32)
-    with pytest.raises(NotImplementedError, match="log_ot"):
-        DGNNS(dataclasses.replace(SMALL, log_ot=True), device="cpu").forward_train(data)
+    for model, config in ((AdaGMN, SMALL), (DGNNS, SMALL_BN)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            model(dataclasses.replace(config, log_ot=True), device="cpu").forward_train(data)
 
 
 @pytest.mark.parametrize("model,config,item", [
-    (DGNNS, SMALL_BN, "A7"), (AdaGMN, SMALL_BN, "A7"), (AdaGMN, SMALL, "A7"), (SuperGlue, SMALL_BN, "A8"),
-    (DGNNS, dataclasses.replace(SMALL, with_sinkhorn=False), "A6")],
-    ids=["dgnns-bn", "eimp-bn", "eimp", "superglue", "dgnns-dual-softmax"])
+    (DGNNS, SMALL_BN, "A7"), (AdaGMN, SMALL_BN, "A7"), (AdaGMN, SMALL, "A7"), (SuperGlue, SMALL_BN, "A7"),
+    (GM, SMALL_BN, "A7")],
+    ids=["dgnns-bn", "eimp-bn", "eimp", "superglue", "gm-bn"])
 def test_unported_training_routes_raise(model, config, item):
     """Training routes that are not ported refuse, naming their ROADMAP item,
-    rather than train something else: batch norm in train mode and EIMP's
-    trainer (A7), the unrolled GM training forward (A8), the dual-softmax head
-    (A6). The models themselves run at inference (tests/test_torch_routes.py)."""
+    rather than train something else: batch norm in train mode (GM, DGNNS
+    and SuperGlue under norm_fn='bn') and EIMP's trainer (A7). The models
+    themselves run at inference (tests/test_torch_routes.py)."""
     data = _small_pairs(b=2)
     data["matching_mask"] = np.zeros((2, 17, 17), np.float32)
     m = model(config, device="cpu")
