@@ -130,9 +130,23 @@ histogram, steps, checkpoints, host reads and launches of kernels 1, 2 and
 6, and a device-only profile (busy, idle share, operations); checks (a)
 varied stops, (b) every pair completed, (c) refill and staged on the
 permuted queue give every pair the same stop, (d) each loop at fp32 on 16
-pairs on the kernel path (no plain body) against the plain path. The line
+pairs on the kernel path (no plain body) against the plain path; (21) the
+training CLI: kernels 3, 4 and 5 at Nq != Nk, step checks of GM's unrolled
+training and of DGNNS under the log-OT head and the dual softmax, and the
+CLI in process on --synthetic at the published training config, 6 steps a
+run (step ms, train and loop pairs/s, peak memory, idle share of a profiled
+step); (22) EIMP training and batch norm in train mode at the published
+training config, fp32: one step, kernel path against plain path, of
+AdaGMN's masked and compacted ((4, 512), (8, 256)) training scans (kernels
+1 and 3 30 launches each, kernel 6 12 calls on its standalone route), DGNNS
+and AdaGMN under batch norm, and SuperGlue at its published widths (kernel
+7 9 launches), loss within 1e-4, cosines above 0.9999, the keep counts of
+every pool; AdaGMN's masked and compacted make_train_step in turns (step
+ms, a profiled step's device time, idle share and operations); then the
+CLI's --network adagmn, --train_compaction 4:512,8:256, --norm_fn bn and
+--network adagmn --norm_fn bn runs as in (21). The line
 before the last lists the kernels as JSON (with each kernel's launches over
-phase 17's, 18's, 19's and 20's kernel-path runs, and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
+phase 17's, 18's, 19's, 20's, 21's and 22's kernel-path runs, and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
 times, both bounds, the plain and library times); the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
@@ -2317,12 +2331,15 @@ def training_step_check(dev, models, kernels, ka) -> dict:
     return step_launches
 
 
-def step_check(label, model, batch, want, kernels, plain_bodies) -> dict:
+def step_check(label, model, batch, want, kernels, plain_bodies, loss_rtol=None, cos_min=None,
+               zero=None) -> dict:
     """One forward_train + backward of `model` on the kernel path and on the
     plain path (use_kernels=False), same batch and weights: the kernel path
     must launch `want` and call none of `plain_bodies` ((module, names),
     ...), the plain path launch nothing; loss and gradient cosines held to
-    the model's compute dtype's limits. Returns the kernel path's launches."""
+    loss_rtol and cos_min (by default the model's compute dtype's limits),
+    except the leaves of `zero` (by default `zero_grad_leaves`), whose exact
+    gradient is 0. Returns the kernel path's launches."""
     results = {}
     for use_kernels in (True, False):
         model.use_kernels = use_kernels
@@ -2335,9 +2352,14 @@ def step_check(label, model, batch, want, kernels, plain_bodies) -> dict:
             out["loss"].backward()
             torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in kernels.items()}
-        results[use_kernels] = (out, grads_of(model), launches, {k: v for c in counters for k, v in c.items()})
+        calls = collections.Counter()
+        for c in counters:
+            calls.update(c)
+        results[use_kernels] = (out, grads_of(model), launches, dict(calls))
     model.use_kernels = True
     dtype = model.config.compute_dtype
+    loss_rtol = TRAIN_LOSS_RTOL[dtype] if loss_rtol is None else loss_rtol
+    cos_min = GRAD_COS_MIN[dtype] if cos_min is None else cos_min
     (out, gk, launches, plain_calls), (ref, gp, plain_launches, _) = results[True], results[False]
     expected = {k: want.get(k, 0) for k in kernels}
     say(f"train {label} {dtype}: launches per training step {launches}; plain bodies called on the "
@@ -2348,20 +2370,20 @@ def step_check(label, model, batch, want, kernels, plain_bodies) -> dict:
     rel = abs(lk - lp) / abs(lp)
     cos = {n: torch.nn.functional.cosine_similarity(gk[n].flatten(), gp[n].flatten(), dim=0).item()
            for n in gp}
-    zero = zero_grad_leaves(model)
+    zero = zero_grad_leaves(model) if zero is None else zero
     held = {n: c for n, c in cos.items() if not zero.search(n)}
     worst = min(held, key=held.get)
     worst_zero = min((c for n, c in cos.items() if zero.search(n)), default=float("nan"))
     finite = all(bool(torch.isfinite(g).all()) for g in gk.values()) and bool(torch.isfinite(out["loss"]))
     n_match = (out["matches0"] >= 0).sum(1).tolist()
     say(f"train {label} {dtype}: loss {lk:.6f} plain {lp:.6f} relative difference {rel:.3e} "
-        f"(max {TRAIN_LOSS_RTOL[dtype]:g}); smallest gradient cosine {held[worst]:.8f} at {worst} over "
-        f"{len(held)} leaves (min {GRAD_COS_MIN[dtype]}); over the {len(cos) - len(held)} leaves whose exact "
+        f"(max {loss_rtol:g}); smallest gradient cosine {held[worst]:.8f} at {worst} over "
+        f"{len(held)} leaves (min {cos_min}); over the {len(cos) - len(held)} leaves whose exact "
         f"gradient is 0 {worst_zero:.3f} (rounding noise, not held); matches0 {n_match}; "
         f"acc_corr {out['acc_corr'].item():.2f} of {out['total_acc_corr'].item():.2f}; finite {finite}")
     if not finite or gk.keys() != gp.keys() or out["matches0"].shape != batch["valid0"].shape:
         fail(f"{label}: non-finite or misshapen training output")
-    if rel > TRAIN_LOSS_RTOL[dtype] or held[worst] < GRAD_COS_MIN[dtype]:
+    if rel > loss_rtol or held[worst] < cos_min:
         fail(f"{label}: the kernel path's loss or gradients disagree with the plain path")
     return {k: v for k, v in launches.items() if v}
 
@@ -3381,15 +3403,17 @@ def device_busy(prof) -> tuple[float, int] | None:
     return busy / 1e6, len(events)
 
 
-def training_cli_path(dev, kernels, ka) -> dict:
+def training_cli_path(dev, kernels, ka, runs=CLI_RUNS, resume: bool = True, plain=PLAIN_BODIES,
+                      label: str = "train cli") -> dict:
     """Phase 21 (c): the training CLI in process, `main([...])`, at the
-    published config on --synthetic, CLI_STEPS steps a run (base; base with
-    its samples made before the run; gm, --log_ot, --with_sinkhorn 0,
-    --with_geo, --train_fused), then a resume from the base run's
-    checkpoint. Trainer.step_fn is timed by wrapping
+    published config on --synthetic, CLI_STEPS steps a run (`runs`: base;
+    base with its samples made before the run; gm, --log_ot, --with_sinkhorn
+    0, --with_geo, --train_fused), then, with `resume`, a resume from the
+    base run's checkpoint. Trainer.step_fn is timed by wrapping
     make_train_step here (synchronised before and after); the last step of a
     run runs under the profiler (device activity only) for the device's
-    idle share of the step. Returns the kernel launches over the runs."""
+    idle share of the step; the plain bodies `plain` of `ka` must not be
+    called. Returns the kernel launches over the runs."""
     import shutil
     import signal
 
@@ -3431,18 +3455,18 @@ def training_cli_path(dev, kernels, ka) -> dict:
     t_phase = time.perf_counter()
     trainer_module.make_train_step = timed_make_train_step
     try:
-        for label, extra, want in CLI_RUNS + (("resume", None, ATTN_A),):
+        for run, extra, want in runs + ((("resume", None, ATTN_A),) if resume else ()):
             argv = ([*base, *extra] if extra is not None else
                     [*base, "--epochs", "2", "--resume_path", base_ckpt])
-            argv += ["--save_path", os.path.join(runs_dir, label.replace(" ", "_"))]
+            argv += ["--save_path", os.path.join(runs_dir, run.replace(" ", "_"))]
             cli.build_dataset = ((lambda args: PremadeSamples(real_build(args), CLI_STEPS * TB))
-                                 if label == "premade samples" else real_build)
+                                 if run == "premade samples" else real_build)
             for fn in kernels.values():
                 fn.launches = 0
             record["spans"], record["idle"] = [], None
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            with counting_plain_bodies(ka) as plain_calls:
+            with counting_plain_bodies(ka, plain) as plain_calls:
                 trainer = cli.main(argv)
             signal.signal(signal.SIGTERM, sigterm)   # the Trainer's handler only sets a flag
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3458,7 +3482,7 @@ def training_cli_path(dev, kernels, ka) -> dict:
                 losses = [json.loads(line)["loss"] for line in f]
             ckpt = os.path.join(trainer.save_dir, f"{trainer.args.network}.{trainer.epoch - 1:02d}")
             idle = record["idle"]
-            say(f"train cli {label}: {len(spans)} steps, median {med:.1f} ms a step (Trainer.step_fn between two "
+            say(f"{label} {run}: {len(spans)} steps, median {med:.1f} ms a step (Trainer.step_fn between two "
                 f"synchronisations, steps 1-{len(spans) - 2}; all steps ms {[round(t, 1) for t in steps_ms]}) = "
                 f"train_pairs_per_s {TB / (med / 1e3):.2f}; the loop, data waits included, {loop:.2f} pairs/s; peak device "
                 f"memory {peak:.2f} GiB; idle share of the profiled step "
@@ -3468,14 +3492,14 @@ def training_cli_path(dev, kernels, ka) -> dict:
                 f"written {os.path.isfile(ckpt)}")
             if (len(spans) != CLI_STEPS or per_step != {k: float(n) for k, n in want.items()}
                     or any(plain_calls.values())):
-                failures.append(f"{label}: {len(spans)} steps, launches a step {per_step}, plain bodies {plain_calls}")
+                failures.append(f"{run}: {len(spans)} steps, launches a step {per_step}, plain bodies {plain_calls}")
             if len(losses) != CLI_STEPS or not all(np.isfinite(losses)) or not os.path.isfile(ckpt):
-                failures.append(f"{label}: losses {losses}, checkpoint {ckpt}")
+                failures.append(f"{run}: losses {losses}, checkpoint {ckpt}")
             if extra is None and (trainer.epoch != 2 or trainer.iteration != 2 * CLI_STEPS
                                   or os.path.isfile(ckpt[:-2] + "00")):
                 failures.append(f"resume: epoch {trainer.epoch}, iteration {trainer.iteration}: it did not start "
                                 f"at epoch 1 from the base run's checkpoint")
-            if label == "base":
+            if run == "base":
                 base_ckpt = ckpt
             trainer.writer.close()
             del trainer
@@ -3485,10 +3509,10 @@ def training_cli_path(dev, kernels, ka) -> dict:
         cli.build_dataset = real_build
         signal.signal(signal.SIGTERM, sigterm)
         shutil.rmtree(runs_dir, ignore_errors=True)
-    say(f"train cli phase {time.perf_counter() - t_phase:.1f} s; kernel launches over its runs "
+    say(f"{label} phase {time.perf_counter() - t_phase:.1f} s; kernel launches over its runs "
         f"{ {k: n for k, n in total.items() if n} }")
     if failures:
-        fail("training CLI: " + "; ".join(failures))
+        fail(f"{label}: " + "; ".join(failures))
     return total
 
 
@@ -3504,6 +3528,165 @@ def training_cli_phase(dev, kernels, ka, DGNNS, MatcherConfig) -> dict:
     cli_step_checks(dev, DGNNS, GM, MatcherConfig, kernels, ka, log_module)
     say(f"train cli checks (a) and (b) {time.perf_counter() - t_phase:.1f} s")
     return training_cli_path(dev, kernels, ka)
+
+
+# ---------------------------------------------------------------- phase 22: EIMP training, batch norm in train mode
+# bench_suite.py:1203-1206 (train_step_1024_eimp_compact): half the keypoints
+# before iteration 4, a quarter before iteration 8
+EIMP_TRAIN_COMPACTION = ((4, 512), (8, 256))
+EIMP_TRAIN_BIN_SCORE = EIMP_BIN_SCORE   # pooling drops about 40% of 1024 at random weights
+EIMP_LOSS_RTOL, EIMP_COS_MIN = 1e-4, 0.9999   # fp32, kernel path vs plain path
+ATTN_MASS = {**ATTN_A, "attention_key_mass": 12}   # 6 pooling iterations x 2 mass calls
+ATTN_SPLIT_MASS = {"mha_fused": 60, "mha_bwd": 60, "attention_key_mass": 12}   # one launch an image
+SG_TRAIN = {"mha_fused": 2 * SG_LAYERS, "mha_bwd": 2 * SG_LAYERS, "log_sinkhorn_fused_stats": SG_LAYERS}
+EIMP_PLAIN = PLAIN_BODIES + ("attention_key_mass_reference", "attention_key_mass_from_lse_reference")
+EIMP_CLI_RUNS = (("adagmn", ("--network", "adagmn"), ATTN_MASS),
+                 ("adagmn compacted", ("--network", "adagmn", "--train_compaction",
+                                       ",".join(f"{it}:{k}" for it, k in EIMP_TRAIN_COMPACTION)), ATTN_MASS),
+                 ("dgnns bn", ("--norm_fn", "bn"), ATTN_A),
+                 ("adagmn bn", ("--network", "adagmn", "--norm_fn", "bn"), ATTN_SPLIT_MASS))
+
+
+def bn_layers_zero_grad_leaves(model) -> re.Pattern:
+    """The leaves whose exact gradient is 0 when only the keypoint encoder
+    normalises from batch statistics and the layers from running statistics
+    (which keep a shift): the encoder's biases before its norms, k's bias."""
+    last = len(model.kenc.blocks) - 1
+    return re.compile(rf"(kenc\.blocks\.[0-{last - 1}]\.bias|attn\.k\.bias)$")
+
+
+def recording_keeps(model):
+    """Record the keep counts a pool leaves ([B] each image), in model.keeps."""
+    model.keeps = []
+    pool = model._pool_from_masses
+
+    def recorded(*args):
+        keep0, keep1 = pool(*args)
+        model.keeps.append((keep0.sum(1), keep1.sum(1)))
+        return keep0, keep1
+
+    model._pool_from_masses = recorded
+    return model
+
+
+def eimp_step_checks(dev, AdaGMN, DGNNS, SuperGlue, MatcherConfig, kernels, ka) -> dict:
+    """Phase 22 (a): one step, kernel path against plain path, at the
+    published training config (15 layers, 1024 keypoints, batch 16, fp32) of
+    AdaGMN's masked and compacted training scans, DGNNS and AdaGMN under
+    batch norm (random statistics), and SuperGlue at its published widths:
+    launches, no plain body on the kernel path, loss within EIMP_LOSS_RTOL,
+    cosines above EIMP_COS_MIN, the keep counts of every pool beside the
+    plain path's. Returns the launches over the kernel-path steps."""
+    from impx_torch.models import adgm as adgm_module
+    from impx_torch.ops.kernels import log_sinkhorn as log_module
+    from impx_torch.ops.kernels import sinkhorn as sink_module
+
+    gen = torch.Generator().manual_seed(22)
+    batch = train_pairs(gen, dev, TB, TN)
+    base = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="float32")
+    bn = dataclasses.replace(base, norm_fn="bn")
+    plain = ((ka, EIMP_PLAIN), (adgm_module, ("attention_key_mass_reference",)),
+             (sink_module, ("sinkhorn_stats_reference",)), (log_module, ("log_sinkhorn_stats_reference",)))
+    sg_cfg = dataclasses.replace(bn, n_layers=SG_LAYERS, sinkhorn_iterations=SG_ITERS)
+    cases = (("AdaGMN masked", AdaGMN, base, ATTN_MASS),
+             (f"AdaGMN compacted {EIMP_TRAIN_COMPACTION}", AdaGMN,
+              dataclasses.replace(base, train_compaction=EIMP_TRAIN_COMPACTION), ATTN_MASS),
+             ("DGNNS bn", DGNNS, bn, ATTN_A), ("AdaGMN bn", AdaGMN, bn, ATTN_SPLIT_MASS),
+             ("SuperGlue", SuperGlue, sg_cfg, SG_TRAIN))
+    total = dict.fromkeys(kernels, 0)
+    for label, cls, cfg, want in cases:
+        model = cls(cfg, device=dev, seed=0)
+        if cls is AdaGMN:
+            recording_keeps(model)
+            with torch.no_grad():
+                model.bin_score.fill_(EIMP_TRAIN_BIN_SCORE)
+        if cfg.norm_fn == "bn":
+            randomize_batch_norm(model, gen)
+        zero = bn_layers_zero_grad_leaves(model) if cls is not AdaGMN and cfg.norm_fn == "bn" else None
+        torch.cuda.reset_peak_memory_stats()
+        launches = step_check(label, model, batch, want, kernels, plain, EIMP_LOSS_RTOL, EIMP_COS_MIN, zero)
+        for k, n in launches.items():
+            total[k] += n
+        keeps = getattr(model, "keeps", [])
+        half = len(keeps) // 2
+        if keeps:
+            summed = [[(int(a.sum()), int(b.sum())) for a, b in part] for part in (keeps[:half], keeps[half:])]
+            diff = max(int((a - c).abs().max().item()) + int((b - d).abs().max().item())
+                       for (a, b), (c, d) in zip(keeps[:half], keeps[half:]))
+            say(f"train eimp {label}: keep counts after each pool summed over the {TB} pairs "
+                f"(image 0, image 1), kernel path {summed[0]}; plain path {summed[1]}; valid "
+                f"({int(batch['valid0'].sum())}, {int(batch['valid1'].sum())}); largest difference of a pair's "
+                f"count between the paths {diff}")
+        extra = {}
+        if cfg.train_compaction:
+            with torch.no_grad():
+                out = model.forward_train(batch)
+            extra = {k: out[k].item() for k in ("compaction_overflow0", "compaction_overflow1")}
+        say(f"train eimp {label}: batch {TB}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB" + (f", overflow {extra}" if extra else ""))
+        del model
+        torch.cuda.empty_cache()
+    return total
+
+
+def eimp_step_times(dev, AdaGMN, MatcherConfig, TrainHyperParams, make_train_step, init_opt_state,
+                    init_stats, steps: int = 4) -> None:
+    """Phase 22 (b): make_train_step of AdaGMN masked and compacted
+    (EIMP_TRAIN_COMPACTION) at the published config, fp32, the CLI's random
+    weights: `steps` synchronised steps each on fresh batches, in turns
+    (masked, compacted, compacted, masked), then one step each under a
+    device-only profile (busy ms, idle share, operations). Separates the
+    step from the CLI's data thread."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(23)
+    batches = [train_pairs(gen, dev, TB, TN) for _ in range(steps)]
+    base = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="float32")
+    models = {"masked": AdaGMN(base, device=dev, seed=0),
+              "compacted": AdaGMN(dataclasses.replace(base, train_compaction=EIMP_TRAIN_COMPACTION),
+                                  device=dev, seed=0)}
+    state = {k: (make_train_step(m, TrainHyperParams()), init_opt_state(m), init_stats(dev))
+             for k, m in models.items()}
+    times = {k: [] for k in models}
+    for name in ("masked", "compacted", "compacted", "masked"):
+        step, opt, stats = state[name]
+        for it, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(opt, it, batch, stats)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    for name, (step, opt, stats) in state.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(opt, steps, batches[0], stats)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        busy = device_busy(prof)
+        ts = times[name][1:]   # the first step of the first turn warms up
+        say(f"train eimp make_train_step {name}: median {statistics.median(ts):.1f} ms a step over "
+            f"{len(ts)} steps in turns (all {[round(t, 1) for t in times[name]]}); profiled step {wall:.1f} ms, "
+            + (f"device busy {busy[0]:.3f} ms, idle share {1 - busy[0] / wall:.3f}, {busy[1]} device operations"
+               if busy else "no device events"))
+
+
+def eimp_training_phase(dev, kernels, ka, AdaGMN, DGNNS, SuperGlue, MatcherConfig) -> dict:
+    """Phase 22: (a) the step checks, (b) AdaGMN's masked and compacted
+    make_train_step in turns, (c) the training CLI's EIMP and batch norm runs
+    (`training_cli_path` on EIMP_CLI_RUNS). Returns the kernel launches over
+    (a)'s kernel-path steps and (c)'s runs ((b)'s are not counted)."""
+    from impx_torch.train.step import TrainHyperParams, init_opt_state, init_stats, make_train_step
+
+    t_phase = time.perf_counter()
+    total = eimp_step_checks(dev, AdaGMN, DGNNS, SuperGlue, MatcherConfig, kernels, ka)
+    say(f"train eimp (a) {time.perf_counter() - t_phase:.1f} s")
+    eimp_step_times(dev, AdaGMN, MatcherConfig, TrainHyperParams, make_train_step, init_opt_state, init_stats)
+    say(f"train eimp (a) and (b) {time.perf_counter() - t_phase:.1f} s")
+    cli = training_cli_path(dev, kernels, ka, runs=EIMP_CLI_RUNS, resume=False, plain=EIMP_PLAIN,
+                            label="train eimp cli")
+    say(f"train eimp phase {time.perf_counter() - t_phase:.1f} s")
+    return {k: total[k] + cli[k] for k in kernels}
 
 
 def main() -> int:
@@ -3525,7 +3708,8 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    say(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else f"nvidia-smi failed: {smi.stderr}"
+    say(card)
     say(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}; "
         f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32} cudnn {torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
@@ -3609,15 +3793,17 @@ def main() -> int:
     frontend = frontend_path(dev, kernels, DGNNS, MatcherConfig, load_reference_state_dict)
     queue = queue_loops_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
     training_cli = training_cli_phase(dev, kernels, ka, DGNNS, MatcherConfig)
+    training_eimp = eimp_training_phase(dev, kernels, ka, AdaGMN, DGNNS, SuperGlue, MatcherConfig)
     for row in rows:
         row["launches_iterative"] = iterative[row["name"]]
         row["launches_routes"] = routes[row["name"]]
         row["launches_frontend"] = frontend[row["name"]]
         row["launches_queue_loops"] = queue[row["name"]]
         row["launches_training_cli"] = training_cli[row["name"]]
+        row["launches_training_eimp"] = training_eimp[row["name"]]
         if row["name"] in fp32:
             row["fp32"] = fp32[row["name"]]
-    say(f"total {time.perf_counter() - t_start:.1f} s")
+    say(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

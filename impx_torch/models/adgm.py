@@ -19,15 +19,30 @@ contract, one launch an image when N0 != N1, and a score head on every
 iteration. A compaction schedule on that loop runs mask-only, as impx's
 default attn_impl does. Under log_ot the loop pools on the plan, exp of the
 log plan, where impx pools on the log plan itself and so never pools
-(ROADMAP section C). Training (forward_train and the ground-truth masking)
-is not ported.
+(ROADMAP section C).
+
+Training (`forward_train`, impx/models/adgm.py:271) routes the same way: the
+masked training scan, or the compacted one under config.train_compaction
+(impx_torch/models/fast.py), for norm_fn='in', no log_ot and N0 == N1;
+otherwise `_iterate` with the ground truth, where under norm_fn='bn' every
+MLP, the keypoint encoder's included, normalises from batch statistics, one
+image at a time, as impx's `_iterate(train=True)` does. Every iteration
+takes a loss against the ground truth restricted to the kept keypoints
+(`_masked_gt`) from first_it_to_update on; the accuracy is averaged over all
+iterations. Under log_ot the loop's loss reads the log plan as a log plan
+and its geometric loss and pooling take exp of it, where impx takes
+log|log p| and never pools (ROADMAP section C). config.train_fused changes
+nothing here, as in impx: every layer runs on route A.
 """
 from __future__ import annotations
 
 import torch
 
 from impx_torch.models.dgnns import DGNNS
-from impx_torch.models.fast import _eimp_do_pool, forward_scan_eimp, forward_scan_eimp_compact
+from impx_torch.models.fast import (
+    EIMP_TRAIN_P, EIMP_TRAIN_TH, _eimp_do_pool, _mean_accuracy, forward_scan_eimp, forward_scan_eimp_compact,
+    forward_train_scan_eimp, forward_train_scan_eimp_compact, loss_outputs, zero_terms)
+from impx_torch.models.loss import geo_loss, graph_loss, matching_accuracy, maybe_epipolar_matrix
 from impx_torch.ops.kernels.attention import attention_key_mass, attention_key_mass_reference
 
 
@@ -56,7 +71,23 @@ def _key_attention_mass(prob: torch.Tensor, query_mask: torch.Tensor | None) -> 
     return _normalise(mass)
 
 
+def _masked_gt(gt, keep0, keep1):
+    """The assignment mask [B, N+1, M+1] restricted to the kept keypoints
+    keep0 [B, N], keep1 [B, M], with the dustbin row and column derived
+    again: a kept keypoint whose partner was pooled away becomes unmatched
+    (impx/models/adgm.py:325). fp32."""
+    gtf = gt.float()
+    k0, k1 = keep0.float(), keep1.float()
+    inner = gtf[:, :-1, :-1] * k0[:, :, None] * k1[:, None, :]
+    row_dust = k0 * (1.0 - inner.amax(dim=2))
+    col_dust = k1 * (1.0 - inner.amax(dim=1))
+    top = torch.cat([inner, row_dust[:, :, None]], dim=2)
+    bottom = torch.cat([col_dust, torch.zeros_like(col_dust[:, :1])], dim=1)
+    return torch.cat([top, bottom[:, None, :]], dim=1)
+
+
 class AdaGMN(DGNNS):
+    trains_fused = False  # impx's EIMP trainers have no route B
 
     def _key_masses(self, qk_self, qk_cross, keep0, keep1, qmask0, qmask1, lse_self=None,
                     lse_cross=None):
@@ -168,48 +199,76 @@ class AdaGMN(DGNNS):
         masses = self._key_masses(qk_self, qk_cross, keep0, keep1, keep0, keep1, lse_self, lse_cross)
         return self._pool_from_plan(pred_score, masses, keep0, keep1, mscore_th, n_min_tokens)
 
-    def _iterate(self, data, p: float, mscore_th: float, uncertainty_ratio: float, with_scores: bool = True):
-        """The masked unrolled loop at inference (impx/models/adgm.py:167,
-        gt=None), on data already on the model's device. Every layer through
-        GM's layer API (stacked when N0 == N1, one launch an image
-        otherwise): attention keys under the keep masks, queries and
-        InstanceNorm under the padding validity full0/full1. After each
-        iteration the score head under the keep masks and its matches; on the
-        pooling iterations the key masses summed over full queries and the
-        pooling rule on the plan (exp of the log plan under log_ot). On the
-        kernel path with N0 == N1 a pooling iteration's layers run kernel 4,
-        whose row lse the masses take, as `_eimp_step` does; at N0 != N1 the
-        masses take one launch a direction. Returns (scores, indices0,
-        mscores0 per iteration, (keep0, keep1)); scores holds None without
+    def _on_scan(self, data) -> bool:
+        """Whether the stacked scans take data (already on the device):
+        norm_fn='in', no log_ot and N0 == N1 (impx/models/adgm.py:253, :285)."""
+        cfg = self.config
+        return (cfg.norm_fn == "in" and not cfg.log_ot
+                and data["descriptors0"].shape[1] == data["descriptors1"].shape[1])
+
+    def _iterate(self, data, p: float, mscore_th: float, uncertainty_ratio: float, with_scores: bool = True,
+                 gt=None):
+        """The masked unrolled loop (impx/models/adgm.py:167), on data already
+        on the model's device. Every layer through GM's layer API (stacked
+        when N0 == N1, one launch an image otherwise): attention keys under
+        the keep masks, queries and the norm under the padding validity
+        full0/full1. After each iteration the score head under the keep masks
+        and its matches; on the pooling iterations the key masses summed over
+        full queries and the pooling rule on the plan (exp of the log plan
+        under log_ot). At inference on the kernel path with N0 == N1 a
+        pooling iteration's layers run kernel 4, whose row lse the masses
+        take, as `_eimp_step` does; at N0 != N1 the masses take one launch a
+        direction, stacked into two when N0 == N1.
+
+        gt [B, N0+1, N1+1] (training, impx's train=True): under autograd,
+        each iteration adds graph_loss against gt, restricted to the kept
+        keypoints from first_it_to_update on (`_masked_gt`), and under
+        with_geo the geometric loss of the plan; under norm_fn='bn' every MLP
+        normalises from batch statistics, one image at a time; the masses
+        come from kernel 6's standalone route and pooling runs without
+        gradient. Returns (scores, indices0, mscores0 per iteration,
+        (keep0, keep1), the summed terms or None); scores holds None without
         with_scores."""
         cfg = self.config
-        desc0, desc1, full0, full1 = self._encode_inputs(data)
+        train = gt is not None
+        batch_stats = train and cfg.norm_fn == "bn"
+        desc0, desc1, full0, full1 = self._encode_inputs(data, batch_stats=train)
         keep0, keep1 = full0, full1
+        split = batch_stats or desc0.shape[1] != desc1.shape[1]
         th = mscore_th * uncertainty_ratio
+        epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if train and cfg.with_geo else None
+        terms = zero_terms(epi is not None, desc0.device) if train else None
         state = self.init_state()
         scores, all_idx0, all_ms0 = [], [], []
         for ni, do_pool in enumerate(_eimp_do_pool(cfg)):
-            with_lse = do_pool and self.use_kernels
+            with_lse = do_pool and self.use_kernels and not train
             desc0, desc1, state, lse_self = self._layer_pair(desc0, desc1, 2 * ni, state, keep0, keep1,
-                                                             full0, full1, with_lse)
+                                                             full0, full1, with_lse, batch_stats)
             desc0, desc1, state, lse_cross = self._layer_pair(desc0, desc1, 2 * ni + 1, state, keep0, keep1,
-                                                              full0, full1, with_lse)
+                                                              full0, full1, with_lse, batch_stats)
             score = self.compute_score(self.compute_distance(desc0, desc1, layer_id=ni), keep0, keep1)
-            idx0, _, ms0, _ = self.compute_matches(score, p=p, valid0=keep0, valid1=keep1)
-            all_idx0.append(idx0)
-            all_ms0.append(ms0)
-            scores.append(score if with_scores else None)
-            if not do_pool:
-                continue
-            if desc0.shape[1] == desc1.shape[1]:
-                masses = self._key_masses(state["self"], state["cross"], keep0, keep1, full0, full1,
-                                          lse_self, lse_cross)
-            else:
-                (s00, s11), (s10, s01) = state["self"], state["cross"]
-                masses = self._masses_from_qk(s00, s01, s11, s10, keep0, keep1, full0, full1)
-            plan = torch.exp(score) if self.scores_are_log else score
-            keep0, keep1 = self._pool_from_plan(plan, masses, keep0, keep1, th, cfg.n_min_tokens)
-        return scores, all_idx0, all_ms0, (keep0, keep1)
+            if train:
+                gt_used = _masked_gt(gt, keep0, keep1) if ni >= cfg.first_it_to_update else gt
+                t = graph_loss(score, gt_used, scores_are_log=self.scores_are_log)
+                if epi is not None:
+                    t["geo"] = geo_loss(torch.exp(score) if self.scores_are_log else score, epi, keep0, keep1)
+                terms = {k: terms[k] + t[k] for k in terms}
+            with torch.no_grad():
+                idx0, _, ms0, _ = self.compute_matches(score, p=p, valid0=keep0, valid1=keep1)
+                all_idx0.append(idx0)
+                all_ms0.append(ms0)
+                scores.append(score if with_scores else None)
+                if not do_pool:
+                    continue
+                if split:
+                    (s00, s11), (s10, s01) = state["self"], state["cross"]
+                    masses = self._masses_from_qk(s00, s01, s11, s10, keep0, keep1, full0, full1)
+                else:
+                    masses = self._key_masses(state["self"], state["cross"], keep0, keep1, full0, full1,
+                                              lse_self, lse_cross)
+                plan = torch.exp(score) if self.scores_are_log else score
+                keep0, keep1 = self._pool_from_plan(plan, masses, keep0, keep1, th, cfg.n_min_tokens)
+        return scores, all_idx0, all_ms0, (keep0, keep1), terms
 
     @torch.no_grad()
     def produce_matches(self, data, p: float = 0.2, mscore_th: float = 0.1,
@@ -227,10 +286,9 @@ class AdaGMN(DGNNS):
         compaction=())."""
         data = self._on_device(data)
         cfg = self.config
-        if (cfg.norm_fn != "in" or cfg.log_ot
-                or data["descriptors0"].shape[1] != data["descriptors1"].shape[1]):
-            scores, idx0, ms0, (keep0, keep1) = self._iterate(data, p, mscore_th, uncertainty_ratio,
-                                                              with_scores)
+        if not self._on_scan(data):
+            scores, idx0, ms0, (keep0, keep1), _ = self._iterate(data, p, mscore_th, uncertainty_ratio,
+                                                                 with_scores)
             if only_last:
                 idx0, ms0 = idx0[-1:], ms0[-1:]
             return {"scores": scores[-1:], "indices0": idx0, "mscores0": ms0, "keep0": keep0, "keep1": keep1}
@@ -241,5 +299,35 @@ class AdaGMN(DGNNS):
         return forward_scan_eimp(self, data, with_scores=with_scores, **kw)
 
     def forward_train(self, data):
-        """EIMP training (impx/models/adgm.py:271) is not ported."""
-        raise NotImplementedError("AdaGMN.forward_train (EIMP training) is not ported yet: ROADMAP A7")
+        """EIMP training (impx/models/adgm.py:271): `produce_matches`'s data
+        plus matching_mask [B, N0+1, N1+1] (and keypoints0/1, intrinsics0/1,
+        gt_E for with_geo), moved to the model's device. Differentiable;
+        returns the dict of impx_torch/models/fast.py:train_outputs, whose
+        accuracy counters are averaged over all iterations and whose matches0
+        and matching_scores0 are the last iteration's (p = 0.2). With
+        norm_fn='in', no log_ot and N0 == N1 the stacked training scan, the
+        compacted one when config.train_compaction is set (which adds
+        compaction_overflow0/1); otherwise the unrolled `_iterate`, where a
+        train_compaction schedule raises ValueError, as in impx.
+        train_supervision='last' raises ValueError: pooling needs every
+        iteration's plan."""
+        cfg = self.config
+        if cfg.train_supervision != "all":
+            raise ValueError("train_supervision='last' is not defined for the EIMP trainer (pooling decisions "
+                             "depend on per-iteration scores)")
+        data = self._on_device(data)
+        if self._on_scan(data):
+            if cfg.train_compaction:
+                return forward_train_scan_eimp_compact(self, data)
+            return forward_train_scan_eimp(self, data)
+        if cfg.train_compaction:
+            raise ValueError("config.train_compaction needs the training scan: norm_fn='in', log_ot=False and "
+                             f"the same keypoint count in both images (got norm_fn={cfg.norm_fn!r}, "
+                             f"log_ot={cfg.log_ot}, N0={data['descriptors0'].shape[1]}, "
+                             f"N1={data['descriptors1'].shape[1]})")
+        gt = data["matching_mask"]
+        _, all_idx0, all_ms0, _, terms = self._iterate(data, EIMP_TRAIN_P, EIMP_TRAIN_TH, 1.0,
+                                                       with_scores=False, gt=gt)
+        terms = {k: x / cfg.n_layers for k, x in terms.items()}
+        acc = _mean_accuracy([matching_accuracy(idx0, gt) for idx0 in all_idx0])
+        return loss_outputs(cfg, terms, all_idx0[-1], all_ms0[-1], acc)

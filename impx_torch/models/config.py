@@ -9,10 +9,9 @@ Left out of the copy:
     kernel chooses its own tiles;
   * `train_remat`: it chooses only what XLA stores for the backward (its
     values are identical under every policy, tests/test_fast_train.py:44);
-    eager autograd stores every activation;
-  * `train_compaction`: it arrives with EIMP's training slice (ROADMAP A7).
-    Until then a config that names it is refused with a TypeError, as for
-    any unknown field.
+    eager autograd stores every activation.
+A config that names a field left out is refused with a TypeError, as for any
+unknown field.
 
 `log_ot` (the log-domain optimal-transport head) and `with_sinkhorn=False`
 (the dual-softmax head) hold at inference and in training; SuperGlue runs
@@ -24,6 +23,21 @@ import dataclasses
 from typing import Sequence
 
 TRAIN_SUPERVISION = ("all", "last")
+
+
+def compaction_schedule(spec, n_layers: int, name: str = "compaction", n: int | None = None) -> list:
+    """A compaction schedule ((iteration, bucket), ...) sorted by iteration,
+    checked as impx checks it (impx/models/fast.py:1153-1161): iterations
+    distinct and in (0, n_layers), and, given the keypoint count n, buckets
+    that never grow from n on. Raises ValueError naming `name`."""
+    schedule = sorted((int(it), int(k)) for it, k in spec)
+    its = [it for it, _ in schedule]
+    if not all(0 < it < n_layers for it in its) or len(set(its)) != len(its):
+        raise ValueError(f"{name} iterations must be distinct, in (0, n_layers={n_layers}): {schedule}")
+    buckets = ([] if n is None else [n]) + [k for _, k in schedule]
+    if any(a < b for a, b in zip(buckets, buckets[1:])):
+        raise ValueError(f"{name} buckets must not grow: {buckets}")
+    return schedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +53,9 @@ class MatcherConfig:
     with_sinkhorn: bool = True
     ac_fn: str = "relu"
     # 'in' (masked InstanceNorm, the published IMP/EIMP eval and training
-    # configs) or 'bn' (batch norm from running statistics, in eval mode:
-    # SuperGlue, and DGNNS/AdaGMN at inference)
+    # configs) or 'bn' (batch norm: from running statistics at inference;
+    # in training GM, DGNNS and SuperGlue take the keypoint encoder's from
+    # the batch, AdaGMN every MLP's, as impx's trainers do)
     norm_fn: str = "bn"
     # EIMP (AdaGMN): pooling never shrinks an image below n_min_tokens kept
     # keypoints, and starts at iteration first_it_to_update
@@ -50,6 +65,16 @@ class MatcherConfig:
     # `iteration`, gather both images' kept keypoints into `bucket` slots.
     # Empty = mask-only pooling.
     compaction: tuple = ()
+    # EIMP training compaction (impx/models/config.py:34-45): the same
+    # ((iteration, bucket), ...) schedule on the training scan
+    # (models/fast.py:forward_train_scan_eimp_compact). The ground-truth mask
+    # and the epipolar matrix are gathered with the keypoints, the loss runs
+    # on the compacted plan, and matches and accuracy go back to the original
+    # indexing. Dropping tokens is the sliced semantics, not the masked
+    # trainer's (discarded keypoints stay queries and in the norm statistics
+    # there): a cheaper, different objective, whose survivors beyond a
+    # bucket are counted (compaction_overflow0/1). Empty = the masked trainer.
+    train_compaction: tuple = ()
     # activation stream dtype ('float32' | 'bfloat16'); InstanceNorm
     # statistics, the final projection and the Sinkhorn head stay fp32
     compute_dtype: str = "float32"
@@ -76,6 +101,8 @@ class MatcherConfig:
         if self.train_supervision not in TRAIN_SUPERVISION:
             raise ValueError(f"unknown train_supervision {self.train_supervision!r} "
                              f"(expected one of {TRAIN_SUPERVISION})")
+        if self.train_compaction:
+            compaction_schedule(self.train_compaction, self.n_layers, "train_compaction")
 
     def sharing_layers(self, share: bool) -> list[bool]:
         """DGNNS attention-sharing pattern: the first two iterations fully

@@ -5,8 +5,11 @@ q/k weights and attend with the q/k carried from the previous layer of their
 kind. With norm_fn='in' and the same keypoint count in both images the
 forward is the stacked-batch one of impx/models/fast.py; otherwise GM's
 unrolled forward, as impx routes every config but (pallas, 'in')
-(impx/models/dgnns.py:29-35). Batch norm (norm_fn='bn') runs from running
-statistics: the model is built in eval mode, and training under it raises.
+(impx/models/dgnns.py:29-46). Batch norm (norm_fn='bn') runs from running
+statistics at inference. Training under it is GM's unrolled forward, whose
+keypoint encoder normalises from each image's batch statistics and whose
+layers from the running statistics. The model is built in eval mode, which
+chooses nothing: each call names its statistics.
 """
 from __future__ import annotations
 
@@ -54,7 +57,8 @@ class DGNNS(GM):
         (fast.py:forward_train_scan); otherwise GM's unrolled one, as
         `produce_matches` routes. config.train_fused picks route B's
         attention core, config.train_supervision the supervised iterations.
-        Batch norm in train mode is not ported (ROADMAP A7)."""
+        norm_fn='bn' takes GM's forward, as impx routes it
+        (impx/models/dgnns.py:37-46)."""
         data = self._on_device(data)
         if (self.config.norm_fn != "in"
                 or data["descriptors0"].shape[1] != data["descriptors1"].shape[1]):

@@ -1,5 +1,7 @@
 """The stacked-batch forwards of DGNNS (impx/models/fast.py:forward_scan :315)
-and of AdaGMN, EIMP (forward_scan_eimp :731, forward_scan_eimp_compact :851).
+and of AdaGMN, EIMP (forward_scan_eimp :731, forward_scan_eimp_compact :851),
+and their training forwards (forward_train_scan :432,
+forward_train_scan_eimp :952, forward_train_scan_eimp_compact :1110).
 
 Both images of every pair go through each layer in one call, stacked on the
 batch axis [2B, N, D]: self layers attend within the stack, cross layers to
@@ -36,6 +38,17 @@ port writes only the attention core of route B by hand
 (impx_torch/ops/kernels/attention.py:MhaLseFunction). GM's unrolled
 training forward (impx_torch/models/gm.py:GM.forward_train) shares the
 supervised head and the outputs (`supervised_head`, `train_outputs`).
+
+EIMP's training scans (`forward_train_scan_eimp`, masked, and
+`forward_train_scan_eimp_compact`, compacted) run every layer on route A
+(kernel 1 forward, kernel 3 backward), whatever config.train_fused says, as
+impx's EIMP scan does (its `_attn_block` has no route B). Each iteration's
+plan comes from the model's differentiable score head and takes a loss
+against the ground truth restricted to the kept keypoints from
+first_it_to_update on; its matches (p = 0.2) give an accuracy averaged over
+all iterations. The pooling iterations pool without gradient from that plan
+and the key masses of kernel 6 on its standalone route (its own row-lse
+launch: route A keeps no row lse).
 """
 from __future__ import annotations
 
@@ -43,6 +56,7 @@ from typing import Any
 
 import torch
 
+from impx_torch.models.config import compaction_schedule
 from impx_torch.ops.kernels.log_sinkhorn import (
     log_plan_from_uv, log_sinkhorn_fused_stats, log_sinkhorn_stats_reference)
 from impx_torch.ops.kernels.sinkhorn import (
@@ -208,16 +222,28 @@ def train_outputs(model, terms: dict, score, gt, valid0, valid1) -> dict:
     (+ geo_weight * geo under with_geo), its terms, geo_loss (0 without
     with_geo), matching_scores0 and matches0 of the last plan, and the
     accuracy counters."""
-    cfg = model.config
+    with torch.no_grad():
+        idx0, _, ms0, _ = model.compute_matches(score, p=model.config.match_threshold, valid0=valid0,
+                                                valid1=valid1)
+        acc = matching_accuracy(idx0, gt)
+    return loss_outputs(model.config, terms, idx0, ms0, acc)
+
+
+def loss_outputs(cfg, terms: dict, idx0, ms0, acc: dict) -> dict:
+    """`train_outputs`'s dict from the meaned terms, the matches and
+    their scores, and the accuracy counters."""
     matching = terms["corr"] + terms["incorr"] + terms["neg"]
     loss = matching + cfg.geo_weight * terms["geo"] if "geo" in terms else matching
-    with torch.no_grad():
-        idx0, _, ms0, _ = model.compute_matches(score, p=cfg.match_threshold, valid0=valid0, valid1=valid1)
-        acc = matching_accuracy(idx0, gt)
     geo = terms.get("geo", torch.zeros((), dtype=torch.float32, device=matching.device))
     return {"loss": loss, "matching_loss": matching, "matching_loss_corr": terms["corr"],
             "matching_loss_incorr": terms["incorr"], "matching_loss_neg": terms["neg"],
             "geo_loss": geo, "matching_scores0": ms0, "matches0": idx0, **acc}
+
+
+def zero_terms(with_geo: bool, device) -> dict:
+    """The supervised terms' running sums at 0: corr, incorr, neg (and geo)."""
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return dict.fromkeys(("corr", "incorr", "neg") + (("geo",) if with_geo else ()), zero)
 
 
 def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
@@ -237,8 +263,7 @@ def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
         t, score = supervised_head(model, desc[:b], desc[b:], layer_id, gt, epi, valid0, valid1)
         return {k: terms[k] + t[k] for k in terms}, score
 
-    zero = torch.zeros((), dtype=torch.float32, device=desc.device)
-    terms = dict.fromkeys(("corr", "incorr", "neg") + (("geo",) if epi is not None else ()), zero)
+    terms = zero_terms(epi is not None, desc.device)
     sup_all = cfg.train_supervision == "all"
     qk_self = qk_cross = score = None
     for i in range(cfg.n_layers):
@@ -347,15 +372,15 @@ def _stable_topk_indices(keep: torch.Tensor, k: int) -> torch.Tensor:
     return order[:, :k]
 
 
-def _compact_gather(desc, qk_self, qk_cross, keep0, keep1, g0, g1, b: int, k: int):
-    """Gather both images into k slots (impx/models/fast.py:813, with one
-    difference). Rows [:B] of the stack are image 0 and rows [B:] image 1, for
-    desc, the self q/k and the cross q. The cross k was projected from the
-    swapped stack, so its rows [:B] hold image 1's keys and take image 1's
-    indices, and rows [B:] take image 0's. impx gathers the cross k with the
-    unswapped indices (fast.py:827-830), which changes the result when the
-    first iteration after a gather shares attention and reuses that k."""
-    i0, i1 = _stable_topk_indices(keep0, k), _stable_topk_indices(keep1, k)
+def _compact_gather(desc, qk_self, qk_cross, keep0, keep1, g0, g1, i0, i1):
+    """Gather both images into the slots i0, i1 [B, k] of `_stable_topk_indices`
+    (impx/models/fast.py:813, with one difference). Rows [:B] of the stack
+    are image 0 and rows [B:] image 1, for desc, the self q/k and the cross
+    q. The cross k was projected from the swapped stack, so its rows [:B]
+    hold image 1's keys and take image 1's indices, and rows [B:] take image
+    0's. impx gathers the cross k with the unswapped indices (fast.py:827-830),
+    which changes the result when the first iteration after a gather shares
+    attention and reuses that k. Differentiable in desc and the q/k."""
     idx = torch.cat([i0, i1], dim=0)
     idx_swap = torch.cat([i1, i0], dim=0)
 
@@ -398,17 +423,10 @@ def forward_scan_eimp_compact(model, data: dict[str, Any], p: float = 0.2, mscor
     points; re-run overflowed pairs mask-only. Matches and the final
     'keep0'/'keep1' are in original indexing; 'scores' is [None]."""
     cfg = model.config
-    schedule = sorted((int(it), int(k)) for it, k in cfg.compaction)
-    if not schedule:
+    if not cfg.compaction:
         raise ValueError("forward_scan_eimp_compact needs config.compaction")
-    its = [it for it, _ in schedule]
-    if not all(0 < it < cfg.n_layers for it in its) or len(set(its)) != len(its):
-        raise ValueError(f"compaction iterations must be distinct, in (0, n_layers): {schedule}")
     desc, valid0, valid1, b, n = _encode(model, data)
-    buckets = [n] + [k for _, k in schedule]
-    if any(buckets[i] < buckets[i + 1] for i in range(len(schedule))):
-        raise ValueError(f"compaction buckets must not grow: {buckets}")
-    starts = dict(schedule)
+    starts = dict(compaction_schedule(cfg.compaction, cfg.n_layers, n=n))
 
     th = mscore_th * uncertainty_ratio
     g0 = torch.arange(n, device=desc.device).expand(b, n)
@@ -424,7 +442,8 @@ def forward_scan_eimp_compact(model, data: dict[str, Any], p: float = 0.2, mscor
             overflow0 += (keep0.sum(dim=1) - k).clamp(min=0).to(torch.int32)
             overflow1 += (keep1.sum(dim=1) - k).clamp(min=0).to(torch.int32)
             desc, qk_self, qk_cross, keep0, keep1, g0, g1 = _compact_gather(
-                desc, qk_self, qk_cross, keep0, keep1, g0, g1, b, k)
+                desc, qk_self, qk_cross, keep0, keep1, g0, g1, _stable_topk_indices(keep0, k),
+                _stable_topk_indices(keep1, k))
             state = (desc, qk_self, qk_cross, keep0, keep1, keep0, keep1)
         state, (idx0, ms0, *_) = _eimp_step(model, i, state, b, p, th, do_pool)
         if not only_last or i == cfg.n_layers - 1:
@@ -435,3 +454,128 @@ def forward_scan_eimp_compact(model, data: dict[str, Any], p: float = 0.2, mscor
     return {"scores": [None], "indices0": [o[0] for o in outs], "mscores0": [o[1] for o in outs],
             "keep0": none.scatter(1, g0, keep0), "keep1": none.scatter(1, g1, keep1),
             "overflow0": overflow0, "overflow1": overflow1}
+
+
+# ------------------------------------------------------------ EIMP training
+EIMP_TRAIN_P, EIMP_TRAIN_TH = 0.2, 0.1  # impx's training matches and pooling threshold (fast.py:973)
+
+
+def _eimp_train_step(model, i: int, do_pool: bool, state: tuple, b: int, gt, epi, terms: dict):
+    """Iteration i of EIMP training (the scan body of impx/models/fast.py:994).
+
+    state = (desc, qk_self, qk_cross, keep0, keep1, full0, full1), as in
+    `_eimp_step`: keys under the keep masks, queries and InstanceNorm under
+    full0/full1. The two layers run on route A; the carried q/k of a shared
+    layer takes gradient from both layers that use it. Then the supervised
+    head of final projection i under the keep masks, against gt
+    ([B, N+1, M+1] in the current indexing) restricted to the kept
+    keypoints from first_it_to_update on, and its matches; on a pooling
+    iteration, without gradient, the key masses of the layers' q/k and the
+    pooling rule on the plan. Returns (state, terms, (indices0, mscores0))."""
+    from impx_torch.models.adgm import _masked_gt
+
+    cfg = model.config
+    desc, qk_self, qk_cross, keep0, keep1, full0, full1 = state
+    keep = torch.cat([keep0, keep1], dim=0)
+    keep_swap = torch.cat([keep1, keep0], dim=0)
+    full = torch.cat([full0, full1], dim=0)
+    kw = dict(ac_fn=cfg.ac_fn, use_kernels=model.use_kernels)
+    delta, qk_self = model.gnn[2 * i](desc, desc, qk_self, keep, full, **kw)
+    desc = desc + delta
+    delta, qk_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, keep_swap, full, **kw)
+    desc = desc + delta
+
+    gt_used = _masked_gt(gt, keep0, keep1) if i >= cfg.first_it_to_update else gt
+    t, score = supervised_head(model, desc[:b], desc[b:], i, gt_used, epi, keep0, keep1)
+    terms = {k: terms[k] + t[k] for k in terms}
+    with torch.no_grad():
+        idx0, _, ms0, _ = model.compute_matches(score, p=EIMP_TRAIN_P, valid0=keep0, valid1=keep1)
+        if do_pool:
+            masses = model._key_masses(qk_self, qk_cross, keep0, keep1, full0, full1)
+            keep0, keep1 = model._pool_from_plan(score, masses, keep0, keep1, EIMP_TRAIN_TH, cfg.n_min_tokens)
+    return (desc, qk_self, qk_cross, keep0, keep1, full0, full1), terms, (idx0, ms0)
+
+
+def _mean_accuracy(accs: list) -> dict:
+    """The accuracy counters averaged over the iterations."""
+    return {k: sum(a[k] for a in accs) / len(accs) for k in accs[0]}
+
+
+def forward_train_scan_eimp(model, data: dict[str, Any]) -> dict[str, Any]:
+    """AdaGMN's masked training forward on tensors already on the model's
+    device (impx/models/fast.py:952): data as `forward_train_scan`'s.
+    Returns the dict of `train_outputs`, whose accuracy counters are averaged
+    over all iterations and whose matches0 and matching_scores0 are the last
+    iteration's, in the keep masks of that iteration."""
+    cfg = model.config
+    gt = data["matching_mask"]
+    epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
+    desc, valid0, valid1, b, _ = _encode(model, data)
+    state = (desc, None, None, valid0, valid1, valid0, valid1)
+    terms, accs = zero_terms(epi is not None, desc.device), []
+    for i, do_pool in enumerate(_eimp_do_pool(cfg)):
+        state, terms, (idx0, ms0) = _eimp_train_step(model, i, do_pool, state, b, gt, epi, terms)
+        accs.append(matching_accuracy(idx0, gt))
+    terms = {k: x / cfg.n_layers for k, x in terms.items()}
+    return loss_outputs(cfg, terms, idx0, ms0, _mean_accuracy(accs))
+
+
+def _gather_gt(gt, i0, i1):
+    """The assignment mask [B, N+1, M+1] in the slots i0 [B, k] (rows) and
+    i1 (columns), its dustbin row and column kept last
+    (impx/models/fast.py:1095): the rows and columns of keypoints left out
+    vanish, their matches no longer supervised."""
+    b, n1, m1 = gt.shape
+    rows = torch.cat([i0, torch.full((b, 1), n1 - 1, dtype=i0.dtype, device=i0.device)], dim=1)
+    cols = torch.cat([i1, torch.full((b, 1), m1 - 1, dtype=i1.dtype, device=i1.device)], dim=1)
+    g = torch.gather(gt, 1, rows[:, :, None].expand(-1, -1, m1))
+    return torch.gather(g, 2, cols[:, None, :].expand(-1, rows.shape[1], -1))
+
+
+def forward_train_scan_eimp_compact(model, data: dict[str, Any]) -> dict[str, Any]:
+    """AdaGMN's training forward with bucketed compaction
+    (impx/models/fast.py:1110): before each (iteration, bucket) point of
+    config.train_compaction, the kept keypoints of both images, their q/k,
+    the ground-truth mask and the epipolar matrix are gathered into `bucket`
+    slots (`_compact_gather`, the port's corrected gather of the cross k);
+    the gathered keypoints are then the queries and the norm's tokens, and
+    the loss runs on the compacted plan. Each iteration's matches are
+    scattered back to the original indexing and scored there against the
+    full ground truth; the accuracy is their mean over all iterations.
+    While nothing has been discarded before a gather the result equals
+    `forward_train_scan_eimp`'s. Adds compaction_overflow0/1, the survivors
+    dropped by full buckets, summed over the batch (fp32)."""
+    cfg = model.config
+    gt = data["matching_mask"].float()
+    epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
+    desc, valid0, valid1, b, n = _encode(model, data)
+    starts = dict(compaction_schedule(cfg.train_compaction, cfg.n_layers, "train_compaction", n))
+    g0 = g1 = torch.arange(n, device=desc.device).expand(b, n)
+    overflow0 = torch.zeros((b,), dtype=torch.int32, device=desc.device)
+    overflow1 = torch.zeros_like(overflow0)
+    gt_seg, epi_seg = gt, epi
+    state = (desc, None, None, valid0, valid1, valid0, valid1)
+    terms, accs = zero_terms(epi is not None, desc.device), []
+    for i, do_pool in enumerate(_eimp_do_pool(cfg)):
+        if i in starts:
+            k = starts[i]
+            desc, qk_self, qk_cross, keep0, keep1, _, _ = state
+            overflow0 += (keep0.sum(dim=1) - k).clamp(min=0).to(torch.int32)
+            overflow1 += (keep1.sum(dim=1) - k).clamp(min=0).to(torch.int32)
+            i0, i1 = _stable_topk_indices(keep0, k), _stable_topk_indices(keep1, k)
+            desc, qk_self, qk_cross, keep0, keep1, g0, g1 = _compact_gather(
+                desc, qk_self, qk_cross, keep0, keep1, g0, g1, i0, i1)
+            gt_seg = _gather_gt(gt_seg, i0, i1)
+            if epi_seg is not None:
+                epi_seg = torch.gather(torch.gather(epi_seg, 1, i0[:, :, None].expand(-1, -1, epi_seg.shape[2])),
+                                       2, i1[:, None, :].expand(-1, k, -1))
+            state = (desc, qk_self, qk_cross, keep0, keep1, keep0, keep1)
+        state, terms, (idx0, ms0) = _eimp_train_step(model, i, do_pool, state, b, gt_seg, epi_seg, terms)
+        with torch.no_grad():
+            idx0, ms0 = _scatter_matches(idx0, ms0, g0, g1, n)
+            accs.append(matching_accuracy(idx0, gt))
+    terms = {k: x / cfg.n_layers for k, x in terms.items()}
+    out = loss_outputs(cfg, terms, idx0, ms0, _mean_accuracy(accs))
+    out["compaction_overflow0"] = overflow0.sum().float()
+    out["compaction_overflow1"] = overflow1.sum().float()
+    return out

@@ -10,7 +10,10 @@ API (`init_state`, `_apply_layer`, `forward_one_layer`,
 entry points (`produce_matches_test`, the module's `forward(data, mode,
 training)`). The iterative loop (impx_torch/eval/iterative.py) steps the
 layers through it. The unrolled training forward (`forward_train`) runs the
-same layers under autograd with a supervised head after every cross layer.
+same layers under autograd with a supervised head after every cross layer;
+under norm_fn='bn' its keypoint encoder normalises from each image's batch
+statistics and its layers from the running statistics, as impx's
+GM.forward_train does (impx/models/gm.py:186-194, :159-183).
 DGNNS's stacked forwards are impx_torch/models/fast.py.
 
 GM's dtype contract (impx/ops/attention.py:114-120): the stream stays fp32;
@@ -46,6 +49,9 @@ class GM(nn.Module):
     kernel wrappers run those plain versions anyway."""
 
     sharing = False
+    # config.train_fused picks route B's attention core under autograd;
+    # AdaGMN's trainer ignores it, as impx's does
+    trains_fused = True
 
     def __init__(self, config: MatcherConfig, device: str | torch.device | None = None,
                  seed: int = 0, use_kernels: bool = True):
@@ -86,10 +92,12 @@ class GM(nn.Module):
         return out
 
     # ------------------------------------------------------------- building blocks
-    def encode_keypoint(self, norm_kpts, scores, valid=None):
-        """MLP over (x, y, score) -> [B, N, D] (impx/models/gm.py:58)."""
+    def encode_keypoint(self, norm_kpts, scores, valid=None, batch_stats: bool = False):
+        """MLP over (x, y, score) -> [B, N, D] (impx/models/gm.py:58), one
+        image's keypoints; batch_stats: batch norm from this image's valid
+        keypoints over the batch (impx's train=True)."""
         x = torch.cat([norm_kpts, scores[..., None]], dim=-1)
-        return self.kenc(x, ac_fn=self.config.ac_fn, mask=valid)
+        return self.kenc(x, ac_fn=self.config.ac_fn, mask=valid, batch_stats=batch_stats)
 
     def _norm_kpts(self, data, which: int):
         key = f"norm_keypoints{which}"
@@ -144,17 +152,19 @@ class GM(nn.Module):
         return {"self": None, "cross": None}
 
     def _apply_layer(self, layer_i: int, x, source, qk=None, key_mask=None, query_mask=None,
-                     with_lse: bool = False):
+                     with_lse: bool = False, batch_stats: bool = False):
         """One attentional-propagation layer (impx/models/gm.py:_apply_layer)
         under GM's dtype contract; returns (delta, (q, k)), and with_lse (the
-        kernel path only) the row lse [B, H, N] fp32 of kernel 4 third."""
+        kernel path only) the row lse [B, H, N] fp32 of kernel 4 third.
+        batch_stats: the MLP's batch norm from the batch's moments over the
+        tokens of query_mask."""
         attn_dtype = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else None
         # under autograd config.train_fused picks route B's attention core
         # (kernels 4 and 5), as on the stacked training forward
+        lse_core = self.trains_fused and self.config.train_fused and torch.is_grad_enabled()
         return self.gnn[layer_i](x, source, qk, key_mask, query_mask, ac_fn=self.config.ac_fn,
-                                 use_kernels=self.use_kernels, attn_dtype=attn_dtype,
-                                 lse_core=self.config.train_fused and torch.is_grad_enabled(),
-                                 with_lse=with_lse and self.use_kernels)
+                                 use_kernels=self.use_kernels, attn_dtype=attn_dtype, lse_core=lse_core,
+                                 with_lse=with_lse and self.use_kernels, batch_stats=batch_stats)
 
     def forward_stacked_layer(self, desc, layer_i: int, state, keep, keep_swap, query_mask,
                               with_lse: bool = False):
@@ -185,14 +195,18 @@ class GM(nn.Module):
         return desc0, desc1, state
 
     def _layer_pair(self, desc0, desc1, layer_i: int, state, key0, key1, query0, query1,
-                    with_lse: bool = False):
+                    with_lse: bool = False, batch_stats: bool = False):
         """forward_one_layer's body with the attention keys under key0/key1
-        and the queries' InstanceNorm under query0/query1 (AdaGMN's masked
-        loop keeps them apart). Returns (desc0, desc1, state, lse): the
-        stacked [2B, H, N] row lse of the layer's kernel 4 launch when
-        with_lse on the kernel path and N0 == N1, else None."""
+        and the queries' norm under query0/query1 (AdaGMN's masked loop keeps
+        them apart). The images go through one stacked launch when N0 == N1
+        and batch_stats is off; otherwise one launch an image, so that batch
+        statistics never pool the two images (impx normalises each call's
+        batch alone), and the state holds a (q, k) pair an image. Returns
+        (desc0, desc1, state, lse): the stacked [2B, H, N] row lse of the
+        layer's kernel 4 launch when with_lse on the kernel path and the
+        images were stacked, else None."""
         b, n0, n1 = desc0.shape[0], desc0.shape[1], desc1.shape[1]
-        if n0 == n1:
+        if n0 == n1 and not batch_stats:
             desc, state, lse = self.forward_stacked_layer(
                 torch.cat([desc0, desc1]), layer_i, state, torch.cat([key0, key1]), torch.cat([key1, key0]),
                 torch.cat([query0, query1]), with_lse)
@@ -201,22 +215,23 @@ class GM(nn.Module):
         kind = "cross" if cross else "self"
         qk0, qk1 = state[kind] or (None, None)
         d0, qk0 = self._apply_layer(layer_i, desc0, desc1 if cross else desc0, qk0, key1 if cross else key0,
-                                    query0)
+                                    query0, batch_stats=batch_stats)
         d1, qk1 = self._apply_layer(layer_i, desc1, desc0 if cross else desc1, qk1, key0 if cross else key1,
-                                    query1)
+                                    query1, batch_stats=batch_stats)
         return desc0 + d0, desc1 + d1, {**state, kind: (qk0, qk1)}, None
 
     # ------------------------------------------------------------------ forwards
-    def _encode_inputs(self, data):
+    def _encode_inputs(self, data, batch_stats: bool = False):
         """(desc0 [B, N0, D], desc1 [B, N1, D] fp32 with the keypoint encoding
-        added, valid0, valid1 bool, all-valid when absent)."""
+        added, valid0, valid1 bool, all-valid when absent). batch_stats: the
+        encoder's batch norm from each image's own batch (impx/models/gm.py:186)."""
         desc0, desc1 = data["descriptors0"], data["descriptors1"]
         valid = []
         for i, d in ((0, desc0), (1, desc1)):
             v = data.get(f"valid{i}")
             valid.append(torch.ones(d.shape[:2], dtype=torch.bool, device=d.device) if v is None else v.bool())
-        enc0 = self.encode_keypoint(self._norm_kpts(data, 0), data["scores0"], valid[0])
-        enc1 = self.encode_keypoint(self._norm_kpts(data, 1), data["scores1"], valid[1])
+        enc0 = self.encode_keypoint(self._norm_kpts(data, 0), data["scores0"], valid[0], batch_stats)
+        enc1 = self.encode_keypoint(self._norm_kpts(data, 1), data["scores1"], valid[1], batch_stats)
         return desc0 + enc0, desc1 + enc1, valid[0], valid[1]
 
     @torch.no_grad()
@@ -253,16 +268,17 @@ class GM(nn.Module):
         keypoints0/1, intrinsics0/1, gt_E for with_geo), moved to the model's
         device. Returns the dict of fast.py:train_outputs. Supervises every
         iteration: train_supervision='last' raises ValueError, as in impx.
-        Batch norm in train mode (norm_fn='bn', SuperGlue) raises."""
+        Under norm_fn='bn' the keypoint encoder normalises from batch
+        statistics, one image at a time, and the layers from the running
+        statistics, as impx's forward_one_layer calls them without train
+        (impx/models/gm.py:168-181); the running statistics then take the
+        layers' gradient."""
         cfg = self.config
         if cfg.train_supervision != "all":
             raise ValueError(f"train_supervision={cfg.train_supervision!r} needs the stacked training forward "
                              "(DGNNS with norm_fn='in' and the same keypoint count in both images)")
-        if cfg.norm_fn != "in":
-            raise NotImplementedError(f"{type(self).__name__} training with norm_fn={cfg.norm_fn!r} (batch norm "
-                                      "in train mode) is not ported yet: ROADMAP A7")
         data = self._on_device(data)
-        desc0, desc1, valid0, valid1 = self._encode_inputs(data)
+        desc0, desc1, valid0, valid1 = self._encode_inputs(data, batch_stats=True)
         gt = data["matching_mask"]
         epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
         state = self.init_state()

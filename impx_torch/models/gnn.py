@@ -2,9 +2,9 @@
 of impx/models/fast.py: `_attn_block` :120 and `_tail` :99).
 
 A layer attends from x to a source, merges the heads, and passes
-concat([x, message]) through a 2-block MLP with masked InstanceNorm (or, for
-SuperGlue, batch norm from running statistics); the caller adds the
-residual. A full layer owns q/k/v/merge. A shared layer (IMP
+concat([x, message]) through a 2-block MLP with masked InstanceNorm or batch
+norm (from running statistics, or from the batch's where the caller asks);
+the caller adds the residual. A full layer owns q/k/v/merge. A shared layer (IMP
 attention sharing) owns only proj (the value projection) and merge, and
 attends with the q/k that the previous layer of its kind projected, which
 gives the same probabilities as reusing that layer's softmax.
@@ -50,17 +50,20 @@ class Dense(nn.Module):
         return dense_apply(self.weight, self.bias, x)
 
 
-class BatchNormEval(nn.Module):
-    """Batch norm of one MLP block from running statistics: parameters
-    bn_scale, bn_bias and buffers bn_mean, bn_var, as impx's block leaves
-    (impx/ops/mlp.py:55-62), at their initial values 1, 0, 0, 1."""
+class BatchNorm(nn.Module):
+    """Batch norm of one MLP block: bn_scale, bn_bias, bn_mean and bn_var, as
+    impx's block leaves (impx/ops/mlp.py:55-62), at their initial values 1,
+    0, 0, 1. All four are parameters: impx keeps the running statistics as
+    ordinary leaves of its params, so its optimizer moves them by their
+    gradient (and weight decay) like any weight, and nothing updates them
+    from batch moments. make_train_step moves them alike (ROADMAP section C)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.bn_scale = nn.Parameter(torch.ones(channels))
         self.bn_bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("bn_mean", torch.zeros(channels))
-        self.register_buffer("bn_var", torch.ones(channels))
+        self.bn_mean = nn.Parameter(torch.zeros(channels))
+        self.bn_var = nn.Parameter(torch.ones(channels))
 
     @torch.no_grad()
     def reset_parameters(self) -> None:
@@ -73,15 +76,16 @@ class BatchNormEval(nn.Module):
 
 class MLP(nn.Module):
     """Dense -> [norm -> activation] per block but the last. norm_fn 'in' is
-    the masked InstanceNorm; 'bn' is batch norm from running statistics, and
-    such an MLP raises in training mode (batch statistics are not ported)."""
+    the masked InstanceNorm; 'bn' is batch norm, from the running statistics
+    or, with batch_stats=True, from the batch's (impx's `train=` of
+    mlp_apply, which each call site chooses: nn.Module.training does not)."""
 
     def __init__(self, channels: Sequence[int], norm_fn: str = "in"):
         super().__init__()
         if norm_fn not in ("in", "bn"):
             raise ValueError(f"unknown norm_fn {norm_fn!r}")
         self.blocks = nn.ModuleList(Dense(a, b) for a, b in zip(channels[:-1], channels[1:]))
-        self.norms = (nn.ModuleList(BatchNormEval(c) for c in channels[1:-1]) if norm_fn == "bn"
+        self.norms = (nn.ModuleList(BatchNorm(c) for c in channels[1:-1]) if norm_fn == "bn"
                       else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -91,15 +95,10 @@ class MLP(nn.Module):
         for norm in self.norms or ():
             norm.reset_parameters()
 
-    def forward(self, x, *, ac_fn: str, mask=None):
-        batch_norms = None
-        if self.norms is not None:
-            if self.training:
-                raise NotImplementedError("batch norm in training mode (batch statistics) is not "
-                                          "ported; call .eval() to run from running statistics")
-            batch_norms = [norm.stats() for norm in self.norms]
+    def forward(self, x, *, ac_fn: str, mask=None, batch_stats: bool = False):
+        batch_norms = None if self.norms is None else [norm.stats() for norm in self.norms]
         return mlp_apply([(b.weight, b.bias) for b in self.blocks], x, ac_fn=ac_fn, mask=mask,
-                         batch_norms=batch_norms)
+                         batch_norms=batch_norms, batch_stats=batch_stats)
 
 
 class AttentionalPropagation(nn.Module):
@@ -120,7 +119,8 @@ class AttentionalPropagation(nn.Module):
         self.mlp.reset_parameters(generator)
 
     def forward(self, x, source, qk, key_mask, query_mask, *, ac_fn: str, use_kernels: bool = True,
-                lse_core: bool = False, attn_dtype: torch.dtype | None = None, with_lse: bool = False):
+                lse_core: bool = False, attn_dtype: torch.dtype | None = None, with_lse: bool = False,
+                batch_stats: bool = False):
         """x, source [B, N, D] in the stream dtype; `qk` the (q, k) carried from
         the previous layer of this kind (used only by shared layers). Returns
         (delta, (q, k)) with q/k [B, H, N, dh]. use_kernels=False runs the
@@ -130,7 +130,8 @@ class AttentionalPropagation(nn.Module):
         the fast path's stream is already in the compute dtype. with_lse
         (inference, kernel path): the attention is kernel 4, and the return
         is (delta, (q, k), lse) with each query row's log-sum-exp [B, H, N]
-        fp32, from which EIMP's key masses take one pass."""
+        fp32, from which EIMP's key masses take one pass. batch_stats: batch
+        norm from the moments of query_mask's tokens (norm_fn='bn')."""
         h = self.num_heads
         if self.shared:
             q, k = qk
@@ -146,15 +147,16 @@ class AttentionalPropagation(nn.Module):
             q, k, v = q.to(attn_dtype), k.to(attn_dtype), v.to(attn_dtype)
         if with_lse:
             out, lse = mha_fused_lse(q, k, v, key_mask)
-            return self.tail(x, out, merge, query_mask, ac_fn), (q, k), lse
+            return self.tail(x, out, merge, query_mask, ac_fn, batch_stats), (q, k), lse
         if use_kernels and not lse_core:
             out = mha_fused(q, k, v, key_mask)
         else:  # the plain versions keep the kernels' residuals: q, k, v (and o, lse)
             out = (MhaLseFunction if lse_core else MhaFunction).apply(q, k, v, key_mask, not use_kernels)
-        return self.tail(x, out, merge, query_mask, ac_fn), (q, k)
+        return self.tail(x, out, merge, query_mask, ac_fn, batch_stats), (q, k)
 
-    def tail(self, x, out, merge: Dense, query_mask, ac_fn: str):
+    def tail(self, x, out, merge: Dense, query_mask, ac_fn: str, batch_stats: bool = False):
         """Head merge, then the concat-MLP (its norm in fp32), all in x's
         dtype (impx/models/fast.py:_tail)."""
         message = merge_heads(merge.weight, merge.bias, out.to(x.dtype))
-        return self.mlp(torch.cat([x, message], dim=-1), ac_fn=ac_fn, mask=query_mask)
+        return self.mlp(torch.cat([x, message], dim=-1), ac_fn=ac_fn, mask=query_mask,
+                        batch_stats=batch_stats)

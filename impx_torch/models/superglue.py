@@ -6,15 +6,22 @@ descriptor 256, keypoint encoder (32, 64, 128, 256), 4 heads, 9 x (self,
 cross) layers, 100 Sinkhorn iterations, match threshold 0.2) is
 MatcherConfig(norm_fn='bn', sinkhorn_iterations=100) at the defaults' widths.
 
-Its MLPs normalise with batch norm from running statistics; the model is
-built in eval mode, and training mode (batch statistics) raises. Both images
-of every pair go through each layer in one call, stacked on the batch axis,
-as DGNNS's forward does: in eval mode batch norm is a per-channel affine map
-and attention runs pair by pair, so the stack computes impx's unrolled
-GM.forward_one_layer (impx/models/gm.py:159-183) with half the attention
-launches. Pairs with unequal keypoint counts go through GM's unrolled
-forward (one launch an image), as impx's SuperGlue, a GM, takes them
-(impx/models/gm.py:196-221).
+Its MLPs normalise with batch norm from running statistics. Both images of
+every pair go through each layer in one call, stacked on the batch axis, as
+DGNNS's forward does: from running statistics batch norm is a per-channel
+affine map and attention runs pair by pair, so the stack computes impx's
+unrolled GM.forward_one_layer (impx/models/gm.py:159-183) with half the
+attention launches. Pairs with unequal keypoint counts go through GM's
+unrolled forward (one launch an image), as impx's SuperGlue, a GM, takes
+them (impx/models/gm.py:196-221). The model is built in eval mode, which
+chooses nothing: each call names its statistics.
+
+Training is GM's unrolled forward_train (impx's SuperGlue trains through
+GM.forward_train): the keypoint encoder normalises from each image's batch
+statistics, one image at a time; the layers, stacked, from the running
+statistics, which then take their gradient; after each of the 9 cross
+layers the shared final projection, the log-domain head (kernel 7's forward
+under LogOTFused) and graph_loss of the log plan.
 
 The dtype contract is GM's (impx/ops/attention.py:114-120), not the fast
 path's: the stream stays fp32, q/k/v are projected in fp32 and cast to the

@@ -36,20 +36,28 @@ def mlp_apply(
     ac_fn: str = "relu",
     mask: torch.Tensor | None = None,
     batch_norms: Sequence[tuple[torch.Tensor, ...]] | None = None,
+    batch_stats: bool = False,
 ) -> torch.Tensor:
-    """Dense -> [norm -> activation] for every block but the last.
+    """Dense -> [norm -> activation] for every block but the last
+    (impx/ops/mlp.py:71).
 
     The norm is the masked InstanceNorm, or, given `batch_norms` (scale,
-    bias, running mean, running var for each block but the last), batch norm
-    in eval mode (impx/ops/mlp.py:42, norm_fn='bn', train=False), which
-    ignores the mask. It runs in fp32 and casts back to x's dtype (a no-op at
-    fp32; under bf16 it is the contract of impx/models/fast.py:109)."""
+    bias, running mean, running var for each block but the last), batch
+    norm: from the running statistics, which ignores the mask (impx's
+    train=False), or with batch_stats from the moments of the tokens of
+    `mask` over the whole batch (impx's train=True). As in impx, the batch
+    moments do not update the running statistics. The norm runs in fp32 and
+    casts back to x's dtype (a no-op at fp32; under bf16 it is the contract
+    of impx/models/fast.py:109)."""
     n = len(blocks)
     for i, (w, b) in enumerate(blocks):
         x = dense_apply(w, b, x)
         if i < n - 1:
             if batch_norms is None:
                 y = norms.instance_norm(x.float(), mask=mask)
+            elif batch_stats:
+                scale, bias = batch_norms[i][:2]
+                y, _, _ = norms.batch_norm_train(x.float(), scale, bias, mask=mask)
             else:
                 y = norms.batch_norm_eval(x.float(), *batch_norms[i])
             x = activation(y.to(x.dtype), ac_fn)

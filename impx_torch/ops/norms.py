@@ -1,9 +1,10 @@
 """Normalization in [B, N, C] layout (impx/ops/norms.py).
 
 InstanceNorm1d(eps=1e-3, affine=False) over the token axis, with statistics
-over valid tokens only, and BatchNorm1d(eps=1e-3) in eval mode, from running
-statistics (SuperGlue's norm). Batch norm in train mode (batch statistics,
-synchronised across replicas) waits for SuperGlue's training slice.
+over valid tokens only, and BatchNorm1d(eps=1e-3) from running statistics
+(eval mode) or from the batch's (train mode, masked). impx's `axis_name`,
+which averages the batch moments across a data mesh, is not carried: one
+device holds the batch (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -26,6 +27,24 @@ def instance_norm(x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Te
         mean = (x * m).sum(dim=1, keepdim=True) / count
         var = (((x - mean) ** 2) * m).sum(dim=1, keepdim=True) / count
     return (x - mean) * torch.rsqrt(var + EPS)
+
+
+def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     mask: torch.Tensor | None = None):
+    """Batch norm over (B, N) per channel of [B, N, C] from the batch's own
+    moments, counting only the tokens of `mask` [B, N] (count clamped at 1);
+    returns (y, mean, var) (impx/ops/norms.py:40). The variance is
+    E[x^2] - E[x]^2, as impx computes it, not the centred sum."""
+    if mask is None:
+        mean = x.mean(dim=(0, 1))
+        sq = (x * x).mean(dim=(0, 1))
+    else:
+        m = mask[:, :, None].to(x.dtype)
+        count = m.sum().clamp_min(1.0)
+        mean = (x * m).sum(dim=(0, 1)) / count
+        sq = (x * x * m).sum(dim=(0, 1)) / count
+    var = sq - mean * mean
+    return (x - mean) * torch.rsqrt(var + EPS) * scale + bias, mean, var
 
 
 def batch_norm_eval(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

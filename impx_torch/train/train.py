@@ -15,10 +15,15 @@ device: the CUDA card by default, and without one the CLI raises unless
 --train_fused is route B (kernels 4 and 5, MatcherConfig.train_fused).
 --attn_impl, --train_remat and --attn_block_q choose how XLA runs and stores
 impx's step on the TPU; they are accepted so that impx's configs and scripts
-parse, and have no counterpart in the port. EIMP training (--network adagmn,
---train_compaction), batch norm in train mode (--norm_fn bn) and
-parallelism (--multihost, --model_parallel > 1) are refused, each naming its
+parse, and have no counterpart in the port. --network adagmn trains EIMP
+(AdaGMN.forward_train), --train_compaction 'it:bucket,...' its compacted
+scan, and --norm_fn bn batch norm in train mode, each as impx trains them.
+Parallelism (--multihost, --model_parallel > 1) is refused, naming its
 ROADMAP item.
+
+  python -m impx_torch.train.train --synthetic --device cpu --network adagmn --layers 4 \
+      --max_keypoints 64 --n_min_tokens 16 --train_compaction 3:48 --batch_size 2 --epochs 1 \
+      --its_per_epoch 2
 """
 from __future__ import annotations
 
@@ -78,12 +83,15 @@ parser.add_argument("--train_remat", type=str, default="full",
                     help="impx's XLA rematerialisation policy; no counterpart here")
 parser.add_argument("--train_fused", action="store_true",
                     help="route B: the attention forward saves its row log-sum-exp (kernel 4) and "
-                         "the backward runs from it (kernel 5)")
+                         "the backward runs from it (kernel 5); with --network adagmn it does nothing, "
+                         "as in impx, whose EIMP trainers run route A only")
 parser.add_argument("--train_supervision", type=str, default="all", choices=["all", "last"],
                     help="'all' supervises every iteration (the reference objective); 'last' the "
                          "final one (DGNNS's stacked forward only)")
 parser.add_argument("--train_compaction", type=str, default="",
-                    help="EIMP training compaction 'it:bucket,...': not ported yet (ROADMAP A7)")
+                    help="EIMP training bucket-compaction schedule 'it:bucket,it:bucket,...' (adagmn with "
+                         "norm_fn in, no log_ot: pooled keypoints are dropped during training, the sliced "
+                         "semantics; '' = the masked trainer)")
 parser.add_argument("--attn_block_q", type=int, default=0,
                     help="impx's Pallas q-block; no counterpart here (the kernels pick their tiles)")
 parser.add_argument("--multihost", action="store_true", help="not ported yet (ROADMAP A11)")
@@ -100,9 +108,6 @@ def refuse_unported(args) -> None:
     """NotImplementedError, naming its ROADMAP item, for a setting the port
     does not train."""
     refused = (
-        (args.network == "adagmn", "--network adagmn (EIMP training)", "A7"),
-        (bool(args.train_compaction), "--train_compaction (EIMP training compaction)", "A7"),
-        (args.norm_fn != "in", f"--norm_fn {args.norm_fn} (batch norm in train mode)", "A7"),
         (args.multihost, "--multihost (multi-host training)", "A11"),
         (int(args.model_parallel or 1) > 1, "--model_parallel > 1 (tensor parallelism)", "A11"),
     )
@@ -126,9 +131,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_model(args):
-    """The port's GM or DGNNS at the flags' MatcherConfig, random weights
-    from seed 0, on args.device."""
-    from impx_torch.models import DGNNS, MatcherConfig
+    """The port's GM, DGNNS or AdaGMN at the flags' MatcherConfig, random
+    weights from seed 0, on args.device."""
+    from impx_torch.eval.eval_imp import parse_compaction
+    from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
     from impx_torch.models.gm import GM
 
     cfg = MatcherConfig(
@@ -147,8 +153,9 @@ def build_model(args):
         log_ot=args.log_ot,
         train_fused=args.train_fused,
         train_supervision=args.train_supervision,
+        train_compaction=parse_compaction(args.train_compaction),
     )
-    return {"gm": GM, "dgnns": DGNNS}[args.network](cfg, device=args.device)
+    return {"gm": GM, "dgnns": DGNNS, "adagmn": AdaGMN}[args.network](cfg, device=args.device)
 
 
 def build_dataset(args):

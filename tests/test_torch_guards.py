@@ -131,9 +131,10 @@ def test_wrappers_refuse_devices_without_a_kernel():
                                          ("train_remat", "attn")])
 def test_unported_options_raise(field, value):
     """A config that names a field the port does not carry is refused, not run
-    without it (train_compaction changes the objective and arrives with EIMP
-    training; attn_block_q and train_remat are choices of impx's TPU step)."""
-    with pytest.raises(TypeError, match=field):
+    without it (attn_block_q and train_remat are choices of impx's TPU step).
+    train_compaction is carried and checked: a schedule point outside
+    (0, n_layers) raises ValueError (n_layers is 2 here)."""
+    with pytest.raises(ValueError if field == "train_compaction" else TypeError, match=field):
         dataclasses.replace(SMALL, **{field: value})
 
 
@@ -183,15 +184,38 @@ def test_backward_wrappers_refuse_devices_without_a_kernel():
 SMALL_BN = dataclasses.replace(SMALL, norm_fn="bn")
 
 
-def test_log_ot_training_raises():
-    """log_ot training runs on DGNNS and GM (tests/test_torch_train_heads.py);
-    on the routes still to port, EIMP and batch norm in train mode, it
-    refuses, naming ROADMAP A7, rather than train something else."""
+ALL_KERNELS = ("mha_fused", "mha_fused_lse", "mha_bwd", "mha_bwd_from_lse", "attention_key_mass",
+               "sinkhorn_fused_stats", "log_sinkhorn_fused_stats")
+
+
+def _cpu_training_step(model, call=None):
+    """One forward_train (or `call`) and backward on CPU tensors: the loss is
+    finite and no kernel wrapper counts a launch (they run their plain
+    versions there)."""
+    import impx_torch.ops.kernels.attention as ka
+    import impx_torch.ops.kernels.log_sinkhorn as kl
+    import impx_torch.ops.kernels.sinkhorn as ks
+
+    kernels = [getattr(m, name) for name in ALL_KERNELS for m in (ka, ks, kl) if hasattr(m, name)]
     data = _small_pairs(b=2)
-    data["matching_mask"] = np.zeros((2, 17, 17), np.float32)
-    for model, config in ((AdaGMN, SMALL), (DGNNS, SMALL_BN)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            model(dataclasses.replace(config, log_ot=True), device="cpu").forward_train(data)
+    gt = np.zeros((2, 17, 17), np.float32)
+    gt[:, np.arange(8), np.arange(8)] = 1
+    gt[:, np.arange(8, 16), 16] = gt[:, 16, np.arange(8, 16)] = 1
+    data["matching_mask"] = gt
+    before = [fn.launches for fn in kernels]
+    out = (call or model.forward_train)(data)
+    out["loss"].backward()
+    assert bool(torch.isfinite(out["loss"]))
+    assert any(p.grad is not None and p.grad.abs().sum() > 0 for p in model.parameters())
+    assert [fn.launches for fn in kernels] == before
+
+
+def test_log_ot_training_raises():
+    """log_ot training runs on every route now, EIMP's unrolled loop and
+    batch norm in train mode included (it raised before they were ported):
+    a finite loss on the CPU and no kernel launch counted."""
+    for model, config in ((AdaGMN, SMALL), (DGNNS, SMALL_BN), (AdaGMN, SMALL_BN)):
+        _cpu_training_step(model(dataclasses.replace(config, log_ot=True), device="cpu"))
 
 
 @pytest.mark.parametrize("model,config,item", [
@@ -199,26 +223,29 @@ def test_log_ot_training_raises():
     (GM, SMALL_BN, "A7")],
     ids=["dgnns-bn", "eimp-bn", "eimp", "superglue", "gm-bn"])
 def test_unported_training_routes_raise(model, config, item):
-    """Training routes that are not ported refuse, naming their ROADMAP item,
-    rather than train something else: batch norm in train mode (GM, DGNNS
-    and SuperGlue under norm_fn='bn') and EIMP's trainer (A7). The models
-    themselves run at inference (tests/test_torch_routes.py)."""
-    data = _small_pairs(b=2)
-    data["matching_mask"] = np.zeros((2, 17, 17), np.float32)
+    """The training routes of ROADMAP item A7, which raised until they were
+    ported (batch norm in train mode for GM, DGNNS and SuperGlue; EIMP's
+    trainer), now train through forward_train and through the reference's
+    dispatch model(data, training=True): a finite loss on the CPU and no
+    kernel launch counted (tests/test_torch_train_bn.py and
+    tests/test_torch_train_eimp.py hold them against impx)."""
     m = model(config, device="cpu")
     for call in (m.forward_train, lambda d: m(d, training=True)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call(data)
+        m.zero_grad(set_to_none=True)
+        _cpu_training_step(m, call)
 
 
 def test_batch_norm_models_are_built_in_eval_mode():
-    """Batch norm runs from running statistics; a model put in training mode
-    raises in its MLPs instead of normalising with batch statistics."""
+    """Batch norm models are built in eval mode, which chooses nothing: each
+    call names its statistics (inference the running ones), so a model put
+    in training mode matches exactly as in eval mode."""
     for cls in (DGNNS, AdaGMN):
         model = cls(SMALL_BN, device="cpu")
         assert not model.training
-        with pytest.raises(NotImplementedError, match="training mode"):
-            model.train().produce_matches(_small_pairs())
+        ref = model.produce_matches(_small_pairs())
+        out = model.train().produce_matches(_small_pairs())
+        for a, r in zip(out["indices0"], ref["indices0"]):
+            assert torch.equal(a, r)
 
 
 def test_superglue_entry_point_needs_cuda_unless_cpu_is_named(monkeypatch):
@@ -230,9 +257,14 @@ def test_superglue_entry_point_needs_cuda_unless_cpu_is_named(monkeypatch):
 
 
 def test_superglue_in_training_mode_raises():
-    model = SuperGlue(SMALL_BN, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="training mode"):
-        model.produce_matches(_small_pairs())
+    """It raised before batch norm in train mode was ported; now the module's
+    mode chooses nothing: SuperGlue in training mode matches from its running
+    statistics, as in eval mode."""
+    model = SuperGlue(SMALL_BN, device="cpu")
+    ref = model.produce_matches(_small_pairs(), only_last=True)
+    out = model.train().produce_matches(_small_pairs(), only_last=True)
+    assert torch.equal(out["indices0"][0], ref["indices0"][0])
+    assert torch.equal(out["scores"][0], ref["scores"][0])
 
 
 def test_log_sinkhorn_wrapper_refuses_devices_without_a_kernel():

@@ -209,9 +209,10 @@ def test_batch_norm_eval_matches_impx():
 
 
 def test_bn_mlp_matches_impx():
-    """mlp_apply and the MLP module with batch norm (eval mode) against
-    impx's mlp_apply(norm_fn='bn', train=False); the MLP raises in training
-    mode."""
+    """mlp_apply and the MLP module with batch norm from running statistics
+    against impx's mlp_apply(norm_fn='bn', train=False), the module in
+    training mode as in eval mode: each call names its statistics (batch
+    statistics: tests/test_torch_train_bn.py)."""
     rs = np.random.RandomState(1)
     channels = [3, 32, 64, 64]
     blocks = _random_bn(rs, jax.tree.map(np.asarray, mlp_init(jax.random.PRNGKey(0), channels,
@@ -233,8 +234,8 @@ def test_bn_mlp_matches_impx():
             if i < len(blocks) - 1:
                 for k in ("bn_scale", "bn_bias", "bn_mean", "bn_var"):
                     getattr(module.norms[i], k).copy_(torch.from_numpy(blk[k]))
-    with pytest.raises(NotImplementedError, match="training mode"):
-        module(torch.from_numpy(x), ac_fn="relu")
+    np.testing.assert_allclose(module.train()(torch.from_numpy(x), ac_fn="relu").detach().numpy(),
+                               np.asarray(ref), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(module.eval()(torch.from_numpy(x), ac_fn="relu").detach().numpy(),
                                np.asarray(ref), rtol=1e-5, atol=1e-5)
 

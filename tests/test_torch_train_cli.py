@@ -187,12 +187,66 @@ def test_config_merge_order_is_impx(tmp_path):
     (["--network", "adagmn"], "A7"), (["--norm_fn", "bn"], "A7"), (["--train_compaction", "1:16"], "A7"),
     (["--multihost"], "A11"), (["--model_parallel", "2"], "A11")],
     ids=["adagmn", "batch-norm", "train-compaction", "multihost", "model-parallel"])
-def test_unported_flags_raise_naming_their_item(tmp_path, flags, item):
-    """Each refused flag raises before a model, a dataset or a run directory
-    is made, naming its ROADMAP item."""
+def test_unported_flags_raise_naming_their_item(tmp_path, flags, item, restore_sigterm):
+    """Each refused flag (A11) raises before a model, a dataset or a run
+    directory is made, naming its ROADMAP item. The flags of A7, refused
+    until EIMP training and batch norm in train mode were ported, now train:
+    two steps on the CPU, finite losses, no kernel launch counted."""
+    argv = ["--synthetic", "--device", "cpu", "--save_path", str(tmp_path), *flags]
+    if item == "A7":
+        before = _launches()
+        train.main([*argv, "--layers", "2", "--max_keypoints", "16", "--batch_size", "2", "--epochs", "1",
+                    "--its_per_epoch", "2", "--log_intervals", "1", "--feature", "sift"])
+        losses = _losses(tmp_path)[0]
+        assert len(losses) == 2 and np.isfinite(losses).all()
+        assert _launches() == before
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
-        train.main(["--synthetic", "--device", "cpu", "--save_path", str(tmp_path), *flags])
+        train.main(argv)
     assert not os.listdir(tmp_path)
+
+
+def _launches() -> list:
+    """Every kernel wrapper's launch count."""
+    from impx_torch.ops.kernels import attention, log_sinkhorn, sinkhorn
+
+    return [fn.launches for fn in (attention.mha_fused, attention.mha_fused_lse, attention.mha_bwd,
+                                   attention.mha_bwd_from_lse, attention.attention_key_mass,
+                                   sinkhorn.sinkhorn_fused_stats, log_sinkhorn.log_sinkhorn_fused_stats)]
+
+
+def test_cli_trains_eimp_with_compaction(tmp_path, restore_sigterm):
+    """--network adagmn --train_compaction: two steps of the compacted EIMP
+    trainer on --synthetic with --device cpu (4 layers, pooling from
+    iteration 3 with n_min_tokens 8, a bucket of 24 of 32 keypoints before
+    it): the schedule reaches the config, the losses are finite, the
+    checkpoint is written, no kernel launch is counted."""
+    before = _launches()
+    trainer = train.main(["--synthetic", "--device", "cpu", "--save_path", str(tmp_path), "--network", "adagmn",
+                          "--train_compaction", "3:24", "--layers", "4", "--n_min_tokens", "8", "--feature", "sift",
+                          "--max_keypoints", "32", "--batch_size", "2", "--epochs", "1", "--its_per_epoch", "2",
+                          "--log_intervals", "1"])
+    cfg = trainer.model.config
+    assert type(trainer.model).__name__ == "AdaGMN" and cfg.train_compaction == ((3, 24),)
+    losses = _losses(tmp_path)[0]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert os.path.isfile(os.path.join(trainer.save_dir, "adagmn.00"))
+    assert _launches() == before
+
+
+def test_cli_trains_batch_norm(tmp_path, restore_sigterm):
+    """--norm_fn bn (DGNNS): two steps on --synthetic with --device cpu, finite
+    losses; the layers' running statistics are parameters that the steps
+    move, as impx's optimizer moves them."""
+    argv = ["--synthetic", "--device", "cpu", "--save_path", str(tmp_path), "--network", "dgnns", "--norm_fn", "bn",
+            "--layers", "2", "--feature", "sift", "--max_keypoints", "32", "--batch_size", "2", "--epochs", "1",
+            "--its_per_epoch", "2", "--log_intervals", "1"]
+    trainer = train.main(argv)
+    assert trainer.model.config.norm_fn == "bn"
+    losses = _losses(tmp_path)[0]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    var = trainer.model.state_dict()["gnn.0.mlp.norms.0.bn_var"]
+    assert not torch.equal(var, torch.ones_like(var))
 
 
 def test_cli_needs_the_card_unless_cpu_is_named(tmp_path, monkeypatch, capsys, restore_sigterm):
