@@ -144,9 +144,17 @@ and AdaGMN under batch norm, and SuperGlue at its published widths (kernel
 every pool; AdaGMN's masked and compacted make_train_step in turns (step
 ms, a profiled step's device time, idle share and operations); then the
 CLI's --network adagmn, --train_compaction 4:512,8:256, --norm_fn bn and
---network adagmn --norm_fn bn runs as in (21). The line
+--network adagmn --norm_fn bn runs as in (21). (23) Parallelism: (a) the
+data-parallel step through a one-rank NCCL group against the plain step,
+fp32 and bf16, its all-reduces counted; then ranks sharing the one card over
+gloo (`--parallel-rank`): (b) the data-parallel step at world 2 and (c) the
+tensor-parallel forward, AdaGMN's pooling and step at (1, 2), the steps held
+by their loss and the gradient each applied (cosines, global norm) against
+the one-process step's; (d) the GPipe forward at 3 stages x 2 microbatches
+against forward_scan. The line
 before the last lists the kernels as JSON (with each kernel's launches over
-phase 17's, 18's, 19's, 20's, 21's and 22's kernel-path runs, and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
+phase 17's, 18's, 19's, 20's, 21's and 22's kernel-path runs, phase 23's as
+"launches_parallel", and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
 times, both bounds, the plain and library times); the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
@@ -178,7 +186,7 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9   # MUFU: 16 per SM per clock, 132 SMs, 1.98 G
 
 B, N, D, H = 4, 2048, 256, 4      # the main path: 4 pairs of 2048 keypoints
 ITERS = 20
-TIMED_RUNS = 8                    # 12 before phase 18 was added: the script stays within about 300 s
+TIMED_RUNS = 6                    # 12 before phase 18, 8 before phase 23: the script stays within about 600 s
 WRAPPER_CALLS = 300               # host-clock calls of the attention wrapper, already-built inputs
 # the main path's attention group in the profile before the bf16 forward's
 # redesign (mma.sync, 64-query blocks), as PERF.md section 5 records it
@@ -207,8 +215,8 @@ EIMP_BIN_SCORE = 9.0
 EIMP_KEEP_AGREE_MIN = 0.99        # final keep masks equal, kernel vs plain path
 # training: configs/config_train_megadepth.json (batch 16, 1024 keypoints)
 TB, TN = 16, 1024
-TRAIN_STEPS = 6                   # timed make_train_step steps a route, fresh batches (10 before phase 18)
-FIXED_STEPS = 10                  # steps on one fixed batch a route: the loss must fall
+TRAIN_STEPS = 4                   # timed make_train_step steps a route, fresh batches (10 before phase 18, 6 before 23)
+FIXED_STEPS = 6                   # steps on one fixed batch a route: the loss must fall (10 before phase 23)
 TRAIN_STEPS_F32 = 3               # the same at fp32 (no fixed-batch loop: the bf16 routes hold it)
 FWD_LSE_TOL = 1e-5                # the row log-sum-exp, fp32, elementwise (atol = rtol)
 # the training kernels' dq, dk and dv against their plain versions: the
@@ -3236,16 +3244,13 @@ def queue_loops_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_
     feed = queue_feed(dev, QUEUE_PAIRS, 21)
     total = dict.fromkeys(kernels, 0)
     failures, runs = [], {}
-    # each loop twice, in turns (A B C D E E D C B A): the first run of the
-    # phase pays one-time costs, and the host's pace drifts between runs
-    order = list(runners(imp, eimp).items())
-    for label, run in order + order[::-1]:
+    # each loop once (twice in turns, A B C D E E D C B A, before phase 23 took
+    # the script's time: the first run of the phase pays one-time costs, and
+    # the host's pace drifts between runs)
+    for label, run in runners(imp, eimp).items():
         out = queue_run(label, run, feed, kernels)
         for k, n in out["launches"].items():
             total[k] += n
-        if label in runs:
-            runs[label]["pairs_per_s"] = (runs[label]["pairs_per_s"], out["pairs_per_s"])
-            continue
         runs[label] = out
         if label == "BatchedIterativeMatcher":   # the plain Sinkhorn plan at its checkpoints
             ok = out["launches"]["mha_fused"] > 0 and out["launches"]["sinkhorn_fused_stats"] == 0
@@ -3260,8 +3265,7 @@ def queue_loops_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_
             failures.append(f"(a) {label}: every pair stopped at the same iteration {out['histogram']}")
         if label in ("refill", "staged") and out["completed"] != QUEUE_PAIRS:
             failures.append(f"(b) {label}: completed {out['completed']} of {QUEUE_PAIRS}")
-    say("queue pairs_per_s, first and second run: " + "; ".join(
-        f"{label} {a:.2f}, {b:.2f}" for label, (a, b) in ((k, v["pairs_per_s"]) for k, v in runs.items())))
+    say("queue pairs_per_s, one run each: " + "; ".join(f"{label} {v['pairs_per_s']:.2f}" for label, v in runs.items()))
 
     # (c) the profiled runs: refill and staged on the permuted queue, the others on one batch
     perm = torch.randperm(QUEUE_PAIRS, generator=torch.Generator().manual_seed(22)).to(dev)
@@ -3328,7 +3332,7 @@ CLI_N1 = 768                      # image 1's keypoints at N0 != N1 (GM's unroll
 NK_CHECK_SHAPES = tuple((dtype, shape) for shape in (dict(nk=CLI_N1), dict(b=3, h=2, n=333, dh=32, nk=290))
                         for dtype in (torch.bfloat16, torch.float32))
 CLI_CONFIG = "configs/config_train_megadepth.json"
-CLI_STEPS = 6                     # steps a CLI run: one warm-up, four timed, one profiled
+CLI_STEPS = 5                     # steps a CLI run: one warm-up, three timed, one profiled (6 before phase 23)
 ATTN_A = {"mha_fused": 30, "mha_bwd": 30}
 LOG_OT = {**ATTN_A, "log_sinkhorn_fused_stats": 15}
 CLI_RUNS = (("base", (), ATTN_A), ("premade samples", (), ATTN_A), ("gm", ("--network", "gm"), ATTN_A),
@@ -3689,6 +3693,416 @@ def eimp_training_phase(dev, kernels, ka, AdaGMN, DGNNS, SuperGlue, MatcherConfi
     return {k: total[k] + cli[k] for k in kernels}
 
 
+# ---------------------------------------------------------------- phase 23: parallelism
+PAR_DIR = "impx_torch/_build/parallel_phase"   # references and the ranks' outputs (gitignored), removed after
+PAR_SEED = 23
+PAR_ONE_RTOL, PAR_ONE_ATOL = 1e-6, 1e-6         # (a): a sum over one rank changes no value
+PAR_LOSS_RTOL, PAR_PARAM_ATOL, PAR_COS_MIN = 1e-5, 2.1e-4, 0.99999   # (b), (c)'s step: tests/test_training.py:113
+# one Adam step at lr 1e-4 moves an element by at most lr, so two steps from
+# the same start are within 2 lr < PAR_PARAM_ATOL whatever their gradients:
+# the step's own gradient (cosines and global norm) is what holds it
+PAR_GNORM_RTOL = 1e-4                           # (b), (c): the applied gradient's global norm
+PAR_TP_AGREE = {"float32": 0.999, "bfloat16": 0.99}   # (c) indices0 of valid rows against the one-rank path
+PAR_PP_AGREE = 0.999                           # (d)
+PAR_PP_STAGES, PAR_PP_MICRO = 3, 2
+PAR_TIMED = 3                                  # (a): timed steps of each path, in turns
+PAR_KERNELS = ("mha_fused", "sinkhorn_fused_stats", "mha_bwd", "attention_key_mass")   # kernels 1, 2, 3, 6
+PAR_CHILD_TIMEOUT = 240
+
+
+def par_model(dev, DGNNS, MatcherConfig, dtype="float32", norm_fn="in", cls=None):
+    """The training config's widths (eval_config('spp', 15)) in `dtype`,
+    random weights from seed 0; under bn random statistics from PAR_SEED."""
+    cfg = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype=dtype, norm_fn=norm_fn)
+    model = (cls or DGNNS)(cfg, device=dev, seed=0)
+    if norm_fn == "bn":
+        randomize_batch_norm(model, torch.Generator().manual_seed(PAR_SEED))
+    return model
+
+
+def par_batch(dev):
+    """The global training batch, TB pairs of TN keypoints (`train_pairs`), its
+    two halves made unequal: pairs TB/2.. lose 300 valid keypoints in image
+    0, and pairs 3TB/4.. leave their unmatched image-0 keypoints unsupervised
+    (no dustbin entry), so that the loss's global pair counts and the
+    global batch-norm moments differ from each half's."""
+    data = train_pairs(torch.Generator().manual_seed(PAR_SEED), "cpu")
+    half, n = TB // 2, TN
+    data["valid0"][half:, n - 300:] = False
+    data["matching_mask"][half:, n - 300:n, :] = 0
+    data["matching_mask"][3 * TB // 4:, :n, n] = 0
+    return {k: v.to(dev) for k, v in data.items()}
+
+
+def par_step_outputs(model, step, batch):
+    """One step of `step` on `batch` (this rank's rows): (its global loss,
+    the gradient it applied (each parameter's .grad after it), parameters
+    after it), the last two gathered to the single-device layout under
+    tensor parallelism."""
+    from impx_torch.parallel.tp import gather_full
+    from impx_torch.train.step import init_opt_state, init_stats
+
+    metrics, _ = step(init_opt_state(model), 0, batch, init_stats(batch["valid0"].device))
+    grads = gather_full(model, {n: torch.zeros_like(p) if p.grad is None else p.grad.detach()
+                                for n, p in model.named_parameters()})
+    params = gather_full(model, {n: p.detach() for n, p in model.named_parameters()})
+    return float(metrics["loss"]), grads, params
+
+
+def par_compare(label, got, ref, zero, loss_rtol, param_atol, cos_min, gnorm_rtol) -> None:
+    """Loss, gradient cosines, the gradient's global norm and parameters of
+    par_step_outputs against the one-process step's; zero: the leaves whose
+    exact gradient is 0, whose Adam step follows rounding noise (within
+    2 lr = 2e-4 of each other)."""
+    (loss, grads, params), (rloss, rgrads, rparams) = got, ref
+    rel = abs(loss - rloss) / abs(rloss)
+    cos = {n: torch.nn.functional.cosine_similarity(grads[n].flatten().double().cpu(),
+                                                    rgrads[n].flatten().double().cpu(), dim=0).item()
+           for n in rgrads if not zero.search(n) and rgrads[n].abs().max() > 0}
+    worst = min(cos, key=cos.get)
+    norm = lambda gs: sum(float((g.double() ** 2).sum()) for g in gs.values()) ** 0.5
+    gnorm, rgnorm = norm(grads), norm(rgrads)
+    gnorm_rel = abs(gnorm - rgnorm) / rgnorm
+    diff = {n: (params[n].cpu() - rparams[n].cpu()).abs().max().item() for n in rparams}
+    held = {n: d for n, d in diff.items() if not zero.search(n)}
+    worst_p = max(held, key=held.get)
+    worst_zero = max((d for n, d in diff.items() if zero.search(n)), default=0.0)
+    say(f"parallel {label}: loss {loss:.7f} one process {rloss:.7f} relative difference {rel:.3e} (max "
+        f"{loss_rtol:g}); of the gradient the step applied: smallest cosine {cos[worst]:.8f} at {worst} (min "
+        f"{cos_min}), global norm {gnorm:.6e} one process {rgnorm:.6e} relative difference {gnorm_rel:.3e} (max "
+        f"{gnorm_rtol:g}); largest parameter difference {held[worst_p]:.3e} at {worst_p} (max {param_atol:g}); "
+        f"over the leaves whose exact gradient is 0 {worst_zero:.3e} (max 2.1e-4)")
+    if (rel > loss_rtol or cos[worst] < cos_min or gnorm_rel > gnorm_rtol or held[worst_p] > param_atol
+            or worst_zero > 2.1e-4):
+        fail(f"parallel {label}: the step disagrees with the one-process step")
+
+
+def par_world1(dev, kernels, DGNNS, MatcherConfig, TrainHyperParams, make_train_step, init_opt_state,
+               init_stats, workdir) -> None:
+    """(a): the data-parallel step through a one-rank NCCL group against
+    make_train_step's plain step on the same batch and weights, fp32 and
+    bf16; their ms a step in turns; a profile of the data-parallel step (its
+    NCCL launches, the all-reduces the host issued, their share of the
+    device time)."""
+    import torch.distributed as dist
+
+    from impx_torch.parallel.mesh import init_distributed, make_mesh, set_data_group
+
+    init_distributed(f"file://{os.path.abspath(workdir)}/rendezvous_nccl", rank=0, world_size=1, device=dev)
+    say(f"parallel (a): backend {dist.get_backend()} at world size {dist.get_world_size()}, in process")
+    mesh = make_mesh()
+    batch = par_batch(dev)
+    hp = TrainHyperParams()
+    for dtype in ("float32", "bfloat16"):
+        plain = par_model(dev, DGNNS, MatcherConfig, dtype)
+        dp = set_data_group(par_model(dev, DGNNS, MatcherConfig, dtype), mesh.group())
+        one = par_step_outputs(plain, make_train_step(plain, hp), batch)
+        got = par_step_outputs(dp, make_train_step(dp, hp), batch)
+        par_compare(f"(a) NCCL world 1 {dtype}", got, one, zero_grad_leaves(plain), PAR_ONE_RTOL, PAR_ONE_ATOL,
+                    PAR_COS_MIN, PAR_ONE_RTOL)
+        del one, got
+        steps = {"plain": (plain, make_train_step(plain, hp)), "data-parallel": (dp, make_train_step(dp, hp))}
+        opts = {k: (init_opt_state(m), init_stats(dev)) for k, (m, _) in steps.items()}
+        times = {k: [] for k in steps}
+        for it in range(PAR_TIMED + 1):
+            for k, (_, step) in steps.items():
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                step(opts[k][0], it, batch, opts[k][1])
+                torch.cuda.synchronize(dev)
+                if it:
+                    times[k].append(1e3 * (time.perf_counter() - t0))
+        calls = collections.Counter()
+        all_reduce = dist.all_reduce
+
+        def counted(*a, **kw):
+            calls["all_reduce"] += 1
+            return all_reduce(*a, **kw)
+
+        dist.all_reduce = counted
+        try:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                steps["data-parallel"][1](opts["data-parallel"][0], PAR_TIMED + 1, batch, opts["data-parallel"][1])
+                torch.cuda.synchronize(dev)
+        finally:
+            dist.all_reduce = all_reduce
+        busy = device_busy(prof)
+        nccl = par_device_events(prof, "nccl")
+        nccl_n, nccl_ms = len(nccl), sum(ms for _, ms in nccl)
+        nccl = sorted(collections.Counter(name for name, _ in nccl).items())
+        n_params = len(list(dp.parameters()))
+        say(f"parallel (a) {dtype}: ms a step, plain {statistics.median(times['plain']):.1f} data-parallel "
+            f"{statistics.median(times['data-parallel']):.1f} (medians of {PAR_TIMED}, in turns; "
+            f"{[round(t, 1) for t in times['data-parallel']]})")
+        say(f"parallel (a) {dtype}: the profiled data-parallel step issued {calls['all_reduce']} all-reduces "
+            f"(the loss's global counts, and one bucket of the {n_params} parameters' gradients with the loss "
+            f"and metrics); NCCL device launches {nccl_n} ({nccl}), {nccl_ms:.3f} ms = "
+            f"{nccl_ms / busy[0] if busy else float('nan'):.4f} of the step's {busy[0] if busy else 0:.1f} ms "
+            f"of device time")
+        if calls["all_reduce"] != 2:
+            fail(f"parallel (a): {calls['all_reduce']} all-reduces a step, not the loss counts' and one bucket")
+        if nccl_n > calls["all_reduce"]:
+            fail(f"parallel (a): {nccl_n} NCCL launches for {calls['all_reduce']} all-reduces")
+        del plain, dp, steps, opts
+    dist.destroy_process_group()
+
+
+def par_device_events(prof, needle: str) -> list:
+    """(name, ms) of the profiled device operations whose name holds needle."""
+    from torch.autograd import DeviceType
+
+    results = getattr(prof.profiler, "kineto_results", None)
+    events = [] if results is None else results.events()
+    return [(e.name(), e.duration_ns() / 1e6) for e in events
+            if e.device_type() == DeviceType.CUDA and needle in e.name().lower()]
+
+
+def par_references(dev, DGNNS, AdaGMN, MatcherConfig, TrainHyperParams, make_train_step, workdir) -> None:
+    """The one-process results the ranks hold theirs against, saved under
+    workdir: the fp32 step ('in' and 'bn'), IMP's indices0 at fp32 and bf16,
+    AdaGMN's (mask-only, fp32) keep counts after every pool, forward_scan's
+    indices0 at fp32."""
+    from impx_torch.models.fast import forward_scan
+
+    batch = par_batch(dev)
+    for norm_fn in ("in", "bn"):
+        model = par_model(dev, DGNNS, MatcherConfig, norm_fn=norm_fn)
+        torch.save(par_step_outputs(model, make_train_step(model, TrainHyperParams()), batch),
+                   f"{workdir}/step_{norm_fn}.pt")
+        del model
+    data = permuted_pairs(torch.Generator().manual_seed(PAR_SEED), dev)
+    refs = {"valid0": data["valid0"].cpu()}
+    for dtype in ("float32", "bfloat16"):
+        model = par_model(dev, DGNNS, MatcherConfig, dtype)
+        with torch.no_grad():
+            refs[dtype] = model.produce_matches(data, only_last=True, with_scores=False)["indices0"][-1].cpu()
+            if dtype == "float32":
+                refs["scan"] = forward_scan(model, data, only_last=True, with_scores=False)["indices0"][-1].cpu()
+    eimp = recording_keeps(par_model(dev, DGNNS, MatcherConfig, cls=AdaGMN))
+    eimp.bin_score.data.fill_(EIMP_BIN_SCORE)
+    with torch.no_grad():
+        eimp.produce_matches(overlap_pairs(torch.Generator().manual_seed(PAR_SEED), dev), only_last=True,
+                             with_scores=False)
+    refs["keeps"] = [(a.cpu(), b.cpu()) for a, b in eimp.keeps]
+    torch.save(refs, f"{workdir}/forward.pt")
+
+
+def par_agree(label, got, want, valid, agree_min) -> None:
+    rows = valid.sum().item()
+    equal = ((got.cpu() == want) & valid).sum().item()
+    frac = equal / rows
+    say(f"{label}: indices0 equal on {equal} of {rows} valid rows = {frac:.5f} (min {agree_min}); "
+        f"differing rows by pair {((got.cpu() != want) & valid).sum(1).tolist()}")
+    if frac < agree_min:
+        fail(f"{label}: indices0 agree on {frac:.5f} of valid rows")
+
+
+def par_child_dp_tp(dev, rank, world, workdir, kernels) -> dict:
+    """(b), then (c), on one rank of a world of 2 over gloo."""
+    from impx_torch.models import DGNNS, MatcherConfig
+    from impx_torch.parallel.mesh import make_mesh, set_data_group, shard_batch
+    from impx_torch.train.step import TrainHyperParams, make_train_step
+
+    out = {}
+    mesh = make_mesh()
+    batch = par_batch(dev)
+    for norm_fn in ("in", "bn"):
+        model = set_data_group(par_model(dev, DGNNS, MatcherConfig, norm_fn=norm_fn), mesh.group())
+        t0 = time.perf_counter()
+        got = par_step_outputs(model, make_train_step(model, TrainHyperParams()), shard_batch(mesh, batch))
+        torch.cuda.synchronize(dev)
+        out[f"(b) {norm_fn} ms"] = 1e3 * (time.perf_counter() - t0)
+        zero = zero_grad_leaves(model) if norm_fn == "in" else bn_layers_zero_grad_leaves(model)
+        par_compare(f"(b) rank {rank} of {world} {norm_fn} fp32, {TB // world} pairs a rank", got,
+                    torch.load(f"{workdir}/step_{norm_fn}.pt", weights_only=False), zero, PAR_LOSS_RTOL,
+                    PAR_PARAM_ATOL, PAR_COS_MIN, PAR_GNORM_RTOL)
+        del model, got
+    out.update(par_tp(dev, rank, world, workdir, batch))
+    return out
+
+
+def par_tp(dev, rank, world, workdir, batch) -> dict:
+    """(c) on one rank of a (1, 2) grid."""
+    import impx_torch.models.gnn as gnn
+    from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
+    from impx_torch.parallel.mesh import set_data_group
+    from impx_torch.parallel.tp import make_2d_mesh, shard_params_tp
+    from impx_torch.train.step import TrainHyperParams, make_train_step
+
+    out = {}
+    grid = make_2d_mesh(1, world)
+    refs = torch.load(f"{workdir}/forward.pt", weights_only=False)
+    data = permuted_pairs(torch.Generator().manual_seed(PAR_SEED), dev)
+    heads = collections.Counter()
+    fused = gnn.mha_fused
+
+    def recording(q, *a, **kw):
+        heads[q.shape[1]] += 1
+        return fused(q, *a, **kw)
+
+    gnn.mha_fused = recording
+    for dtype in ("float32", "bfloat16"):
+        model = shard_params_tp(par_model(dev, DGNNS, MatcherConfig, dtype), grid)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            idx = model.produce_matches(data, only_last=True, with_scores=False)["indices0"][-1]
+        torch.cuda.synchronize(dev)
+        out[f"(c) IMP {dtype} ms"] = 1e3 * (time.perf_counter() - t0)
+        par_agree(f"parallel (c) rank {rank} IMP {dtype} (1, {world})", idx, refs[dtype], refs["valid0"],
+                  PAR_TP_AGREE[dtype])
+        del model
+    gnn.mha_fused = fused
+    say(f"parallel (c) rank {rank}: kernel 1 ran at heads {dict(heads)} (of {MatcherConfig().num_heads})")
+    if set(heads) != {MatcherConfig().num_heads // world}:
+        fail(f"parallel (c): kernel 1 did not run at {MatcherConfig().num_heads // world} heads: {dict(heads)}")
+
+    eimp = recording_keeps(shard_params_tp(par_model(dev, DGNNS, MatcherConfig, cls=AdaGMN), grid))
+    eimp.bin_score.data.fill_(EIMP_BIN_SCORE)
+    with torch.no_grad():
+        eimp.produce_matches(overlap_pairs(torch.Generator().manual_seed(PAR_SEED), dev), only_last=True,
+                             with_scores=False)
+    keeps = [(a.cpu(), b.cpu()) for a, b in eimp.keeps]
+    same = len(keeps) == len(refs["keeps"]) and all(torch.equal(a, c) and torch.equal(b, d)
+                                                    for (a, b), (c, d) in zip(keeps, refs["keeps"]))
+    say(f"parallel (c) rank {rank} AdaGMN mask-only fp32 at dustbin {EIMP_BIN_SCORE}: keep counts after each "
+        f"pool {[k[0].tolist() for k in keeps]} (one rank {[k[0].tolist() for k in refs['keeps']]}); equal {same}")
+    if not same:
+        fail("parallel (c): AdaGMN's keep counts under tensor parallelism differ from one rank's")
+    del eimp
+
+    model = shard_params_tp(par_model(dev, DGNNS, MatcherConfig), grid)
+    set_data_group(model, grid.group("data"))
+    got = par_step_outputs(model, make_train_step(model, TrainHyperParams()), batch)
+    par_compare(f"(c) rank {rank} tensor-parallel (1, {world}) step fp32", got,
+                torch.load(f"{workdir}/step_in.pt", weights_only=False), zero_grad_leaves(model),
+                PAR_LOSS_RTOL, PAR_PARAM_ATOL, PAR_COS_MIN, PAR_GNORM_RTOL)
+    return out
+
+
+def par_child_pp(dev, rank, world, workdir, kernels) -> dict:
+    """(d) on one stage rank: the GPipe forward at fp32 against forward_scan's."""
+    from impx_torch.models import DGNNS, MatcherConfig
+    from impx_torch.parallel.pp import make_stage_mesh, pipeline_forward_scan
+
+    refs = torch.load(f"{workdir}/forward.pt", weights_only=False)
+    model = par_model(dev, DGNNS, MatcherConfig)
+    data = permuted_pairs(torch.Generator().manual_seed(PAR_SEED), dev)
+    mesh = make_stage_mesh(world)
+    t0 = time.perf_counter()
+    idx = pipeline_forward_scan(model, data, mesh, n_microbatches=PAR_PP_MICRO)["indices0"][0]
+    torch.cuda.synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    par_agree(f"parallel (d) stage {rank} of {world}, {PAR_PP_MICRO} microbatches, fp32", idx, refs["scan"],
+              refs["valid0"], PAR_PP_AGREE)
+    return {"(d) ms": ms}
+
+
+# the ranks share one card, whose time slices between their processes: (b)
+# and (c) run in one world (in two worlds side by side the phase took 75.2 s
+# against 67.1)
+PAR_JOBS = {"dp_tp": par_child_dp_tp, "pp": par_child_pp}
+PAR_WORLDS = {"dp_tp": 2, "pp": PAR_PP_STAGES}
+PAR_T0 = time.perf_counter()   # a rank's start, for its ms from start
+
+
+def par_child(job: str, rank: int, world: int, workdir: str, device: str) -> int:
+    """A rank of phase 23 (`python3 chip_smoke.py --parallel-rank ...`): every
+    rank on the one card, gloo between them. Prints its lines, writes its
+    launches, peak memory and ms to workdir; a failed check exits non-zero."""
+    from impx_torch.ops.kernels import attention as ka
+    from impx_torch.ops.kernels.sinkhorn import sinkhorn_fused_stats
+    from impx_torch.parallel.mesh import init_distributed
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    init_distributed(f"file://{os.path.abspath(workdir)}/rendezvous_{job}", rank=rank, world_size=world,
+                     device=dev, backend="gloo")
+    kernels = {"mha_fused": ka.mha_fused, "sinkhorn_fused_stats": sinkhorn_fused_stats, "mha_bwd": ka.mha_bwd,
+               "attention_key_mass": ka.attention_key_mass, "mha_fused_lse": ka.mha_fused_lse}
+    out = PAR_JOBS[job](dev, rank, world, workdir, kernels)
+    out["ms from start"] = 1e3 * (time.perf_counter() - PAR_T0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    summary = {"launches": {k: fn.launches for k, fn in kernels.items()}, "peak_gib": peak, "ms": out}
+    with open(f"{workdir}/out_{job}_{rank}.json", "w") as f:
+        json.dump(summary, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def par_spawn(job: str, world: int, workdir: str, device: str) -> list:
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", job, str(r), str(world),
+                              workdir, device], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def par_collect(job: str, procs: list, workdir: str) -> list:
+    """Wait for a world's ranks, print their lines, fail if one failed."""
+    outs, failed = [], []
+    for r, p in enumerate(procs):
+        try:
+            text, _ = p.communicate(timeout=PAR_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail(f"parallel {job}: rank {r} did not finish in {PAR_CHILD_TIMEOUT} s")
+        for line in text.splitlines():
+            say(f"  [{job} rank {r}] {line}")
+        if p.returncode:
+            failed.append(r)
+    if failed:
+        fail(f"parallel {job}: ranks {failed} exited non-zero")
+    for r in range(len(procs)):
+        with open(f"{workdir}/out_{job}_{r}.json") as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def parallel_phase(dev, kernels, DGNNS, AdaGMN, MatcherConfig) -> dict:
+    """Phase 23: (a) NCCL at world size 1 in process; then, on the one card,
+    ranks over gloo (NCCL refuses two ranks on one device; only gloo's
+    transport goes through the host): (b) data parallelism at world 2, (c)
+    tensor parallelism at (1, 2), in one world of 2, and, alongside, (d) the
+    pipeline at 3 stages x 2 microbatches in a world of 3. Returns the launches of
+    every kernel over the phase (the ranks' summed)."""
+    import shutil
+
+    from impx_torch.train.step import TrainHyperParams, init_opt_state, init_stats, make_train_step
+
+    t_phase = time.perf_counter()
+    workdir = PAR_DIR
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    for fn in kernels.values():
+        fn.launches = 0
+    par_world1(dev, kernels, DGNNS, MatcherConfig, TrainHyperParams, make_train_step, init_opt_state,
+               init_stats, workdir)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    say(f"parallel (a) {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    par_references(dev, DGNNS, AdaGMN, MatcherConfig, TrainHyperParams, make_train_step, workdir)
+    torch.cuda.empty_cache()
+    say(f"parallel references {time.perf_counter() - t_phase:.1f} s")
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    worlds = PAR_WORLDS
+    procs = {job: par_spawn(job, n, workdir, device) for job, n in worlds.items()}
+    say("parallel (b)-(d): ranks sharing the one card over gloo (its transport through the host); "
+        "their ms are not a scaling figure")
+    for job, ps in procs.items():
+        for r, out in enumerate(par_collect(job, ps, workdir)):
+            pick = {k: out["launches"].get(k, 0) for k in PAR_KERNELS}
+            say(f"parallel {job} rank {r} of {worlds[job]}: launches of kernels 1, 2, 3, 6 {pick}; peak device "
+                f"memory {out['peak_gib']:.2f} GiB; ms {({k: round(v, 1) for k, v in out['ms'].items()})} "
+                f"(ranks sharing one card)")
+            for k, v in out["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    missing = [k for k in PAR_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"parallel: kernels {missing} never launched in phase 23")
+    shutil.rmtree(workdir, ignore_errors=True)
+    say(f"parallel phase {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3794,6 +4208,7 @@ def main() -> int:
     queue = queue_loops_path(dev, kernels, DGNNS, AdaGMN, MatcherConfig, load_reference_state_dict)
     training_cli = training_cli_phase(dev, kernels, ka, DGNNS, MatcherConfig)
     training_eimp = eimp_training_phase(dev, kernels, ka, AdaGMN, DGNNS, SuperGlue, MatcherConfig)
+    parallel = parallel_phase(dev, kernels, DGNNS, AdaGMN, MatcherConfig)
     for row in rows:
         row["launches_iterative"] = iterative[row["name"]]
         row["launches_routes"] = routes[row["name"]]
@@ -3801,6 +4216,7 @@ def main() -> int:
         row["launches_queue_loops"] = queue[row["name"]]
         row["launches_training_cli"] = training_cli[row["name"]]
         row["launches_training_eimp"] = training_eimp[row["name"]]
+        row["launches_parallel"] = parallel.get(row["name"], 0)
         if row["name"] in fp32:
             row["fp32"] = fp32[row["name"]]
     say(f"total {time.perf_counter() - t_start:.1f} s on {card}")
@@ -3811,4 +4227,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(par_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -94,6 +94,12 @@ class Megadepth:
     def __len__(self):
         return len(self.dataset)
 
+    @property
+    def draws_from_stream(self) -> bool:
+        """Whether a sample's draws follow from the samples drawn before it:
+        training's draw from self.rs; validation's each from RandomState(0)."""
+        return self.train
+
     def __getitem__(self, idx):
         for i in range(len(self.dataset)):
             out = self.sample_matches_from_offline((i + idx) % len(self.dataset))

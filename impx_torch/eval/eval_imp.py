@@ -25,6 +25,18 @@ cv2 (impx/eval/eval_imp.py:171); here it is honoured, and 'cv2' stays the
 default. The device backend draws from a generator per pair, seeded from
 (seed, pair index).
 
+--data_parallel (impx/eval/eval_imp.py:197-217) splits each batch's pairs
+over the ranks of a process group, launched by torchrun (each rank on
+cuda:LOCAL_RANK): rank r runs the matcher, or the batched iterative loop, on
+the r-th contiguous block of the batch, the outputs are all-gathered, and
+rank 0 scores and prints; every rank returns rank 0's results. The loop's
+all-converged test is all-reduced. --eval_batch must divide over the ranks
+(SystemExit). At world size 1, or outside a process group, it changes
+nothing, as impx on one device.
+
+  torchrun --nproc_per_node=4 -m impx_torch.eval.eval_imp --config_path <yaml> --eval_batch 8 \
+      --data_parallel [--use_iterative]
+
 h5py (the reader), yaml (the config) and cv2 (the cv2 backend) are imported
 only where they are used: the module imports without them.
 """
@@ -32,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import os.path as osp
 import time
 
@@ -47,11 +60,6 @@ from impx_torch.geometry.epipolar import compute_epi_inlier_np
 from impx_torch.geometry.pose import compute_pose_error_np
 from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
 from impx_torch.ransac.pose_solver import _norm_threshold, estimate_pose
-
-# impx's flags whose paths are not ported yet, and the ROADMAP item of each
-UNPORTED = {
-    "data_parallel": "A11 (data parallelism)",
-}
 
 parser = argparse.ArgumentParser(
     description="IMP / EIMP evaluation on the H100 (impx_torch)",
@@ -95,7 +103,8 @@ parser.add_argument("--checkpoint_backend", type=str, default="jax", choices=["j
 parser.add_argument("--ransac_hypotheses", type=int, default=4096,
                     help="minimal sets a checkpoint of the device checkpoint solver")
 parser.add_argument("--data_parallel", action="store_true", default=False,
-                    help="not ported yet (ROADMAP A11)")
+                    help="split each eval batch's pairs over the ranks of the process group (torchrun); "
+                         "--eval_batch must be a multiple of the world size")
 
 # reference weight-name table (reference eval/eval_imp.py:274-329)
 WEIGHT_TABLE = {
@@ -110,11 +119,55 @@ WEIGHT_TABLE = {
 }
 
 
-def refuse_unported(args) -> None:
-    """NotImplementedError, naming its ROADMAP item, for an unported flag that is set."""
-    for name, item in UNPORTED.items():
-        if getattr(args, name, None):
-            raise NotImplementedError(f"--{name} is not ported yet: ROADMAP {item}")
+def data_parallel_group(args):
+    """The world's process group under --data_parallel at a world size above
+    1, else None (impx on one device). SystemExit when --eval_batch does not
+    split over the ranks (impx/eval/eval_imp.py:203-208)."""
+    import torch.distributed as dist
+
+    if not getattr(args, "data_parallel", False) or not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    n = dist.get_world_size()
+    if args.eval_batch % n:
+        raise SystemExit(f"--data_parallel requires --eval_batch divisible by the world size ({n}); "
+                         f"got --eval_batch {args.eval_batch}")
+    if dist.get_rank() == 0:
+        print(f"data-parallel eval over {n} ranks" + (" (iterative)" if args.use_iterative else ""))
+    return dist.group.WORLD
+
+
+def _gather_pairs(out: dict, group) -> dict:
+    """Each tensor of `out` ([B_rank, ...] a rank) all-gathered along its pair
+    axis; bools travel as uint8."""
+    from impx_torch.parallel.collectives import all_gather
+
+    gathered = {}
+    for k, v in out.items():
+        if isinstance(v, torch.Tensor):
+            g = all_gather(v.to(torch.uint8) if v.dtype == torch.bool else v, group)
+            v = g.bool() if v.dtype == torch.bool else g
+        gathered[k] = v
+    return gathered
+
+
+def _shard(batch: dict, group) -> dict:
+    """This rank's contiguous block of a batch's pairs."""
+    import torch.distributed as dist
+
+    from impx_torch.parallel.mesh import shard_rows
+
+    return {k: shard_rows(v, dist.get_rank(group), dist.get_world_size(group)) for k, v in batch.items()}
+
+
+def _share_results(results: dict | None, group) -> dict:
+    """Rank 0's results on every rank."""
+    if group is None:
+        return results
+    import torch.distributed as dist
+
+    box = [results]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
 
 
 def _normalize_keypoints_np(kpts, height, width, scale=0.7):
@@ -243,11 +296,12 @@ def evaluate(model, reader, error_th: float, eval_config: dict, args) -> dict:
 
     args: max_pairs, bucket (<= 0: round_up(num_kpt, 128)), eval_batch,
     pose_backend, use_iterative, use_uncertainty, checkpoint_backend,
-    ransac_hypotheses; the unported flags of UNPORTED raise. eval_config:
+    ransac_hypotheses, data_parallel (see the module docstring). eval_config:
     seed (0) seeds each pair's generator."""
-    refuse_unported(args)
+    group = data_parallel_group(args)
     if getattr(args, "use_iterative", False):
-        return evaluate_iterative(model, reader, error_th, eval_config, args)
+        return evaluate_iterative(model, reader, error_th, eval_config, args, group)
+    main_rank = group is None or torch.distributed.get_rank(group) == 0
     backend = pose_backend(getattr(args, "pose_backend", "cv2"))
     seed = eval_config.get("seed", 0)
     thresholds = [5, 10, 20, 50]
@@ -278,8 +332,18 @@ def evaluate(model, reader, error_th: float, eval_config: dict, args) -> dict:
             feeds.append(feeds[-1])
         batch = {k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
         t0 = time.time()
-        out = produce(model, batch)
-        matches_b = out["indices0"][-1].cpu().numpy()
+        if group is None:
+            out = produce(model, batch)
+            out = {"indices0": out["indices0"][-1], **{k: out[k] for k in ("overflow0", "overflow1") if k in out}}
+        else:
+            out = produce(model, _shard(batch, group))
+            out = _gather_pairs({"indices0": out["indices0"][-1],
+                                 **{k: out[k] for k in ("overflow0", "overflow1") if k in out}}, group)
+        t_device += time.time() - t0
+        if not main_rank:
+            continue
+        t0 = time.time()
+        matches_b = out["indices0"].cpu().numpy()
         # compaction overflow: re-run the affected pairs mask-only (which keeps
         # every survivor), so a tight schedule never silently loses matches
         if "overflow0" in out:
@@ -305,11 +369,13 @@ def evaluate(model, reader, error_th: float, eval_config: dict, args) -> dict:
         if index % 100 < eb or index >= n_pairs:
             _print_progress(index, n_pairs, thresholds, pose_errors, precisions, matching_scores,
                             t_device)
+    if not main_rank:
+        return _share_results(None, group)
     results = _results(thresholds, pose_errors, precisions, matching_scores, [model.config.n_layers],
                        t_device, t_start)
     if model.config.compaction:
         results["compaction_overflow_pairs"] = n_overflow_pairs
-    return results
+    return _share_results(results, group)
 
 
 # the matcher's arrays of a feed (`_pair_feed_np`), which take a batch axis
@@ -332,7 +398,7 @@ def _iterative_feed(info, bucket: int, error_th: float, pixels: bool):
     return feed, x0, x1, _norm_threshold(error_th, K0, K1)
 
 
-def evaluate_iterative(model, reader, error_th: float, eval_config: dict, args) -> dict:
+def evaluate_iterative(model, reader, error_th: float, eval_config: dict, args, group=None) -> dict:
     """The iterative eval loop (impx/eval/eval_imp.py:224-291, :389-420):
     batches of args.eval_batch pairs through BatchedIterativeMatcher.run_batch
     (the last batch padded by repeating its last pair) when eval_batch > 1
@@ -340,7 +406,8 @@ def evaluate_iterative(model, reader, error_th: float, eval_config: dict, args) 
     IterativeMatcher.run. Each pair is scored on the loop's pose when it has
     one; a pair without one estimates it from its matches with
     args.pose_backend. mean_stop_iteration is the mean iteration the loop
-    stopped at."""
+    stopped at. group (--data_parallel): each rank runs its block of every
+    batch through the loop, and rank 0 scores the gathered outputs."""
     ckpt = CHECKPOINT_BACKENDS[getattr(args, "checkpoint_backend", None) or "jax"]
     backend = pose_backend(getattr(args, "pose_backend", "cv2"))
     seed = eval_config.get("seed", 0)
@@ -349,6 +416,10 @@ def evaluate_iterative(model, reader, error_th: float, eval_config: dict, args) 
     n_pairs = len(reader) if args.max_pairs < 0 else min(args.max_pairs, len(reader))
     bucket = args.bucket if args.bucket > 0 else round_up(reader.num_kpt, 128)
     eb = max(1, getattr(args, "eval_batch", 4)) if ckpt == "device" else 1
+    main_rank = group is None or torch.distributed.get_rank(group) == 0
+    if group is not None and eb == 1:
+        raise SystemExit("--data_parallel splits batches of pairs: it needs --eval_batch > 1 and the "
+                         "device checkpoint backend")
     matcher = None
     t_start = time.time()
     t_device = 0.0
@@ -368,7 +439,7 @@ def evaluate_iterative(model, reader, error_th: float, eval_config: dict, args) 
             matcher = BatchedIterativeMatcher(
                 model, norm_thresh=float(np.mean(nts)), match_ratio=0.1, min_kpts=25,
                 num_hypotheses=getattr(args, "ransac_hypotheses", 4096),
-                with_uncertainty=getattr(args, "use_uncertainty", False), checkpoint_backend=ckpt)
+                with_uncertainty=getattr(args, "use_uncertainty", False), checkpoint_backend=ckpt, group=group)
         t0 = time.time()
         if eb > 1:
             gens = [pair_generator(model.device, seed, first + i) for i in range(len(infos))]
@@ -376,13 +447,22 @@ def evaluate_iterative(model, reader, error_th: float, eval_config: dict, args) 
                 feeds.append(feeds[-1])
                 nts.append(nts[-1])
                 gens.append(pair_generator(model.device, seed, first + len(gens)))
-            out = matcher.run_batch({k: np.stack([f[k] for f in feeds]) for k in feeds[0]}, gens, nts)
+            batch = {k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
+            if group is None:
+                out = matcher.run_batch(batch, gens, nts)
+            else:
+                n_ranks, r = torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
+                per = eb // n_ranks
+                out = _gather_pairs(matcher.run_batch(_shard(batch, group), gens[r * per:(r + 1) * per],
+                                                      nts[r * per:(r + 1) * per]), group)
             outs = [{k: v[i] for k, v in out.items()} for i in range(len(infos))]
         else:
             feed = {k: (v[None] if k in MATCHER_FEED else v) for k, v in feeds[0].items()}
             outs = [matcher.run(feed, pair_generator(model.device, seed, first), norm_thresh=nts[0])]
         outs = [{k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v) for k, v in o.items()} for o in outs]
         t_device += time.time() - t0
+        if not main_rank:
+            continue
         for i, (info, (x0, x1), o) in enumerate(zip(infos, xs, outs)):
             # a pair without the loop's pose estimates one from its matches
             generator = pair_generator(model.device, seed, first + i) if backend == "device" else None
@@ -393,12 +473,18 @@ def evaluate_iterative(model, reader, error_th: float, eval_config: dict, args) 
         if index % 100 < eb or index >= n_pairs:
             _print_progress(index, n_pairs, thresholds, pose_errors, precisions, matching_scores, t_device)
             print(f"  mean stop iteration {np.mean(stop_its):.2f}")
-    return _results(thresholds, pose_errors, precisions, matching_scores, stop_its, t_device, t_start)
+    if not main_rank:
+        return _share_results(None, group)
+    return _share_results(_results(thresholds, pose_errors, precisions, matching_scores, stop_its, t_device,
+                                   t_start), group)
 
 
 def main(argv=None):
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    if args.data_parallel and "WORLD_SIZE" in os.environ:  # launched by torchrun
+        from impx_torch.parallel.mesh import init_distributed
+
+        init_distributed(device=resolve_device(args.device))
     feat = args.feature_type
     error_th = 3 if args.dataset == "scannet" else 1
 
@@ -429,6 +515,8 @@ def main(argv=None):
         results = evaluate(model, reader, error_th, eval_config, args)
     finally:
         reader.close()
+    if args.data_parallel and torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
+        return results  # rank 0 prints them
     print(f"Results of {args.matching_method} on {args.dataset} "
           f"(iterative={args.use_iterative}, uncertainty={args.use_uncertainty}, "
           f"checkpoints={CHECKPOINT_BACKENDS[args.checkpoint_backend]}, "

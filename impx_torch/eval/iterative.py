@@ -63,12 +63,14 @@ class IterativeMatcher:
     norm_thresh: the RANSAC threshold in normalized coordinates (each run may
     override it: intrinsics vary over a dataset). num_hypotheses: minimal
     sets a checkpoint; sample_size 5 (the five-point solver, impx's default)
-    or 8."""
+    or 8. group: the data-parallel ranks that run the loop together, each on
+    its own pairs (eval --data_parallel); the batch stops when every pair of
+    every rank has converged."""
 
     def __init__(self, model, *, norm_thresh: float, match_ratio: float = 0.1, min_kpts: int = 25,
                  pose_stop_deg: float = 1.5, num_hypotheses: int = 256, with_uncertainty: bool = False,
                  mscore_base: float = 0.2, valid_its: Sequence[int] = VALID_ITS, sample_size: int = 5,
-                 checkpoint_backend: str = "device"):
+                 checkpoint_backend: str = "device", group=None):
         if checkpoint_backend not in CHECKPOINT_BACKENDS:
             raise ValueError(f"unknown checkpoint_backend {checkpoint_backend!r} "
                              f"(expected one of {sorted(CHECKPOINT_BACKENDS)})")
@@ -85,6 +87,7 @@ class IterativeMatcher:
         self.with_uncertainty = with_uncertainty
         self.mscore_base = mscore_base
         self.checkpoint_backend = CHECKPOINT_BACKENDS[checkpoint_backend]
+        self.group = group
 
     # ------------------------------------------------------------- the pieces
     def _encode(self, data: dict[str, Any]):
@@ -191,6 +194,10 @@ class IterativeMatcher:
             if self.with_uncertainty:
                 th = torch.where(ratio > 0, self.mscore_base * ratio, self.mscore_base)[:, None]
                 keep0, keep1 = self._pool(score, qk, keep0, keep1, th, active, lse)
+            if self.group is not None:  # every rank's pairs (impx: an XLA all-reduce)
+                from impx_torch.parallel.collectives import pmax
+
+                all_done = pmax((~all_done).to(torch.int32).reshape(1), self.group)[0] == 0
             if bool(all_done):  # the one host read a checkpoint
                 break
         if score is not None:

@@ -42,7 +42,7 @@ from impx_torch.models.dgnns import DGNNS
 from impx_torch.models.fast import (
     EIMP_TRAIN_P, EIMP_TRAIN_TH, _eimp_do_pool, _mean_accuracy, forward_scan_eimp, forward_scan_eimp_compact,
     forward_train_scan_eimp, forward_train_scan_eimp_compact, loss_outputs, zero_terms)
-from impx_torch.models.loss import geo_loss, graph_loss, matching_accuracy, maybe_epipolar_matrix
+from impx_torch.models.loss import geo_loss, graph_loss, loss_counts, matching_accuracy, maybe_epipolar_matrix
 from impx_torch.ops.kernels.attention import attention_key_mass, attention_key_mass_reference
 
 
@@ -110,6 +110,10 @@ class AdaGMN(DGNNS):
 
         m_self = mass(*qk_self, torch.cat([keep0, keep1], dim=0), lse_self)
         m_cross = mass(*qk_cross, torch.cat([keep1, keep0], dim=0), lse_cross)
+        if self.model_group is not None:  # each rank summed its own heads
+            from impx_torch.parallel.collectives import psum
+
+            m_self, m_cross = psum(torch.stack([m_self, m_cross]), self.model_group).unbind(0)
         return (_normalise(m_self[:b]), _normalise(m_cross[b:]),
                 _normalise(m_self[b:]), _normalise(m_cross[:b]))
 
@@ -125,8 +129,13 @@ class AdaGMN(DGNNS):
             stack = lambda a, c: tuple(torch.cat([x, y], dim=0) for x, y in zip(a, c))
             return self._key_masses(stack(s00, s11), stack(s10, s01), keep0, keep1, qmask0, qmask1)
         mass = attention_key_mass if self.use_kernels else attention_key_mass_reference
-        return (_normalise(mass(*s00, keep0, qmask0)), _normalise(mass(*s01, keep0, qmask1)),
-                _normalise(mass(*s11, keep1, qmask1)), _normalise(mass(*s10, keep1, qmask0)))
+        masses = (mass(*s00, keep0, qmask0), mass(*s01, keep0, qmask1), mass(*s11, keep1, qmask1),
+                  mass(*s10, keep1, qmask0))
+        if self.model_group is not None:  # each rank summed its own heads
+            from impx_torch.parallel.collectives import psum
+
+            masses = psum(torch.cat(masses, dim=1), self.model_group).split([m.shape[1] for m in masses], dim=1)
+        return tuple(_normalise(m) for m in masses)
 
     def _pool_from_masses(self, rowmass, colmass, norm00, norm01, norm11, norm10,
                           keep0, keep1, th: float, n_min_tokens: int):
@@ -238,6 +247,7 @@ class AdaGMN(DGNNS):
         th = mscore_th * uncertainty_ratio
         epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if train and cfg.with_geo else None
         terms = zero_terms(epi is not None, desc0.device) if train else None
+        counts = loss_counts(gt, self.data_group) if train else None
         state = self.init_state()
         scores, all_idx0, all_ms0 = [], [], []
         for ni, do_pool in enumerate(_eimp_do_pool(cfg)):
@@ -248,10 +258,14 @@ class AdaGMN(DGNNS):
                                                               full0, full1, with_lse, batch_stats)
             score = self.compute_score(self.compute_distance(desc0, desc1, layer_id=ni), keep0, keep1)
             if train:
-                gt_used = _masked_gt(gt, keep0, keep1) if ni >= cfg.first_it_to_update else gt
-                t = graph_loss(score, gt_used, scores_are_log=self.scores_are_log)
+                gt_used, c = gt, counts
+                if ni >= cfg.first_it_to_update:
+                    gt_used = _masked_gt(gt, keep0, keep1)
+                    c = loss_counts(gt_used, self.data_group)
+                t = graph_loss(score, gt_used, scores_are_log=self.scores_are_log, counts=c)
                 if epi is not None:
-                    t["geo"] = geo_loss(torch.exp(score) if self.scores_are_log else score, epi, keep0, keep1)
+                    t["geo"] = geo_loss(torch.exp(score) if self.scores_are_log else score, epi, keep0, keep1,
+                                        n_pairs=None if c is None else c[0])
                 terms = {k: terms[k] + t[k] for k in terms}
             with torch.no_grad():
                 idx0, _, ms0, _ = self.compute_matches(score, p=p, valid0=keep0, valid1=keep1)
@@ -329,5 +343,6 @@ class AdaGMN(DGNNS):
         _, all_idx0, all_ms0, _, terms = self._iterate(data, EIMP_TRAIN_P, EIMP_TRAIN_TH, 1.0,
                                                        with_scores=False, gt=gt)
         terms = {k: x / cfg.n_layers for k, x in terms.items()}
-        acc = _mean_accuracy([matching_accuracy(idx0, gt) for idx0 in all_idx0])
+        n_pairs = None if self.data_group is None else loss_counts(gt, self.data_group)[0]
+        acc = _mean_accuracy([matching_accuracy(idx0, gt, n_pairs=n_pairs) for idx0 in all_idx0])
         return loss_outputs(cfg, terms, all_idx0[-1], all_ms0[-1], acc)

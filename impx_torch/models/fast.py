@@ -61,7 +61,7 @@ from impx_torch.ops.kernels.log_sinkhorn import (
     log_plan_from_uv, log_sinkhorn_fused_stats, log_sinkhorn_stats_reference)
 from impx_torch.ops.kernels.sinkhorn import (
     sinkhorn_fused_stats, sinkhorn_plan_from_uv, sinkhorn_stats_reference)
-from impx_torch.models.loss import geo_loss, graph_loss, matching_accuracy, maybe_epipolar_matrix
+from impx_torch.models.loss import geo_loss, graph_loss, loss_counts, matching_accuracy, maybe_epipolar_matrix
 from impx_torch.ops.matching import matches_from_stats
 
 
@@ -127,7 +127,8 @@ def encode_stacked(model, data: dict[str, Any]):
     projects its own q/k."""
     desc, valid0, valid1, b, n = _encode(model, data)
     h = model.config.num_heads
-    zero = torch.zeros((2 * b, h, n, model.config.descriptor_dim // h), dtype=desc.dtype, device=desc.device)
+    h_local = model.gnn[0].num_heads  # this rank's heads under tensor parallelism
+    zero = torch.zeros((2 * b, h_local, n, model.config.descriptor_dim // h), dtype=desc.dtype, device=desc.device)
     return desc, valid0, valid1, (zero, zero), b, n
 
 
@@ -202,30 +203,32 @@ def forward_scan(model, data: dict[str, Any], p: float = 0.2, only_last: bool = 
     return {"scores": out_scores, "indices0": out_idx0, "mscores0": out_ms0}
 
 
-def supervised_head(model, desc0, desc1, layer_id: int, gt, epi, valid0, valid1):
+def supervised_head(model, desc0, desc1, layer_id: int, gt, epi, valid0, valid1, counts=None):
     """One supervised iteration (impx/models/fast.py:head_part :488,
     impx/models/gm.py:255-264): final projection layer_id, distance, the
     model's score head, then graph_loss of the plan (a log plan under the
     log-OT head) and, when epi is given, the geo_loss of its probabilities
-    under 'geo'. Returns (terms, score)."""
+    under 'geo'. counts (loss.loss_counts of gt): the terms are this rank's
+    shares of the data-parallel global batch's. Returns (terms, score)."""
     dist = model.compute_distance(desc0.float(), desc1.float(), layer_id=layer_id)
     score = model.compute_score(dist, valid0, valid1)
-    terms = graph_loss(score, gt, scores_are_log=model.scores_are_log)
+    terms = graph_loss(score, gt, scores_are_log=model.scores_are_log, counts=counts)
     if epi is not None:
-        terms["geo"] = geo_loss(torch.exp(score) if model.scores_are_log else score, epi, valid0, valid1)
+        terms["geo"] = geo_loss(torch.exp(score) if model.scores_are_log else score, epi, valid0, valid1,
+                                n_pairs=None if counts is None else counts[0])
     return terms, score
 
 
-def train_outputs(model, terms: dict, score, gt, valid0, valid1) -> dict:
+def train_outputs(model, terms: dict, score, gt, valid0, valid1, counts=None) -> dict:
     """The dict of impx's forward_train from the supervised terms (meaned over
     the supervised iterations) and the last plan: loss = corr + incorr + neg
     (+ geo_weight * geo under with_geo), its terms, geo_loss (0 without
     with_geo), matching_scores0 and matches0 of the last plan, and the
-    accuracy counters."""
+    accuracy counters (shares of the global batch's under `counts`)."""
     with torch.no_grad():
         idx0, _, ms0, _ = model.compute_matches(score, p=model.config.match_threshold, valid0=valid0,
                                                 valid1=valid1)
-        acc = matching_accuracy(idx0, gt)
+        acc = matching_accuracy(idx0, gt, n_pairs=None if counts is None else counts[0])
     return loss_outputs(model.config, terms, idx0, ms0, acc)
 
 
@@ -254,13 +257,14 @@ def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
     cfg = model.config
     gt = data["matching_mask"]
     epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
+    counts = loss_counts(gt, model.data_group)
     desc, valid0, valid1, b, _ = _encode(model, data)
     mask = torch.cat([valid0, valid1], dim=0)
     mask_swap = torch.cat([valid1, valid0], dim=0)
     kw = dict(ac_fn=cfg.ac_fn, use_kernels=model.use_kernels, lse_core=cfg.train_fused)
 
     def head(desc, layer_id, terms):
-        t, score = supervised_head(model, desc[:b], desc[b:], layer_id, gt, epi, valid0, valid1)
+        t, score = supervised_head(model, desc[:b], desc[b:], layer_id, gt, epi, valid0, valid1, counts)
         return {k: terms[k] + t[k] for k in terms}, score
 
     terms = zero_terms(epi is not None, desc.device)
@@ -277,7 +281,7 @@ def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
         terms = {k: x / cfg.n_layers for k, x in terms.items()}
     else:
         terms, score = head(desc, -1, terms)
-    return train_outputs(model, terms, score, gt, valid0, valid1)
+    return train_outputs(model, terms, score, gt, valid0, valid1, counts)
 
 
 # --------------------------------------------------------------------- EIMP
@@ -460,7 +464,7 @@ def forward_scan_eimp_compact(model, data: dict[str, Any], p: float = 0.2, mscor
 EIMP_TRAIN_P, EIMP_TRAIN_TH = 0.2, 0.1  # impx's training matches and pooling threshold (fast.py:973)
 
 
-def _eimp_train_step(model, i: int, do_pool: bool, state: tuple, b: int, gt, epi, terms: dict):
+def _eimp_train_step(model, i: int, do_pool: bool, state: tuple, b: int, gt, epi, terms: dict, counts=None):
     """Iteration i of EIMP training (the scan body of impx/models/fast.py:994).
 
     state = (desc, qk_self, qk_cross, keep0, keep1, full0, full1), as in
@@ -471,7 +475,9 @@ def _eimp_train_step(model, i: int, do_pool: bool, state: tuple, b: int, gt, epi
     ([B, N+1, M+1] in the current indexing) restricted to the kept
     keypoints from first_it_to_update on, and its matches; on a pooling
     iteration, without gradient, the key masses of the layers' q/k and the
-    pooling rule on the plan. Returns (state, terms, (indices0, mscores0))."""
+    pooling rule on the plan. counts: loss.loss_counts of gt under data
+    parallelism (taken again for the restricted ground truth). Returns
+    (state, terms, (indices0, mscores0))."""
     from impx_torch.models.adgm import _masked_gt
 
     cfg = model.config
@@ -485,8 +491,10 @@ def _eimp_train_step(model, i: int, do_pool: bool, state: tuple, b: int, gt, epi
     delta, qk_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, keep_swap, full, **kw)
     desc = desc + delta
 
-    gt_used = _masked_gt(gt, keep0, keep1) if i >= cfg.first_it_to_update else gt
-    t, score = supervised_head(model, desc[:b], desc[b:], i, gt_used, epi, keep0, keep1)
+    if i >= cfg.first_it_to_update:
+        gt = _masked_gt(gt, keep0, keep1)
+        counts = loss_counts(gt, model.data_group)
+    t, score = supervised_head(model, desc[:b], desc[b:], i, gt, epi, keep0, keep1, counts)
     terms = {k: terms[k] + t[k] for k in terms}
     with torch.no_grad():
         idx0, _, ms0, _ = model.compute_matches(score, p=EIMP_TRAIN_P, valid0=keep0, valid1=keep1)
@@ -497,7 +505,8 @@ def _eimp_train_step(model, i: int, do_pool: bool, state: tuple, b: int, gt, epi
 
 
 def _mean_accuracy(accs: list) -> dict:
-    """The accuracy counters averaged over the iterations."""
+    """The accuracy counters averaged over the iterations (a linear map, so
+    it takes data-parallel shares to shares)."""
     return {k: sum(a[k] for a in accs) / len(accs) for k in accs[0]}
 
 
@@ -510,12 +519,14 @@ def forward_train_scan_eimp(model, data: dict[str, Any]) -> dict[str, Any]:
     cfg = model.config
     gt = data["matching_mask"]
     epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
+    counts = loss_counts(gt, model.data_group)
+    n_pairs = None if counts is None else counts[0]
     desc, valid0, valid1, b, _ = _encode(model, data)
     state = (desc, None, None, valid0, valid1, valid0, valid1)
     terms, accs = zero_terms(epi is not None, desc.device), []
     for i, do_pool in enumerate(_eimp_do_pool(cfg)):
-        state, terms, (idx0, ms0) = _eimp_train_step(model, i, do_pool, state, b, gt, epi, terms)
-        accs.append(matching_accuracy(idx0, gt))
+        state, terms, (idx0, ms0) = _eimp_train_step(model, i, do_pool, state, b, gt, epi, terms, counts)
+        accs.append(matching_accuracy(idx0, gt, n_pairs=n_pairs))
     terms = {k: x / cfg.n_layers for k, x in terms.items()}
     return loss_outputs(cfg, terms, idx0, ms0, _mean_accuracy(accs))
 
@@ -548,6 +559,8 @@ def forward_train_scan_eimp_compact(model, data: dict[str, Any]) -> dict[str, An
     cfg = model.config
     gt = data["matching_mask"].float()
     epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
+    counts = loss_counts(gt, model.data_group)
+    n_pairs = None if counts is None else counts[0]
     desc, valid0, valid1, b, n = _encode(model, data)
     starts = dict(compaction_schedule(cfg.train_compaction, cfg.n_layers, "train_compaction", n))
     g0 = g1 = torch.arange(n, device=desc.device).expand(b, n)
@@ -570,10 +583,13 @@ def forward_train_scan_eimp_compact(model, data: dict[str, Any]) -> dict[str, An
                 epi_seg = torch.gather(torch.gather(epi_seg, 1, i0[:, :, None].expand(-1, -1, epi_seg.shape[2])),
                                        2, i1[:, None, :].expand(-1, k, -1))
             state = (desc, qk_self, qk_cross, keep0, keep1, keep0, keep1)
-        state, terms, (idx0, ms0) = _eimp_train_step(model, i, do_pool, state, b, gt_seg, epi_seg, terms)
+        seg_counts = (counts if gt_seg is gt or i >= cfg.first_it_to_update
+                      else loss_counts(gt_seg, model.data_group))
+        state, terms, (idx0, ms0) = _eimp_train_step(model, i, do_pool, state, b, gt_seg, epi_seg, terms,
+                                                     seg_counts)
         with torch.no_grad():
             idx0, ms0 = _scatter_matches(idx0, ms0, g0, g1, n)
-            accs.append(matching_accuracy(idx0, gt))
+            accs.append(matching_accuracy(idx0, gt, n_pairs=n_pairs))
     terms = {k: x / cfg.n_layers for k, x in terms.items()}
     out = loss_outputs(cfg, terms, idx0, ms0, _mean_accuracy(accs))
     out["compaction_overflow0"] = overflow0.sum().float()

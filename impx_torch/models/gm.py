@@ -33,7 +33,7 @@ from impx_torch.geometry.keypoints import normalize_keypoints
 from impx_torch.models.config import MatcherConfig
 from impx_torch.models.gnn import MLP, AttentionalPropagation, Dense
 from impx_torch.models.fast import _swap_half, supervised_head, train_outputs
-from impx_torch.models.loss import maybe_epipolar_matrix
+from impx_torch.models.loss import loss_counts, maybe_epipolar_matrix
 from impx_torch.ops.kernels.log_sinkhorn import log_optimal_transport_fused
 from impx_torch.ops.matching import compute_matches as _compute_matches
 from impx_torch.ops.sinkhorn import dual_softmax, sink_algorithm
@@ -60,6 +60,10 @@ class GM(nn.Module):
         self.device = resolve_device(device)
         self.compute_dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
         self.use_kernels = use_kernels
+        # process groups, set by impx_torch/parallel (None: one device holds
+        # the batch and the weights)
+        self.data_group = None
+        self.model_group = None
         d = config.descriptor_dim
         self.kenc = MLP([3, *config.keypoint_encoder, d], config.norm_fn)
         self.gnn = nn.ModuleList(
@@ -280,16 +284,17 @@ class GM(nn.Module):
         data = self._on_device(data)
         desc0, desc1, valid0, valid1 = self._encode_inputs(data, batch_stats=True)
         gt = data["matching_mask"]
+        counts = loss_counts(gt, self.data_group)
         epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
         state = self.init_state()
         terms, score = None, None
         for i in range(len(self.gnn)):
             desc0, desc1, state = self.forward_one_layer(desc0, desc1, i, state, valid0, valid1)
             if i % 2 == 1:
-                t, score = supervised_head(self, desc0, desc1, i // 2, gt, epi, valid0, valid1)
+                t, score = supervised_head(self, desc0, desc1, i // 2, gt, epi, valid0, valid1, counts)
                 terms = t if terms is None else {k: terms[k] + t[k] for k in terms}
         terms = {k: x / cfg.n_layers for k, x in terms.items()}
-        return train_outputs(self, terms, score, gt, valid0, valid1)
+        return train_outputs(self, terms, score, gt, valid0, valid1, counts)
 
     def produce_matches_test(self, data: dict[str, Any], p: float = 0.2, only_last: bool = False, **kw):
         """The reference's alias of produce_matches (impx/models/gm.py:285)."""

@@ -87,6 +87,8 @@ class MLP(nn.Module):
         self.blocks = nn.ModuleList(Dense(a, b) for a, b in zip(channels[:-1], channels[1:]))
         self.norms = (nn.ModuleList(BatchNorm(c) for c in channels[1:-1]) if norm_fn == "bn"
                       else None)
+        self.data_group = None
+        self.model_group = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for blk in self.blocks:
@@ -98,7 +100,8 @@ class MLP(nn.Module):
     def forward(self, x, *, ac_fn: str, mask=None, batch_stats: bool = False):
         batch_norms = None if self.norms is None else [norm.stats() for norm in self.norms]
         return mlp_apply([(b.weight, b.bias) for b in self.blocks], x, ac_fn=ac_fn, mask=mask,
-                         batch_norms=batch_norms, batch_stats=batch_stats)
+                         batch_norms=batch_norms, batch_stats=batch_stats, data_group=self.data_group,
+                         model_group=self.model_group)
 
 
 class AttentionalPropagation(nn.Module):
@@ -106,6 +109,7 @@ class AttentionalPropagation(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.shared = shared
+        self.model_group = None
         if shared:
             self.proj = Dense(d_model, d_model)
             self.merge = Dense(d_model, d_model)
@@ -133,13 +137,19 @@ class AttentionalPropagation(nn.Module):
         fp32, from which EIMP's key masses take one pass. batch_stats: batch
         norm from the moments of query_mask's tokens (norm_fn='bn')."""
         h = self.num_heads
+        xq = x
+        if self.model_group is not None:  # Megatron's f before the column-parallel projections
+            from impx_torch.parallel.collectives import copy_to_group
+
+            xq = copy_to_group(x, self.model_group)
+            source = xq if source is x else copy_to_group(source, self.model_group)
         if self.shared:
             q, k = qk
             v = project_heads(self.proj.weight, self.proj.bias, source, h)
             merge = self.merge
         else:
             a = self.attn
-            q = project_heads(a["q"].weight, a["q"].bias, x, h)
+            q = project_heads(a["q"].weight, a["q"].bias, xq, h)
             k = project_heads(a["k"].weight, a["k"].bias, source, h)
             v = project_heads(a["v"].weight, a["v"].bias, source, h)
             merge = a["merge"]
@@ -157,6 +167,12 @@ class AttentionalPropagation(nn.Module):
     def tail(self, x, out, merge: Dense, query_mask, ac_fn: str, batch_stats: bool = False):
         """Head merge, then the concat-MLP (its norm in fp32), all in x's
         dtype (impx/models/fast.py:_tail)."""
-        message = merge_heads(merge.weight, merge.bias, out.to(x.dtype))
+        if self.model_group is None:
+            message = merge_heads(merge.weight, merge.bias, out.to(x.dtype))
+        else:  # row-parallel merge of this rank's heads, then Megatron's g
+            from impx_torch.parallel.collectives import reduce_from_group
+
+            partial = merge_heads(merge.weight, torch.zeros_like(merge.bias), out.to(x.dtype))
+            message = reduce_from_group(partial, self.model_group) + merge.bias.to(x.dtype)
         return self.mlp(torch.cat([x, message], dim=-1), ac_fn=ac_fn, mask=query_mask,
                         batch_stats=batch_stats)

@@ -29,6 +29,15 @@ def activation(x: torch.Tensor, ac_fn: str) -> torch.Tensor:
     raise ValueError(f"unknown ac_fn {ac_fn!r}")
 
 
+def chain_roles(n: int) -> list[str]:
+    """Each block's role in a tensor-parallel chain of n dense blocks
+    (impx/parallel/tp.py:_dense_chain_specs): 'col' (column-parallel, output
+    channels sharded) at even indices, 'row' (row-parallel, input channels
+    sharded, output summed over the model group) at odd ones, and 'rep'
+    (replicated) for a last block at an even index."""
+    return ["rep" if i % 2 == 0 and i == n - 1 else ("col" if i % 2 == 0 else "row") for i in range(n)]
+
+
 def mlp_apply(
     blocks: Sequence[tuple[torch.Tensor, torch.Tensor]],
     x: torch.Tensor,
@@ -37,6 +46,8 @@ def mlp_apply(
     mask: torch.Tensor | None = None,
     batch_norms: Sequence[tuple[torch.Tensor, ...]] | None = None,
     batch_stats: bool = False,
+    data_group=None,
+    model_group=None,
 ) -> torch.Tensor:
     """Dense -> [norm -> activation] for every block but the last
     (impx/ops/mlp.py:71).
@@ -45,19 +56,36 @@ def mlp_apply(
     bias, running mean, running var for each block but the last), batch
     norm: from the running statistics, which ignores the mask (impx's
     train=False), or with batch_stats from the moments of the tokens of
-    `mask` over the whole batch (impx's train=True). As in impx, the batch
+    `mask` over the whole batch (impx's train=True), over the union of the
+    batches of data_group's ranks when one is given (impx's `axis_name`;
+    norms.batch_norm_train's global_batch). As in impx, the batch
     moments do not update the running statistics. The norm runs in fp32 and
     casts back to x's dtype (a no-op at fp32; under bf16 it is the contract
-    of impx/models/fast.py:109)."""
+    of impx/models/fast.py:109).
+
+    model_group: the blocks hold this rank's shards of a tensor-parallel
+    chain (`chain_roles`); x is replicated over the group, a column block's
+    output and the norm after it are this rank's channels (per-channel norms
+    need no communication), and a row block's partial products are summed
+    over the group before its bias."""
     n = len(blocks)
+    roles = chain_roles(n) if model_group is not None else ["rep"] * n
+    if model_group is not None:
+        from impx_torch.parallel.collectives import copy_to_group, reduce_from_group
     for i, (w, b) in enumerate(blocks):
-        x = dense_apply(w, b, x)
+        if roles[i] == "col":
+            x = dense_apply(w, b, copy_to_group(x, model_group))
+        elif roles[i] == "row":
+            x = reduce_from_group(torch.matmul(x, w.to(x.dtype)), model_group) + b.to(x.dtype)
+        else:
+            x = dense_apply(w, b, x)
         if i < n - 1:
             if batch_norms is None:
                 y = norms.instance_norm(x.float(), mask=mask)
             elif batch_stats:
                 scale, bias = batch_norms[i][:2]
-                y, _, _ = norms.batch_norm_train(x.float(), scale, bias, mask=mask)
+                y, _, _ = norms.batch_norm_train(x.float(), scale, bias, mask=mask, group=data_group,
+                                                 global_batch=True)
             else:
                 y = norms.batch_norm_eval(x.float(), *batch_norms[i])
             x = activation(y.to(x.dtype), ac_fn)

@@ -175,3 +175,106 @@ def load_superpoint_checkpoint(path: str) -> dict:
     """superpoint_v1.pth -> the port's state_dict, read with weights_only=True
     as `load_matcher_checkpoint` reads a matcher's."""
     return load_superpoint_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+
+
+# ------------------------------------------------ slices for parallel ranks
+def param_spec(key: str, config: MatcherConfig) -> tuple[int, str] | None:
+    """Which slice of the port's state_dict entry `key` a tensor-parallel
+    rank holds: (axis, 'heads') for the channels of its attention heads
+    (head-minor, channel c = d * H + h: the channels {d * H + h : h in its
+    heads}), (axis, 'blocks') for a contiguous block of channels, or None
+    for a replicated entry (impx/parallel/tp.py:matcher_param_specs, with q,
+    k, v, proj and merge sharded by heads where impx shards contiguous
+    channels). The MLP chains alternate column and row blocks
+    (impx_torch/ops/mlp.py:chain_roles); a norm is sharded with the channels
+    of the column block before it."""
+    from impx_torch.ops.mlp import chain_roles
+
+    parts = key.split(".")
+    leaf = parts[-1]
+
+    def chain(kind, i, n):
+        role = chain_roles(n)[i]
+        if kind == "norms":
+            return (0, "blocks") if role == "col" else None
+        if role == "col":
+            return (1, "blocks") if leaf == "weight" else (0, "blocks")
+        if role == "row" and leaf == "weight":
+            return (0, "blocks")
+        return None
+
+    if parts[0] == "kenc":
+        return chain(parts[1], int(parts[2]), len(config.keypoint_encoder) + 1)
+    if parts[0] != "gnn":
+        return None  # final_proj, bin_score
+    name = parts[3] if parts[2] == "attn" else parts[2]
+    if name in ("q", "k", "v", "proj"):
+        return (1, "heads") if leaf == "weight" else (0, "heads")
+    if name == "merge":
+        return (0, "heads") if leaf == "weight" else None
+    if name == "mlp":
+        return chain(parts[3], int(parts[4]), 2)
+    raise KeyError(f"no tensor-parallel spec for {key!r}")
+
+
+def shard_indices(spec: tuple[int, str], size: int, rank: int, n_ranks: int, num_heads: int) -> torch.Tensor:
+    """The channel indices of `rank`'s slice of an axis of `size` channels."""
+    _, kind = spec
+    if kind == "heads":
+        per = num_heads // n_ranks
+        heads = torch.arange(rank * per, (rank + 1) * per)
+        return (torch.arange(size // num_heads)[:, None] * num_heads + heads[None, :]).reshape(-1)
+    per = size // n_ranks
+    return torch.arange(rank * per, (rank + 1) * per)
+
+
+def tp_shard_state_dict(sd: Mapping, config: MatcherConfig, rank: int, n_ranks: int) -> dict:
+    """The slice of a port-layout state_dict (or of any dict keyed alike, an
+    optimizer moment's) that tensor-parallel model rank `rank` of n_ranks
+    holds."""
+    out = {}
+    for key, x in sd.items():
+        spec = param_spec(key, config)
+        if spec is None:
+            out[key] = x
+        else:
+            idx = shard_indices(spec, x.shape[spec[0]], rank, n_ranks, config.num_heads).to(x.device)
+            out[key] = x.index_select(spec[0], idx).contiguous()
+    return out
+
+
+def tp_gather_state_dict(shards: list, config: MatcherConfig) -> dict:
+    """The full single-device layout from every model rank's slice, in rank
+    order (the inverse of `tp_shard_state_dict`)."""
+    n = len(shards)
+    out = {}
+    for key, x in shards[0].items():
+        spec = param_spec(key, config)
+        if spec is None:
+            out[key] = x
+            continue
+        axis = spec[0]
+        shape = list(x.shape)
+        shape[axis] *= n
+        full = x.new_empty(shape)
+        for r, part in enumerate(shards):
+            full.index_copy_(axis, shard_indices(spec, shape[axis], r, n, config.num_heads).to(x.device),
+                             part[key])
+        out[key] = full
+    return out
+
+
+def stage_layers(config: MatcherConfig, stage: int, n_stages: int) -> range:
+    """The iterations (self layer 2i, cross layer 2i + 1) of pipeline stage
+    `stage`: a contiguous n_layers / n_stages of them."""
+    per = config.n_layers // n_stages
+    return range(stage * per, (stage + 1) * per)
+
+
+def stage_state_dict(sd: Mapping, config: MatcherConfig, stage: int, n_stages: int) -> dict:
+    """The entries a pipeline stage reads: the keypoint encoder, the final
+    projections and bin_score (every stage encodes and scores), and its own
+    layers' weights."""
+    its = stage_layers(config, stage, n_stages)
+    return {k: v for k, v in sd.items()
+            if not k.startswith("gnn.") or int(k.split(".")[1]) // 2 in its}

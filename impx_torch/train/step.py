@@ -12,6 +12,21 @@ lives on the device. On a non-finite loss the whole update is skipped with
 `torch.where`: parameters, both moments and the step count keep their
 values. Nothing is read back to the host; the trainer reads `stats` once per
 log interval.
+
+Data parallelism (the model's `data_group`, set by
+impx_torch/train/trainer.py): each rank runs forward_train on its block of
+the global batch, whose loss functions then return this rank's share of the
+global batch's loss (impx_torch/models/loss.py). The gradients of every
+parameter and the loss and metric shares go into one flat bucket and one
+all-reduce (sum) over the group: the global loss and gradient, on every
+rank, as impx's sharded step computes them in one program. The NaN guard
+reads the global loss, so one bad share skips the update on every rank, and
+gradient clipping reads the global norm. Under tensor parallelism (the
+model's `model_group`, impx_torch/parallel/tp.py) Adam moves this rank's
+shards; the clipping norm sums the squares of the sharded parameters'
+gradients over the model group and counts a replicated parameter once.
+After a step, each parameter's `.grad` holds the gradient its update
+applied: the global one, clipped where `grad_clip` is set.
 """
 from __future__ import annotations
 
@@ -62,10 +77,47 @@ def init_stats(device) -> dict:
     return {"loss_sum": z(), "n_good": z(), "consec_bad": z(), "max_consec_bad": z()}
 
 
-def _clip_by_global_norm(grads: list, max_norm: float) -> list:
-    """optax.clip_by_global_norm."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+def _clip_by_global_norm(grads: list, max_norm: float, sharded: list | None = None, model_group=None) -> list:
+    """optax.clip_by_global_norm. sharded (one bool a gradient) and
+    model_group: the squares of the tensor-parallel shards are summed over
+    the group, those of replicated parameters counted once."""
+    if model_group is None:
+        sq = sum((g * g).sum() for g in grads)
+    else:
+        from impx_torch.parallel.collectives import psum
+
+        zero = grads[0].new_zeros(())
+        part = sum(((g * g).sum() for g, s in zip(grads, sharded) if s), zero)
+        sq = psum(part, model_group) + sum(((g * g).sum() for g, s in zip(grads, sharded) if not s), zero)
+    norm = torch.sqrt(sq)
     return [torch.where(norm < max_norm, g, g / norm * max_norm) for g in grads]
+
+
+# the metrics summed over the data-parallel ranks (each rank's is its share)
+SUMMED_METRICS = ("loss", "matching_loss", "acc_corr", "acc_incorr", "total_acc_corr", "total_acc_incorr",
+                  "geo_loss")
+
+
+def reduce_bucket(grads: list, out: dict, group) -> tuple[list, dict]:
+    """One all-reduce over the data group of a flat bucket holding every
+    gradient, the loss and metric shares of SUMMED_METRICS and, for the
+    largest match score, this rank's maximum in its own slot (zeros in the
+    others), so that the sum carries every rank's. Returns the summed
+    gradients (views of the bucket) and the global metrics."""
+    import torch.distributed as dist
+
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    scalars = torch.stack([out[k].detach().float().reshape(()) for k in SUMMED_METRICS])
+    slots = scalars.new_zeros(n)
+    slots[me] = out["matching_scores0"].max().float()
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [scalars, slots])
+    dist.all_reduce(flat, group=group)
+    sizes = [g.numel() for g in grads] + [len(SUMMED_METRICS), n]
+    parts = flat.split(sizes)
+    summed = [p.view_as(g).to(g.dtype) for p, g in zip(parts, grads)]
+    metrics = dict(zip(SUMMED_METRICS, parts[-2].unbind(0)))
+    metrics["max_mscore"] = parts[-1].max()
+    return summed, metrics
 
 
 def make_train_step(model, hp: TrainHyperParams) -> Callable:
@@ -73,19 +125,30 @@ def make_train_step(model, hp: TrainHyperParams) -> Callable:
     `model.forward_train(batch)`; see the module docstring."""
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
+    data_group = getattr(model, "data_group", None)
+    model_group = getattr(model, "model_group", None)
+    sharded = [n in getattr(model, "tp_sharded", ()) for n in names]
 
     def step(opt_state: dict, iteration: int, batch: dict, stats: dict):
         model.zero_grad(set_to_none=True)
         out = model.forward_train(batch)
-        loss = out["loss"]
-        loss.backward()
-        bad = ~torch.isfinite(loss.detach())
+        out["loss"].backward()
         lr = lr_at(hp, iteration)
         with torch.no_grad():
             # a parameter the loss does not reach has gradient 0, as in JAX
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            if data_group is None:
+                glob = {k: out[k].detach() for k in SUMMED_METRICS}
+                glob["max_mscore"] = out["matching_scores0"].max()
+            else:
+                grads, glob = reduce_bucket(grads, out, data_group)
+            loss = glob["loss"]
+            bad = ~torch.isfinite(loss)
             if hp.grad_clip > 0:
-                grads = _clip_by_global_norm(grads, hp.grad_clip)
+                grads = _clip_by_global_norm(grads, hp.grad_clip, sharded, model_group)
+            if data_group is not None or hp.grad_clip > 0:
+                for p, g in zip(params, grads):   # .grad: the gradient the update applies
+                    p.grad = g
             mus = [opt_state["mu"][n] for n in names]
             nus = [opt_state["nu"][n] for n in names]
             count = opt_state["count"]
@@ -108,16 +171,11 @@ def make_train_step(model, hp: TrainHyperParams) -> Callable:
 
             badf = bad.float()
             consec = torch.where(bad, stats["consec_bad"] + 1.0, 0.0)
-            stats = {"loss_sum": stats["loss_sum"] + torch.where(bad, 0.0, loss.detach()),
+            stats = {"loss_sum": stats["loss_sum"] + torch.where(bad, 0.0, loss),
                      "n_good": stats["n_good"] + (1.0 - badf),
                      "consec_bad": consec,
                      "max_consec_bad": torch.maximum(stats["max_consec_bad"], consec)}
-            metrics = {"loss": loss.detach(), "matching_loss": out["matching_loss"].detach(),
-                       "acc_corr": out["acc_corr"], "acc_incorr": out["acc_incorr"],
-                       "total_acc_corr": out["total_acc_corr"],
-                       "total_acc_incorr": out["total_acc_incorr"],
-                       "geo_loss": out["geo_loss"].detach(), "max_mscore": out["matching_scores0"].max(),
-                       "lr": lr, "bad_loss": bad.to(torch.int32)}
+            metrics = {**glob, "lr": lr, "bad_loss": bad.to(torch.int32)}
         return metrics, stats
 
     return step

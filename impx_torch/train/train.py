@@ -18,8 +18,16 @@ impx's step on the TPU; they are accepted so that impx's configs and scripts
 parse, and have no counterpart in the port. --network adagmn trains EIMP
 (AdaGMN.forward_train), --train_compaction 'it:bucket,...' its compacted
 scan, and --norm_fn bn batch norm in train mode, each as impx trains them.
-Parallelism (--multihost, --model_parallel > 1) is refused, naming its
-ROADMAP item.
+
+Several cards: launched by torchrun (which sets RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR and MASTER_PORT), or with --multihost, the CLI joins the process
+group (impx_torch/parallel/mesh.py:init_distributed; --multihost without
+that environment raises, naming the variables), each rank on
+cuda:LOCAL_RANK, and the Trainer trains data-parallel over every rank, or
+over a (world / k, k) grid with --model_parallel k (tensor parallelism).
+
+  torchrun --nproc_per_node=4 -m impx_torch.train.train --config configs/config_train_megadepth.json \
+      --synthetic [--model_parallel 2]
 
   python -m impx_torch.train.train --synthetic --device cpu --network adagmn --layers 4 \
       --max_keypoints 64 --n_min_tokens 16 --train_compaction 3:48 --batch_size 2 --epochs 1 \
@@ -94,8 +102,12 @@ parser.add_argument("--train_compaction", type=str, default="",
                          "semantics; '' = the masked trainer)")
 parser.add_argument("--attn_block_q", type=int, default=0,
                     help="impx's Pallas q-block; no counterpart here (the kernels pick their tiles)")
-parser.add_argument("--multihost", action="store_true", help="not ported yet (ROADMAP A11)")
-parser.add_argument("--model_parallel", type=int, default=1, help="> 1 is not ported yet (ROADMAP A11)")
+parser.add_argument("--multihost", action="store_true",
+                    help="join the process group from the launcher's environment (torchrun's RANK, "
+                         "WORLD_SIZE, MASTER_ADDR, MASTER_PORT); raises without it")
+parser.add_argument("--model_parallel", type=int, default=1,
+                    help="tensor parallelism: a (world / k, k) grid of ranks; k must divide the world "
+                         "and num_heads")
 parser.add_argument("--device", type=str, default=None,
                     help="the training device (default: the CUDA card; 'cpu' runs the kernels' plain "
                          "PyTorch versions)")
@@ -104,16 +116,18 @@ parser.add_argument("--device", type=str, default=None,
 TPU_ONLY = (("attn_impl", "xla"), ("train_remat", "full"), ("attn_block_q", 0))
 
 
-def refuse_unported(args) -> None:
-    """NotImplementedError, naming its ROADMAP item, for a setting the port
-    does not train."""
-    refused = (
-        (args.multihost, "--multihost (multi-host training)", "A11"),
-        (int(args.model_parallel or 1) > 1, "--model_parallel > 1 (tensor parallelism)", "A11"),
-    )
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+def join_process_group(args) -> None:
+    """init_distributed() from the launcher's environment under --multihost
+    (which raises without it, naming the variables) or when a launcher set
+    WORLD_SIZE (impx/train/train.py:161-164 calls jax.distributed.initialize);
+    the backend follows the device: NCCL on a card, gloo on the CPU."""
+    import os
+
+    if args.multihost or "WORLD_SIZE" in os.environ:
+        from impx_torch.device import resolve_device
+        from impx_torch.parallel.mesh import init_distributed
+
+        init_distributed(device=resolve_device(args.device))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -171,24 +185,26 @@ def build_dataset(args):
 
 
 def main(argv=None):
-    """Parse, refuse what is not ported, build the model, the dataset and the
-    Trainer, load --weight_path or --resume_path, train. Returns the Trainer."""
+    """Parse, join the process group when launched on several ranks, build
+    the model, load --weight_path, build the dataset and the Trainer (which
+    slices the weights under --model_parallel), load --resume_path, train.
+    Returns the Trainer."""
     from impx_torch.train.trainer import Trainer
     from impx_torch.tools.convert import load_matcher_checkpoint
 
     args = parse_args(argv)
-    refuse_unported(args)
+    join_process_group(args)
     tpu_only = [f"--{k} {getattr(args, k)}" for k, default in TPU_ONLY if getattr(args, k) != default]
     if tpu_only:
         print(f"{', '.join(tpu_only)}: impx's TPU-only settings, no counterpart in the port (ignored)")
 
     model = build_model(args)
-    trainer = Trainer(model, build_dataset(args), args)
-    opt_state = None
     if args.weight_path != "None":
         model.load_state_dict(load_matcher_checkpoint(osp.join(args.save_root, args.weight_path),
                                                       model.config, model.sharing))
         print(f"Loaded pretrained weights from {args.weight_path}")
+    trainer = Trainer(model, build_dataset(args), args)
+    opt_state = None
     if args.resume_path != "None":
         opt_state = trainer.restore_checkpoint(osp.join(args.save_root, args.resume_path))
         print(f"Resumed from {args.resume_path} at epoch {trainer.epoch}")

@@ -22,8 +22,24 @@ As impx's trainer:
 Checkpoints are `torch.save` files of the parameters, the optimizer state
 and the meta (epoch, iteration, best value).
 
-Not ported: tensor and data parallelism (model_parallel > 1 raises, ROADMAP
-A11).
+Parallelism (impx/train/trainer.py:85-102, :286-313). In a process group
+(impx_torch/parallel/mesh.py:init_distributed) the mesh comes from the
+world: (data,) over every rank, or (data, model) with args.model_parallel
+= k > 1 (SystemExit when k does not divide the world). The model's MLPs and
+losses get the data group (global batch-norm moments, loss shares, one
+gradient all-reduce a step: impx_torch/train/step.py), and under k > 1
+its weights are sliced over the model group (impx_torch/parallel/tp.py).
+train() raises SystemExit when the batch does not divide over the data
+axis. Each rank's data thread assembles only its rows of the same global
+batch one process would assemble (rank d of the data axis takes the d-th
+contiguous block; where the samples draw from one stream, as Megadepth's in
+training, each rank draws every row of the batch to keep the stream's
+order), so an epoch's loss is the one-process loss. Rank 0
+alone writes log.txt, metrics.jsonl and the checkpoints, which hold the
+full single-device layout, gathered from the shards under tensor
+parallelism: a run saved at one world size resumes at another. The SIGTERM
+flag is agreed between the ranks before every step (a max over a gloo group
+of the host), so every rank stops at the same step.
 """
 from __future__ import annotations
 
@@ -39,6 +55,8 @@ from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from impx_torch.train.step import TrainHyperParams, init_opt_state, init_stats, make_train_step
 
@@ -77,16 +95,30 @@ class MetricWriter:
             self.tb.close()
 
 
+class _Silent:
+    """The writer of a rank other than 0: writes nothing."""
+
+    def write(self, *args, **kwargs):
+        pass
+
+    def text(self, msg: str):
+        pass
+
+    def close(self):
+        pass
+
+
 class Trainer:
     def __init__(self, model, dataset, args: Any, eval_fn: Callable | None = None):
         """model: an impx_torch matcher with forward_train; dataset as the
         module docstring says; args: lr, network, feature, batch_size, epochs,
         save_path and optionally min_lr, decay_rate, decay_iter, optim,
         weight_decay, its_per_epoch, log_intervals, max_keypoints;
-        eval_fn(model) -> dict of scalars (higher is better)."""
-        if int(getattr(args, "model_parallel", 1) or 1) > 1:
-            raise NotImplementedError("model_parallel > 1: tensor parallelism is not ported yet: ROADMAP A11")
+        eval_fn(model) -> dict of scalars (higher is better). In a process
+        group the model must hold the same full weights on every rank; under
+        model_parallel > 1 they are sliced here."""
         self.model = model
+        self._setup_parallel(int(getattr(args, "model_parallel", 1) or 1))
         self.dataset = dataset
         self.args = args
         self.eval_fn = eval_fn
@@ -98,16 +130,20 @@ class Trainer:
             weight_decay=getattr(args, "weight_decay", 5e-4))
         self.step_fn = make_train_step(model, self.hp)
 
-        now = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+        now = [datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")]
+        if self.mesh is not None:  # one run directory for every rank
+            dist.broadcast_object_list(now, src=0)
+        now = now[0]
         cfg = model.config
         tag = (f"{now}_{args.network}_L{cfg.n_layers}_{args.feature}"
                f"_B{args.batch_size}_K{getattr(args, 'max_keypoints', 0)}"
                f"_M{cfg.match_threshold}_{cfg.ac_fn}_{cfg.norm_fn}_{self.hp.optim}")
         self.save_dir = osp.join(args.save_path, tag)
         self.tag = tag
-        self.writer = MetricWriter(self.save_dir)
-        with open(osp.join(self.save_dir, "args.json"), "w") as f:
-            json.dump({k: str(v) for k, v in vars(args).items()}, f, indent=2)
+        self.writer = MetricWriter(self.save_dir) if self.is_main else _Silent()
+        if self.is_main:
+            with open(osp.join(self.save_dir, "args.json"), "w") as f:
+                json.dump({k: str(v) for k, v in vars(args).items()}, f, indent=2)
 
         self.iteration = 0
         self.epoch = 0
@@ -119,19 +155,71 @@ class Trainer:
         if threading.current_thread() is threading.main_thread():
             self._prev_sigterm = signal.signal(signal.SIGTERM, lambda *_: setattr(self, "_preempted", True))
 
+    # ---------------------------------------------------------------- parallel
+    def _setup_parallel(self, mp: int) -> None:
+        """The mesh from the world, the groups handed to the model, the
+        weights sliced under tensor parallelism (see the module docstring)."""
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world % mp:
+            raise SystemExit(f"--model_parallel {mp} does not divide the {world} processes")
+        self.mesh, self._control = None, None
+        self.is_main = not dist.is_initialized() or dist.get_rank() == 0
+        if not dist.is_initialized():
+            return
+        from impx_torch.parallel.mesh import make_mesh, set_data_group
+        from impx_torch.parallel.tp import make_2d_mesh, shard_params_tp
+
+        self.mesh = make_2d_mesh(world // mp, mp) if mp > 1 else make_mesh()
+        if mp > 1:
+            shard_params_tp(self.model, self.mesh)
+        set_data_group(self.model, self.mesh.group("data"))
+        if world > 1:  # host flags (SIGTERM) are agreed over gloo, off the card
+            self._control = dist.new_group(backend="gloo")
+
+    def _data_rows(self) -> tuple[int, int]:
+        """(this rank's index on the data axis, the axis' size)."""
+        if self.mesh is None:
+            return 0, 1
+        return self.mesh.index("data"), self.mesh.size("data")
+
+    def _stop(self) -> bool:
+        """The preemption flag, agreed between the ranks."""
+        if self._control is None:
+            return self._preempted
+        flag = torch.tensor([int(self._preempted)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._control)
+        return bool(flag.item())
+
     # ------------------------------------------------------------- checkpoints
     def save_checkpoint(self, opt_state: dict, name: str | None = None) -> str:
+        """Every rank calls it (the tensor-parallel gather is a collective);
+        rank 0 writes the full single-device layout."""
+        from impx_torch.parallel.tp import gather_full
+
         name = name or f"{self.args.network}.{self.epoch:02d}"
         path = osp.abspath(osp.join(self.save_dir, name))
-        torch.save({"params": self.model.state_dict(), "opt_state": opt_state,
-                    "meta": {"epoch": self.epoch, "iteration": self.iteration,
-                             "best_value": self.best_value}}, path)
+        params = gather_full(self.model, self.model.state_dict())
+        opt = {"count": opt_state["count"], "mu": gather_full(self.model, opt_state["mu"]),
+               "nu": gather_full(self.model, opt_state["nu"])}
+        if self.is_main:
+            torch.save({"params": params, "opt_state": opt,
+                        "meta": {"epoch": self.epoch, "iteration": self.iteration,
+                                 "best_value": self.best_value}}, path)
         return path
 
     def restore_checkpoint(self, path: str) -> dict:
         """Loads the parameters into the model; returns the optimizer state.
-        Training resumes at the epoch after the saved one."""
+        Training resumes at the epoch after the saved one. The checkpoint's
+        full layout is sliced for this rank under tensor parallelism."""
         ckpt = torch.load(path, map_location=self.model.device, weights_only=True)
+        if getattr(self.model, "model_group", None) is not None:
+            from impx_torch.tools.convert import tp_shard_state_dict
+
+            rank, k = self.mesh.index("model"), self.mesh.size("model")
+            cfg = self.model.config
+            ckpt["params"] = tp_shard_state_dict(ckpt["params"], cfg, rank, k)
+            for key in ("mu", "nu"):
+                ckpt["opt_state"][key] = tp_shard_state_dict(ckpt["opt_state"][key], cfg, rank, k)
         self.model.load_state_dict(ckpt["params"])
         self.epoch = int(ckpt["meta"]["epoch"]) + 1
         self.iteration = int(ckpt["meta"]["iteration"])
@@ -140,10 +228,21 @@ class Trainer:
 
     # ------------------------------------------------------------------ epochs
     def _batches_sync(self) -> Iterable[dict]:
+        """Global batches of args.batch_size samples in dataset order; this
+        rank assembles its contiguous block of rows of each. A dataset whose
+        samples draw from one stream (`draws_from_stream`: Megadepth's
+        training) gives one process's rows only when drawn in order, so each
+        rank then draws every row of the batch and keeps its own."""
         bs = self.args.batch_size
         n = len(self.dataset)
+        d, n_data = self._data_rows()
+        rows = bs // n_data
+        every = n_data > 1 and getattr(self.dataset, "draws_from_stream", False)
         for idx in range(0, n - bs + 1, bs):
-            samples = [self.dataset[i] for i in range(idx, idx + bs)]
+            if every:
+                samples = [self.dataset[i] for i in range(idx, idx + bs)][d * rows:(d + 1) * rows]
+            else:
+                samples = [self.dataset[i] for i in range(idx + d * rows, idx + (d + 1) * rows)]
             yield {k: torch.from_numpy(np.stack([s[k] for s in samples]).astype(np.float32))
                    .to(self.model.device, non_blocking=True)
                    for k in samples[0] if isinstance(samples[0][k], np.ndarray)}
@@ -194,7 +293,7 @@ class Trainer:
         loss_sum, n_good = 0.0, 0.0
         metrics = None
         for bidx, batch in enumerate(self._batches()):
-            if 0 <= its_per_epoch <= bidx or self._preempted:
+            if 0 <= its_per_epoch <= bidx or self._stop():
                 break
             metrics, stats = self.step_fn(opt_state, self.iteration, batch, stats)
             self.iteration += 1
@@ -234,12 +333,16 @@ class Trainer:
 
     def train(self, opt_state: dict | None = None) -> dict:
         """Epochs until args.epochs; returns the optimizer state."""
+        _, n_data = self._data_rows()
+        if int(self.args.batch_size) % n_data:
+            raise SystemExit(f"batch_size={self.args.batch_size} must be divisible by the data-parallel axis "
+                             f"({n_data} ranks)")
         if opt_state is None:
             opt_state = init_opt_state(self.model)
         while self.epoch < self.args.epochs:
             t0 = time.time()
             opt_state, train_loss = self.process_epoch(opt_state)
-            if self._preempted:  # SIGTERM: save mid-epoch and return
+            if self._stop():  # SIGTERM (on any rank): save mid-epoch and return
                 path = self.save_checkpoint(opt_state, name=f"{self.tag}.preempt")
                 self.writer.text(f"SIGTERM: preemption checkpoint -> {path}")
                 return opt_state

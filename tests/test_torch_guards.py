@@ -54,7 +54,8 @@ def test_no_jax_or_impx_import_at_run_time():
             "impx_torch.data.dump.download_data, impx_torch.data.dump.dump_megadepth, impx_torch.eval.reproduce, "
             "impx_torch.tools.superpoint_phases, impx_torch.data.synthetic_device, impx_torch.eval.iterative_fused, "
             "impx_torch.eval.iterative_refill, impx_torch.eval.iterative_staged, impx_torch.train.train, "
-            "impx_torch.data.megadepth; "
+            "impx_torch.data.megadepth, impx_torch.parallel.mesh, impx_torch.parallel.collectives, "
+            "impx_torch.parallel.tp, impx_torch.parallel.pp; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'impx')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -68,6 +69,29 @@ def test_entry_point_needs_cuda_unless_cpu_is_named(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DGNNS(SMALL)
     assert DGNNS(SMALL, device="cpu").device == torch.device("cpu")
+
+
+def test_resolve_device_takes_the_launchers_local_rank(monkeypatch):
+    """Under a launcher (torchrun sets LOCAL_RANK) each rank takes its own
+    card; without one, the default card; without a card it raises whatever
+    LOCAL_RANK says."""
+    from impx_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert resolve_device() == torch.device("cuda:3")
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.delenv("LOCAL_RANK")
+    assert resolve_device() == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+
+
+def test_parallel_modules_are_walked_by_the_import_guard():
+    walked = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {"parallel/mesh.py", "parallel/collectives.py", "parallel/tp.py", "parallel/pp.py"} <= walked
 
 
 def test_eimp_entry_point_needs_cuda_unless_cpu_is_named(monkeypatch):
@@ -382,16 +406,19 @@ def test_eval_path_imports_and_runs_without_cv2_h5py_yaml():
 
 @pytest.mark.parametrize("flag,item", [(["--data_parallel"], "A11")],
                          ids=lambda v: v if isinstance(v, str) else v[0])
-def test_unported_eval_flags_raise(flag, item):
-    """Each unported flag of the eval CLI raises, naming its ROADMAP item,
-    before any data or weights are read; evaluate refuses it too."""
+def test_unported_eval_flags_raise(flag, item, tiny_eval_config):
+    """The eval CLI's flags of ROADMAP item A11, refused until it was ported,
+    now run: outside a process group (world size 1) --data_parallel changes
+    nothing, as impx on one device, so the CLI returns the results of the
+    run without it (timings aside)."""
     from impx_torch.eval import eval_imp
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
-        eval_imp.main(["--device", "cpu", "--config_path", "/nonexistent.yaml", *flag])
-    args = eval_imp.parser.parse_args(["--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
-        eval_imp.evaluate(None, None, 1.0, {}, args)
+    argv = ["--device", "cpu", "--config_path", tiny_eval_config, "--layers", "2", "--bucket", "64",
+            "--eval_batch", "2"]
+    timing = ("pairs_per_sec_device", "total_time")
+    plain = {k: v for k, v in eval_imp.main(argv).items() if k not in timing}
+    assert {k: v for k, v in eval_imp.main([*argv, *flag]).items() if k not in timing} == plain
+    assert item == "A11"
 
 
 def test_five_point_sampling_runs():

@@ -452,5 +452,6 @@ def test_trainer_reraises_a_prefetch_exception(tmp_path):
     trainer = Trainer(model, Exploding(num_pairs=8, nfeatures=16, desc_dim=32), _args(tmp_path))
     with pytest.raises(RuntimeError, match="boom"):
         trainer.process_epoch(init_opt_state(model))
-    with pytest.raises(NotImplementedError, match="model_parallel"):
+    # tensor parallelism outside a process group: 2 does not divide the one process
+    with pytest.raises(SystemExit, match="--model_parallel 2 does not divide the 1 processes"):
         Trainer(model, Exploding(), _args(tmp_path, model_parallel=2))

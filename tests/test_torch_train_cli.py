@@ -140,6 +140,34 @@ def test_megadepth_matches_impx(dump, random_inliers):
     assert invalid[0] == invalid[1] and invalid[0]
 
 
+def test_data_parallel_ranks_assemble_the_one_process_rows_of_megadepth(dump, tmp_path, restore_sigterm):
+    """Megadepth's training samples draw from one stream, so a rank that drew
+    only its own rows would draw the first rows' numbers: each rank of a data
+    axis of 2 draws every row of the batch and keeps its block, which equals
+    the one-process batch's rows exactly."""
+    kw = dict(base_path=str(dump / "dump"), scene_list_fn=str(dump / "raw" / "scenes.txt"),
+              pairs_per_scene=2, nfeatures=64, feature_type="sift", min_inliers=8, max_inliers=32,
+              random_inliers=True, seed=5)
+    args = argparse.Namespace(lr=1e-4, network="dgnns", feature="sift", batch_size=2, epochs=1,
+                              save_path=str(tmp_path))
+    cfg = MatcherConfig(descriptor_dim=32, keypoint_encoder=(16, 32), n_layers=2, num_heads=4)
+
+    def batches(d, n_data):
+        trainer = Trainer(DGNNS(cfg, device="cpu"), megadepth.Megadepth(**kw), args)
+        trainer._data_rows = lambda: (d, n_data)
+        return list(trainer._batches_sync())
+
+    one = batches(0, 1)
+    assert len(one) == 1
+    for d in range(2):
+        (mine,) = batches(d, 2)
+        for k, v in mine.items():
+            np.testing.assert_array_equal(v.numpy(), one[0][k][d:d + 1].numpy(), err_msg=k)
+    # the teeth: row 1 drawn first from the stream is not the one-process row 1
+    alone = megadepth.Megadepth(**kw)[1]
+    assert not np.array_equal(alone["matching_mask"], one[0]["matching_mask"][1].numpy())
+
+
 def test_synthetic_megadepth_and_normalization_equal_impx():
     ours = megadepth.SyntheticMegadepth(num_pairs=4, nfeatures=24, desc_dim=32)
     theirs = jax_megadepth.SyntheticMegadepth(num_pairs=4, nfeatures=24, desc_dim=32)
@@ -187,11 +215,13 @@ def test_config_merge_order_is_impx(tmp_path):
     (["--network", "adagmn"], "A7"), (["--norm_fn", "bn"], "A7"), (["--train_compaction", "1:16"], "A7"),
     (["--multihost"], "A11"), (["--model_parallel", "2"], "A11")],
     ids=["adagmn", "batch-norm", "train-compaction", "multihost", "model-parallel"])
-def test_unported_flags_raise_naming_their_item(tmp_path, flags, item, restore_sigterm):
-    """Each refused flag (A11) raises before a model, a dataset or a run
-    directory is made, naming its ROADMAP item. The flags of A7, refused
-    until EIMP training and batch norm in train mode were ported, now train:
-    two steps on the CPU, finite losses, no kernel launch counted."""
+def test_unported_flags_raise_naming_their_item(tmp_path, flags, item, restore_sigterm, monkeypatch):
+    """The flags refused until their ROADMAP item was ported. Those of A7
+    (EIMP training, batch norm in train mode) train: two steps on the CPU,
+    finite losses, no kernel launch counted. Those of A11 (parallelism), in
+    one process without a launcher: --multihost raises, naming the launcher's
+    variables, and --model_parallel 2 raises SystemExit (2 does not divide
+    the one process), each before a run directory is made."""
     argv = ["--synthetic", "--device", "cpu", "--save_path", str(tmp_path), *flags]
     if item == "A7":
         before = _launches()
@@ -201,8 +231,14 @@ def test_unported_flags_raise_naming_their_item(tmp_path, flags, item, restore_s
         assert len(losses) == 2 and np.isfinite(losses).all()
         assert _launches() == before
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
-        train.main(argv)
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    if flags == ["--multihost"]:
+        with pytest.raises(RuntimeError, match="MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE not set"):
+            train.main(argv)
+    else:
+        with pytest.raises(SystemExit, match="--model_parallel 2 does not divide the 1 processes"):
+            train.main(argv)
     assert not os.listdir(tmp_path)
 
 
