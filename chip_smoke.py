@@ -151,10 +151,24 @@ gloo (`--parallel-rank`): (b) the data-parallel step at world 2 and (c) the
 tensor-parallel forward, AdaGMN's pooling and step at (1, 2), the steps held
 by their loss and the gradient each applied (cosines, global norm) against
 the one-process step's; (d) the GPipe forward at 3 stages x 2 microbatches
-against forward_scan. The line
+against forward_scan. (24) Kernels 3, 4 and 5 at fp32 at [4, 4, 2048, 64]
+against their plain versions (reported against TRAIN_REL_L2, an open fault
+of ROADMAP section C) and both against float64; (a) sequence parallelism
+(impx_torch/parallel/tp.py:shard_batch_sp, mesh.set_seq_group) through a
+one-rank NCCL group in process and over 2 ranks sharing the card through
+gloo: IMP bf16 at the eval config (indices0 against one process), AdaGMN
+mask-only (keep counts), the training config's fp32 step (loss, gradient
+cosines and global norm); (b) the serving export (impx_torch/tools/
+export.py) of IMP and EIMP mask-only at the eval config on the card and of a
+3-layer program exported on the CPU and moved to cuda: the exported call's
+launches and outputs against the eager call's; the host µs of a kernel-1
+call through its torch.library op against the direct launch; (c) a
+torch.profiler trace (impx_torch/tools/profiling.py) that must name
+attn_fwd_wgmma; (d) pose_study, fm_study and geo_study at --fast, timed.
+The line
 before the last lists the kernels as JSON (with each kernel's launches over
 phase 17's, 18's, 19's, 20's, 21's and 22's kernel-path runs, phase 23's as
-"launches_parallel", and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
+"launches_parallel", phase 24's as "launches_sp_export", and for kernels 1, 3, 4, 5 and 6 an "fp32" entry:
 times, both bounds, the plain and library times); the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero. Needs one CUDA
 device; exits nonzero without one.
@@ -2108,13 +2122,16 @@ TRAIN_CHECK_SHAPES = ((torch.bfloat16, dict()), (torch.float32, dict()),
                       (torch.float32, dict(b=3, h=2, n=333, dh=32)), (torch.float32, dict(b=3, h=2, n=250, dh=16)))
 
 
-def check_training_kernels(dev, ka, shapes=TRAIN_CHECK_SHAPES) -> dict:
+def check_training_kernels(dev, ka, shapes=TRAIN_CHECK_SHAPES, gate: bool = True) -> dict:
     """Kernels 4, 3 and 5 against their plain versions at `shapes`:
     o, dq, dk and dv by the relative L2 error of each batch (the fully masked
     batch on a line of its own), the lse elementwise; the backwards twice,
     for the same bits. Prints every check before failing on any. Returns
     each kernel's max_abs_err at the training shape, bf16 under its name and
-    fp32 under (name, torch.float32)."""
+    fp32 under (name, torch.float32). gate=False reports the readings over
+    the limit instead of failing on them (phase 24's fp32 readings at 2048
+    keys, an open fault of ROADMAP section C); the bit-for-bit second runs
+    and finiteness still fail."""
     gen = torch.Generator().manual_seed(10)
     errs, failures = {}, []
     for dtype, shape in shapes:
@@ -2139,8 +2156,10 @@ def check_training_kernels(dev, ka, shapes=TRAIN_CHECK_SHAPES) -> dict:
                 f"over the batches with valid keys (max {limit:g}); max_abs_err {err:.3e}; finite {finite}"
                 + ("" if name == "mha_fused_lse" else f"; second run bitwise equal {same}"))
             say(f"check {name} {part} {where} fully masked batch: relative L2 {rel[-1].item():.3e} (max {limit:g})")
-            if not bool((rel <= limit).all()) or not finite or not same:
+            if not finite or not same or (gate and not bool((rel <= limit).all())):
                 failures.append(f"{name} {part} at {where}")
+            elif not bool((rel <= limit).all()):
+                say(f"check {name} {part} {where}: over the limit {limit:g} (reported, not held: ROADMAP C)")
             if not shape:
                 key = name if dtype == torch.bfloat16 else (name, dtype)
                 errs[key] = max(errs.get(key, 0.0), err)
@@ -3897,6 +3916,18 @@ def par_agree(label, got, want, valid, agree_min) -> None:
         fail(f"{label}: indices0 agree on {frac:.5f} of valid rows")
 
 
+def compare_keeps(label, eimp, want) -> None:
+    """The keep counts that recording_keeps gathered on `eimp` against one
+    process's, after every pool."""
+    keeps = [(a.cpu(), b.cpu()) for a, b in eimp.keeps]
+    same = len(keeps) == len(want) and all(torch.equal(a, c) and torch.equal(b, d)
+                                           for (a, b), (c, d) in zip(keeps, want))
+    say(f"{label} AdaGMN mask-only fp32 at dustbin {EIMP_BIN_SCORE}: keep counts after each pool "
+        f"{[k[0].tolist() for k in keeps]} (one process {[k[0].tolist() for k in want]}); equal {same}")
+    if not same:
+        fail(f"{label}: AdaGMN's keep counts differ from one process's")
+
+
 def par_child_dp_tp(dev, rank, world, workdir, kernels) -> dict:
     """(b), then (c), on one rank of a world of 2 over gloo."""
     from impx_torch.models import DGNNS, MatcherConfig
@@ -3961,13 +3992,7 @@ def par_tp(dev, rank, world, workdir, batch) -> dict:
     with torch.no_grad():
         eimp.produce_matches(overlap_pairs(torch.Generator().manual_seed(PAR_SEED), dev), only_last=True,
                              with_scores=False)
-    keeps = [(a.cpu(), b.cpu()) for a, b in eimp.keeps]
-    same = len(keeps) == len(refs["keeps"]) and all(torch.equal(a, c) and torch.equal(b, d)
-                                                    for (a, b), (c, d) in zip(keeps, refs["keeps"]))
-    say(f"parallel (c) rank {rank} AdaGMN mask-only fp32 at dustbin {EIMP_BIN_SCORE}: keep counts after each "
-        f"pool {[k[0].tolist() for k in keeps]} (one rank {[k[0].tolist() for k in refs['keeps']]}); equal {same}")
-    if not same:
-        fail("parallel (c): AdaGMN's keep counts under tensor parallelism differ from one rank's")
+    compare_keeps(f"parallel (c) rank {rank}", eimp, refs["keeps"])
     del eimp
 
     model = shard_params_tp(par_model(dev, DGNNS, MatcherConfig), grid)
@@ -4103,6 +4128,373 @@ def parallel_phase(dev, kernels, DGNNS, AdaGMN, MatcherConfig) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 24
+SP_DIR = "impx_torch/_build/sp_phase"          # references, the ranks' outputs and the trace (gitignored), removed after
+SP_SEED = 24
+SP_WORLD = 2                                   # sequence ranks sharing the card over gloo
+SP_DTYPES = ("bfloat16",)                      # the eval config's IMP forward (the main path's dtype)
+SP_AGREE = {"float32": 0.999, "bfloat16": 0.99}   # indices0 of valid rows against one process
+SP_KERNELS = ("mha_fused", "sinkhorn_fused_stats", "mha_bwd", "attention_key_mass", "mha_fused_lse")
+BWD_2048_SHAPES = ((torch.float32, dict(b=4, n=2048)),)   # kernels 3 and 5 at fp32, [4, 4, 2048, 64] (ROADMAP C)
+EXPORT_CPU_LAYERS = 3                          # the CPU-exported artifact: the eval widths, depth cut to 3 layers
+HOST_TURNS = 3                                 # host-clock medians of the wrapper, direct launch and op, in turns
+
+
+def _bwd_fp64(q, k, v, mask, do):
+    """o and (dq, dk, dv) of masked attention in float64, the masked keys at
+    -1e30 as the kernels take them."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    s = torch.where(mask[:, None, None, :], q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5, -1e30)
+    p = torch.softmax(s, dim=-1)
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / q.shape[-1] ** 0.5
+    return p @ v, (ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do)
+
+
+def fp32_against_fp64(dev, ka) -> None:
+    """Kernels 4 (o), 3 and 5 at fp32 at [4, 4, 2048, 64] and their plain
+    versions, each against float64: which side of the over-the-limit reading
+    carries the error (the largest relative L2 over the batches with valid
+    keys)."""
+    (dtype, shape), = BWD_2048_SHAPES
+    q, k, v, mask, do = training_inputs(torch.Generator().manual_seed(10), dev, dtype, **shape)
+    o64, g64 = _bwd_fp64(q, k, v, mask, do)
+    o, lse = ka.mha_fused_lse(q, k, v, mask)
+    ro, _ = ka.mha_lse_reference(q, k, v, mask)
+    rows = [("mha_fused_lse o", o, ro, o64)]
+    for name, got, ref in (("mha_bwd", ka.mha_bwd(q, k, v, mask, do), ka.mha_bwd_reference(q, k, v, mask, do)),
+                           ("mha_bwd_from_lse", ka.mha_bwd_from_lse(q, k, v, mask, lse, o, do),
+                            ka.mha_bwd_from_lse_reference(q, k, v, mask, lse, o, do))):
+        rows += [(f"{name} {part}", a, r, x) for part, a, r, x in zip(("dq", "dk", "dv"), got, ref, g64)]
+    for label, kern, plain, exact in rows:
+        rk, rp = (rel_l2_per_batch(t.double(), exact)[:-1].max().item() for t in (kern, plain))
+        say(f"fp64 {label} {list(q.shape)} fp32: relative L2 against float64, kernel {rk:.3e}, plain version "
+            f"{rp:.3e}")
+    del q, k, v, do, o64, g64, rows
+
+
+def sp_data(dev):
+    """IMP's pairs (permuted, padded) and EIMP's (overlapping), B pairs of N."""
+    return (permuted_pairs(torch.Generator().manual_seed(SP_SEED), dev),
+            overlap_pairs(torch.Generator().manual_seed(SP_SEED), dev))
+
+
+def sp_references(dev, DGNNS, AdaGMN, MatcherConfig, TrainHyperParams, make_train_step, workdir) -> None:
+    """One process's results, saved under workdir: IMP's indices0 at
+    SP_DTYPES, AdaGMN's (mask-only, fp32) keep counts after every pool, and the
+    fp32 training step (loss, applied gradient)."""
+    imp, eimp_data = sp_data(dev)
+    refs = {"valid0": imp["valid0"].cpu()}
+    for dtype in SP_DTYPES:
+        model = par_model(dev, DGNNS, MatcherConfig, dtype)
+        with torch.no_grad():
+            refs[dtype] = model.produce_matches(imp, only_last=True, with_scores=False)["indices0"][-1].cpu()
+    eimp = recording_keeps(par_model(dev, DGNNS, MatcherConfig, cls=AdaGMN))
+    eimp.bin_score.data.fill_(EIMP_BIN_SCORE)
+    with torch.no_grad():
+        eimp.produce_matches(eimp_data, only_last=True, with_scores=False)
+    refs["keeps"] = [(a.cpu(), b.cpu()) for a, b in eimp.keeps]
+    model = par_model(dev, DGNNS, MatcherConfig)
+    refs["step"] = par_step_outputs(model, make_train_step(model, TrainHyperParams()), par_batch(dev))
+    torch.save(refs, f"{workdir}/sp_refs.pt")
+
+
+def sp_run(dev, DGNNS, AdaGMN, MatcherConfig, mesh, refs, label) -> dict:
+    """The sequence-parallel checks on this rank of `mesh` (1, s): IMP's
+    forward at SP_DTYPES, AdaGMN mask-only's keep counts, one training step
+    at fp32; returns ms of each."""
+    from impx_torch.parallel.mesh import set_seq_group
+    from impx_torch.parallel.tp import shard_batch_sp
+    from impx_torch.train.step import TrainHyperParams, make_train_step
+
+    out = {}
+    seq = mesh.group("model")
+    imp, eimp_data = sp_data(dev)
+    for dtype in SP_DTYPES:
+        model = set_seq_group(par_model(dev, DGNNS, MatcherConfig, dtype), seq)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            idx = model.produce_matches(shard_batch_sp(mesh, imp), only_last=True, with_scores=False)["indices0"][-1]
+        torch.cuda.synchronize(dev)
+        out[f"IMP {dtype} ms"] = 1e3 * (time.perf_counter() - t0)
+        par_agree(f"sequence parallel {label} IMP {dtype}, {N // mesh.size('model')} of {N} keypoints a rank",
+                  idx, refs[dtype], refs["valid0"], SP_AGREE[dtype])
+        del model
+    eimp = recording_keeps(set_seq_group(par_model(dev, DGNNS, MatcherConfig, cls=AdaGMN), seq))
+    eimp.bin_score.data.fill_(EIMP_BIN_SCORE)
+    with torch.no_grad():
+        eimp.produce_matches(shard_batch_sp(mesh, eimp_data), only_last=True, with_scores=False)
+    compare_keeps(f"sequence parallel {label}", eimp, refs["keeps"])
+    del eimp
+    model = set_seq_group(par_model(dev, DGNNS, MatcherConfig), seq)
+    t0 = time.perf_counter()
+    got = par_step_outputs(model, make_train_step(model, TrainHyperParams()), shard_batch_sp(mesh, par_batch(dev)))
+    torch.cuda.synchronize(dev)
+    out["step ms"] = 1e3 * (time.perf_counter() - t0)
+    par_compare(f"sequence parallel {label} step fp32, {TN // mesh.size('model')} of {TN} keypoints a rank", got,
+                refs["step"], zero_grad_leaves(model), PAR_LOSS_RTOL, PAR_PARAM_ATOL, PAR_COS_MIN, PAR_GNORM_RTOL)
+    return out
+
+
+def par_child_sp(dev, rank, world, workdir, kernels) -> dict:
+    """Phase 24 (a) on one rank of a (1, world) grid over gloo."""
+    from impx_torch.models import AdaGMN, DGNNS, MatcherConfig
+    from impx_torch.parallel.tp import make_2d_mesh
+
+    refs = torch.load(f"{workdir}/sp_refs.pt", weights_only=False)
+    return sp_run(dev, DGNNS, AdaGMN, MatcherConfig, make_2d_mesh(1, world), refs, f"rank {rank} of (1, {world})")
+
+
+PAR_JOBS["sp"] = par_child_sp
+
+
+def sp_world1(dev, DGNNS, AdaGMN, MatcherConfig, workdir) -> None:
+    """Phase 24 (a) through a one-rank NCCL group in process (a sequence
+    group of one rank: every gather and sum is a copy)."""
+    import torch.distributed as dist
+
+    from impx_torch.parallel.mesh import init_distributed
+    from impx_torch.parallel.tp import make_2d_mesh
+
+    init_distributed(f"file://{os.path.abspath(workdir)}/rendezvous_sp_nccl", rank=0, world_size=1, device=dev)
+    refs = torch.load(f"{workdir}/sp_refs.pt", weights_only=False)
+    out = sp_run(dev, DGNNS, AdaGMN, MatcherConfig, make_2d_mesh(1, 1), refs, "NCCL world 1")
+    say(f"sequence parallel (a) NCCL world 1 ms {({k: round(v, 1) for k, v in out.items()})}")
+    dist.destroy_process_group()
+
+
+def export_check(label, model, data, fn, want, kernels) -> None:
+    """The eager produce_matches and the exported fn on `data`: launches of
+    each kernel (against `want`), indices0 and mscores0 bit for bit, and
+    ms of each (host clock, synchronised, median of HOST_TURNS in turns)."""
+    feed = {k: data[k] for k in ("descriptors0", "descriptors1", "norm_keypoints0", "norm_keypoints1",
+                                 "scores0", "scores1", "valid0", "valid1")}
+    runs = {"eager": lambda: model.produce_matches(feed, only_last=True, with_scores=False),
+            "exported": lambda: fn(feed)}
+    outs, launches, times = {}, {}, {k: [] for k in runs}
+    for turn in range(HOST_TURNS + 1):
+        for name, run in runs.items():
+            for f in kernels.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = run()
+            torch.cuda.synchronize()
+            if turn:
+                times[name].append(1e3 * (time.perf_counter() - t0))
+            else:
+                launches[name] = {k: f.launches for k, f in kernels.items() if f.launches}
+                outs[name] = (out["indices0"][-1], out["mscores0"][-1]) if name == "eager" else (
+                    out["indices0"], out["mscores0"])
+    same = torch.equal(outs["eager"][0], outs["exported"][0]) and torch.equal(outs["eager"][1], outs["exported"][1])
+    say(f"export {label}: launches eager {launches['eager']} exported {launches['exported']} (want {want}); "
+        f"indices0 and mscores0 bit-equal {same}; ms a call eager {statistics.median(times['eager']):.1f} "
+        f"exported {statistics.median(times['exported']):.1f} (medians of {HOST_TURNS}, in turns)")
+    for name, run in runs.items():   # where an exported call's time goes: its device operations
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                run()
+            torch.cuda.synchronize()
+        busy = device_busy(prof)
+        say(f"export {label} {name}: device operations a call {busy[1] if busy else 0}, busy "
+            f"{busy[0] if busy else 0.0:.3f} ms")
+    if launches["eager"] != want or launches["exported"] != want or not same:
+        fail(f"export {label}: the exported call differs from the eager one")
+
+
+def export_phase(dev, DGNNS, AdaGMN, MatcherConfig, kernels) -> None:
+    """Phase 24 (b): torch.export on the card at the eval config (bf16) for
+    DGNNS and AdaGMN mask-only, through bytes; an artifact exported on the
+    CPU (the eval widths at EXPORT_CPU_LAYERS layers) moved to cuda on load."""
+    from impx_torch.tools.export import export_matcher, load_matcher
+
+    cfg = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="bfloat16")
+    imp, eimp_data = sp_data(dev)
+    for label, cls, data, want in (
+            ("IMP", DGNNS, imp, {"mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1}),
+            ("EIMP mask-only", AdaGMN, eimp_data, {"mha_fused": 18, "sinkhorn_fused_stats": cfg.n_layers,
+                                                   "attention_key_mass": 12, "mha_fused_lse": 12})):
+        model = cls(cfg, device=dev, seed=0)
+        if cls is AdaGMN:
+            model.bin_score.data.fill_(EIMP_BIN_SCORE)
+        t0 = time.perf_counter()
+        blob = export_matcher(model, n_kpts=N, batch=B)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn = load_matcher(blob)
+        say(f"export {label} on the card: {len(blob) / 2**20:.1f} MiB, export {t_export:.1f} s, load "
+            f"{time.perf_counter() - t0:.1f} s")
+        export_check(f"{label} bf16 B={B} N={N}", model, data, fn, want, kernels)
+        del model, fn, blob
+    small = dataclasses.replace(cfg, n_layers=EXPORT_CPU_LAYERS)
+    cpu_model = DGNNS(small, device="cpu", seed=0)
+    t0 = time.perf_counter()
+    blob = export_matcher(cpu_model, n_kpts=N, batch=B)
+    t_export = time.perf_counter() - t0
+    card = DGNNS(small, device=dev, seed=0)
+    card.load_state_dict(cpu_model.state_dict())
+    say(f"export on the CPU ({EXPORT_CPU_LAYERS} layers): {len(blob) / 2**20:.1f} MiB, {t_export:.1f} s; "
+        f"moved to cuda on load")
+    export_check(f"CPU-exported, moved to cuda, {EXPORT_CPU_LAYERS} layers", card, imp, load_matcher(blob, dev),
+                 {"mha_fused": 2 * EXPORT_CPU_LAYERS, "sinkhorn_fused_stats": 1}, kernels)
+
+
+def custom_op_twin(ka):
+    """Kernel 1's launch registered as a torch.library.custom_op (the
+    registration the port's ops moved away from), for its dispatch cost."""
+    @torch.library.custom_op("impx_smoke::mha_fwd", mutates_args=(), device_types="cuda",
+                             schema="(Tensor q, Tensor k, Tensor v, Tensor? key_mask) -> Tensor")
+    def twin(q, k, v, key_mask):
+        return ka._forward(q, k, v, key_mask, with_lse=False)[0]
+
+    return twin
+
+
+def host_before_after(dev, ka) -> None:
+    """The host microseconds of one kernel-1 call through the wrapper (the
+    op `impx::mha_fwd`, a torch.library.Library registration), of the direct
+    launch it wrapped before the op registration (`_mha_forward`), and of
+    the same launch behind a torch.library.custom_op, in turns on the same
+    inputs."""
+    att = attention_inputs(torch.Generator().manual_seed(24), dev, torch.bfloat16)
+    fns = {"direct launch (before)": ka._mha_forward, "op (after)": ka.mha_fused}
+    if dev.type == "cuda":
+        fns["custom_op"] = custom_op_twin(ka)
+    us = {k: [] for k in fns}
+    for _ in range(HOST_TURNS):
+        for k, fn in fns.items():
+            us[k].append(host_us(fn, att))
+    say(f"host mha_fused [8, 4, 2048, 64] bf16, us a call (median of {WRAPPER_CALLS}, {HOST_TURNS} turns): "
+        + "; ".join(f"{k} {[round(v, 2) for v in vals]}" for k, vals in us.items()))
+
+
+def trace_phase(dev, DGNNS, MatcherConfig, workdir) -> None:
+    """Phase 24 (c): impx_torch.tools.profiling.trace around one IMP bf16
+    call; the Chrome trace must name attn_fwd_wgmma, and its count of that
+    kernel's device events against the 30 launches tells whether the
+    profiler lost one."""
+    from impx_torch.tools.profiling import annotate, trace
+
+    model = par_model(dev, DGNNS, MatcherConfig, "bfloat16")
+    imp, _ = sp_data(dev)
+    with torch.no_grad():
+        model.produce_matches(imp, only_last=True, with_scores=False)
+        with trace(f"{workdir}/trace") as path:
+            with annotate("impx_produce_matches"):
+                model.produce_matches(imp, only_last=True, with_scores=False)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    wgmma = [e for e in events if "attn_fwd_wgmma" in str(e.get("name")) and e.get("cat") == "kernel"]
+    annotated = any(e.get("name") == "impx_produce_matches" for e in events)
+    say(f"trace (c): {os.path.getsize(path) / 2**20:.1f} MiB, {len(events)} events, {len(wgmma)} device events "
+        f"of attn_fwd_wgmma (launches {2 * model.config.n_layers}: {2 * model.config.n_layers - len(wgmma)} lost), "
+        f"annotated range present {annotated}")
+    if not wgmma or not annotated:
+        fail("trace (c): the profiler trace does not name attn_fwd_wgmma or the annotated range")
+
+
+def studies_phase(device: str) -> None:
+    """Phase 24 (d): impx's three studies at --fast on the card, each timed."""
+    from impx_torch.eval import fm_study, geo_study, pose_study
+
+    for name, study in (("pose_study", pose_study), ("fm_study", fm_study), ("geo_study", geo_study)):
+        t0 = time.perf_counter()
+        res = study.main(["--fast", "--device", device])
+        torch.cuda.synchronize()
+        say(f"study {name} --fast on the card: {time.perf_counter() - t0:.1f} s")
+        if name == "pose_study":
+            worst = min(res[(0.5, 0.2, b)][2] for b in ("torch8", "torch5"))
+            if worst < 80.0:
+                fail(f"pose_study: the device backends' AUC@20 at 0.5 px, 20% outliers is {worst:.2f} (< 80)")
+        elif name == "fm_study":
+            inl, sgd = res[(0.5, 0.2, "device")]
+            if inl < 95.0 or sgd > 1e-2:
+                fail(f"fm_study: the device F at 0.5 px, 20% outliers: GT-inlier {inl:.2f}%, SGD {sgd:.4f}")
+        elif not all(np.isfinite(v) for _, r in res for v in r["auc"].values()):
+            fail("geo_study: a non-finite AUC")
+
+
+STUDIES_TIMEOUT = 400
+
+
+def studies_spawn(device: str):
+    """The studies (d) in a process of their own (`--studies <device>`)."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--studies", device],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def studies_collect(proc) -> None:
+    try:
+        text, _ = proc.communicate(timeout=STUDIES_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"studies (d): not finished in {STUDIES_TIMEOUT} s")
+    for line in text.splitlines():
+        say(f"  [studies] {line}")
+    if proc.returncode:
+        fail("studies (d): the studies' process exited non-zero")
+
+
+def sp_export_phase(dev, kernels, ka, DGNNS, AdaGMN, MatcherConfig) -> dict:
+    """Phase 24: kernels 3, 4 and 5 at fp32 with 2048 keys (reported against
+    TRAIN_REL_L2 and float64); (a) sequence parallelism, a one-rank NCCL
+    group in process, then 2 ranks over gloo on the one card; while those
+    ranks and (d) the studies run in processes of their own, (b) the serving
+    export in this one; then, with the card to itself, the host µs of a
+    kernel op and (c) a profiler trace. Returns the launches of every kernel
+    over the phase (the ranks' summed; the studies' process counts none)."""
+    import shutil
+
+    from impx_torch.train.step import TrainHyperParams, make_train_step
+
+    t_phase = time.perf_counter()
+    workdir = SP_DIR
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    check_training_kernels(dev, ka, BWD_2048_SHAPES, gate=False)
+    fp32_against_fp64(dev, ka)
+    for fn in kernels.values():
+        fn.launches = 0
+    sp_references(dev, DGNNS, AdaGMN, MatcherConfig, TrainHyperParams, make_train_step, workdir)
+    torch.cuda.empty_cache()
+    say(f"sequence parallel references {time.perf_counter() - t_phase:.1f} s")
+    sp_world1(dev, DGNNS, AdaGMN, MatcherConfig, workdir)
+    torch.cuda.empty_cache()
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    ranks, studies = par_spawn("sp", SP_WORLD, workdir, device), studies_spawn(device.split(":")[0])
+    say("phase 24: (a)'s 2 ranks and (d)'s studies in processes of their own, (b) here, side by side on the "
+        "card: their ms are not a speed figure")
+    export_phase(dev, DGNNS, AdaGMN, MatcherConfig, kernels)
+    say(f"export (b) {time.perf_counter() - t0:.1f} s")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    for r, out in enumerate(par_collect("sp", ranks, workdir)):
+        pick = {k: out["launches"].get(k, 0) for k in SP_KERNELS}
+        say(f"sequence parallel rank {r} of (1, {SP_WORLD}): launches {pick}; peak device memory "
+            f"{out['peak_gib']:.2f} GiB; ms {({k: round(v, 1) for k, v in out['ms'].items()})} (ranks sharing one card)")
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    say(f"sequence parallel (a) ranks {time.perf_counter() - t0:.1f} s")
+    studies_collect(studies)
+    say(f"studies (d) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    for fn in kernels.values():
+        fn.launches = 0
+    host_before_after(dev, ka)
+    t0 = time.perf_counter()
+    trace_phase(dev, DGNNS, MatcherConfig, workdir)
+    say(f"trace (c) {time.perf_counter() - t0:.1f} s")
+    for k, fn in kernels.items():
+        launches[k] = launches.get(k, 0) + fn.launches
+    missing = [k for k in SP_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"phase 24: kernels {missing} never launched")
+    shutil.rmtree(workdir, ignore_errors=True)
+    say(f"phase 24 {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4209,6 +4601,7 @@ def main() -> int:
     training_cli = training_cli_phase(dev, kernels, ka, DGNNS, MatcherConfig)
     training_eimp = eimp_training_phase(dev, kernels, ka, AdaGMN, DGNNS, SuperGlue, MatcherConfig)
     parallel = parallel_phase(dev, kernels, DGNNS, AdaGMN, MatcherConfig)
+    sp_export = sp_export_phase(dev, kernels, ka, DGNNS, AdaGMN, MatcherConfig)
     for row in rows:
         row["launches_iterative"] = iterative[row["name"]]
         row["launches_routes"] = routes[row["name"]]
@@ -4217,6 +4610,7 @@ def main() -> int:
         row["launches_training_cli"] = training_cli[row["name"]]
         row["launches_training_eimp"] = training_eimp[row["name"]]
         row["launches_parallel"] = parallel.get(row["name"], 0)
+        row["launches_sp_export"] = sp_export.get(row["name"], 0)
         if row["name"] in fp32:
             row["fp32"] = fp32[row["name"]]
     say(f"total {time.perf_counter() - t_start:.1f} s on {card}")
@@ -4229,4 +4623,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(par_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6]))
+    if sys.argv[1:2] == ["--studies"]:
+        studies_phase(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -110,10 +110,13 @@ class AdaGMN(DGNNS):
 
         m_self = mass(*qk_self, torch.cat([keep0, keep1], dim=0), lse_self)
         m_cross = mass(*qk_cross, torch.cat([keep1, keep0], dim=0), lse_cross)
-        if self.model_group is not None:  # each rank summed its own heads
+        # each rank summed its own heads (tensor parallelism) or its own
+        # queries (sequence parallelism)
+        group = self.model_group if self.model_group is not None else self.seq_group
+        if group is not None:
             from impx_torch.parallel.collectives import psum
 
-            m_self, m_cross = psum(torch.stack([m_self, m_cross]), self.model_group).unbind(0)
+            m_self, m_cross = psum(torch.stack([m_self, m_cross]), group).unbind(0)
         return (_normalise(m_self[:b]), _normalise(m_cross[b:]),
                 _normalise(m_self[b:]), _normalise(m_cross[:b]))
 
@@ -131,10 +134,11 @@ class AdaGMN(DGNNS):
         mass = attention_key_mass if self.use_kernels else attention_key_mass_reference
         masses = (mass(*s00, keep0, qmask0), mass(*s01, keep0, qmask1), mass(*s11, keep1, qmask1),
                   mass(*s10, keep1, qmask0))
-        if self.model_group is not None:  # each rank summed its own heads
+        group = self.model_group if self.model_group is not None else self.seq_group
+        if group is not None:  # each rank summed its own heads, or its own queries
             from impx_torch.parallel.collectives import psum
 
-            masses = psum(torch.cat(masses, dim=1), self.model_group).split([m.shape[1] for m in masses], dim=1)
+            masses = psum(torch.cat(masses, dim=1), group).split([m.shape[1] for m in masses], dim=1)
         return tuple(_normalise(m) for m in masses)
 
     def _pool_from_masses(self, rowmass, colmass, norm00, norm01, norm11, norm10,
@@ -243,9 +247,11 @@ class AdaGMN(DGNNS):
         batch_stats = train and cfg.norm_fn == "bn"
         desc0, desc1, full0, full1 = self._encode_inputs(data, batch_stats=train)
         keep0, keep1 = full0, full1
+        full0, full1 = self.seq_rows(full0), self.seq_rows(full1)   # the queries (this rank's block)
         split = batch_stats or desc0.shape[1] != desc1.shape[1]
         th = mscore_th * uncertainty_ratio
-        epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if train and cfg.with_geo else None
+        epi = (maybe_epipolar_matrix(self.whole_keypoints(data), cfg.geo_clamp) if train and cfg.with_geo
+               else None)
         terms = zero_terms(epi is not None, desc0.device) if train else None
         counts = loss_counts(gt, self.data_group) if train else None
         state = self.init_state()
@@ -308,7 +314,7 @@ class AdaGMN(DGNNS):
             return {"scores": scores[-1:], "indices0": idx0, "mscores0": ms0, "keep0": keep0, "keep1": keep1}
         kw = dict(p=p, mscore_th=mscore_th, uncertainty_ratio=uncertainty_ratio,
                   only_last=only_last)
-        if cfg.compaction:
+        if cfg.compaction and self.seq_group is None:  # sequence parallelism runs mask-only
             return forward_scan_eimp_compact(self, data, **kw)
         return forward_scan_eimp(self, data, with_scores=with_scores, **kw)
 
@@ -331,7 +337,7 @@ class AdaGMN(DGNNS):
                              "depend on per-iteration scores)")
         data = self._on_device(data)
         if self._on_scan(data):
-            if cfg.train_compaction:
+            if cfg.train_compaction and self.seq_group is None:  # sequence parallelism: the masked scan
                 return forward_train_scan_eimp_compact(self, data)
             return forward_train_scan_eimp(self, data)
         if cfg.train_compaction:

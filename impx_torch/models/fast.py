@@ -102,19 +102,15 @@ def final_matches_from_desc(model, desc, b: int, valid0, valid1, p: float, with_
 def _encode(model, data: dict[str, Any], stream_dtype: torch.dtype | None = None):
     """Keypoint encoding of both images, stacked: (desc [2B, N, D] in
     `stream_dtype`, by default the compute dtype, valid0, valid1 [B, N] bool,
-    B, N)."""
+    B, N). Under sequence parallelism desc and N are this rank's block of
+    the keypoints and valid0, valid1 cover all of them (GM.seq_rows)."""
     b, n = data["descriptors0"].shape[:2]
     if data["descriptors1"].shape[1] != n:
         raise ValueError("the stacked batch needs the same keypoint count in both "
                          "images; pad with valid0/valid1")
-    ones = torch.ones((b, n), dtype=torch.bool, device=model.device)
-    valid0 = data.get("valid0")
-    valid1 = data.get("valid1")
-    valid0 = ones if valid0 is None else valid0.bool()
-    valid1 = ones if valid1 is None else valid1.bool()
-
-    enc0 = model.encode_keypoint(model._norm_kpts(data, 0), data["scores0"], valid0)
-    enc1 = model.encode_keypoint(model._norm_kpts(data, 1), data["scores1"], valid1)
+    valid0, valid1 = model._valid_masks(data, n, n)
+    enc0 = model.encode_keypoint(model._norm_kpts(data, 0), data["scores0"], model.seq_rows(valid0))
+    enc1 = model.encode_keypoint(model._norm_kpts(data, 1), data["scores1"], model.seq_rows(valid1))
     desc = torch.cat([data["descriptors0"] + enc0, data["descriptors1"] + enc1], dim=0)
     return desc.to(stream_dtype or model.compute_dtype), valid0, valid1, b, n
 
@@ -174,16 +170,17 @@ def forward_scan(model, data: dict[str, Any], p: float = 0.2, only_last: bool = 
     the dict of GM.produce_matches; with_scores=False skips the plan."""
     cfg = model.config
     desc, valid0, valid1, b, _ = _encode(model, data)
-    mask = torch.cat([valid0, valid1], dim=0)       # [2B, N]
+    mask = torch.cat([valid0, valid1], dim=0)       # [2B, N]: the keys' masks
     mask_swap = torch.cat([valid1, valid0], dim=0)
+    rows = model.seq_rows(mask)                     # the queries' (this rank's block)
 
     kw = dict(ac_fn=cfg.ac_fn, use_kernels=model.use_kernels)
     qk_self = qk_cross = None
     descs = []
     for i in range(cfg.n_layers):
-        delta, qk_self = model.gnn[2 * i](desc, desc, qk_self, mask, mask, **kw)
+        delta, qk_self = model.gnn[2 * i](desc, desc, qk_self, mask, rows, **kw)
         desc = desc + delta
-        delta, qk_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, mask_swap, mask, **kw)
+        delta, qk_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, mask_swap, rows, **kw)
         desc = desc + delta
         if not only_last:
             descs.append(desc)
@@ -256,11 +253,12 @@ def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
     Returns the dict of `train_outputs`."""
     cfg = model.config
     gt = data["matching_mask"]
-    epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
+    epi = maybe_epipolar_matrix(model.whole_keypoints(data), cfg.geo_clamp) if cfg.with_geo else None
     counts = loss_counts(gt, model.data_group)
     desc, valid0, valid1, b, _ = _encode(model, data)
     mask = torch.cat([valid0, valid1], dim=0)
     mask_swap = torch.cat([valid1, valid0], dim=0)
+    rows = model.seq_rows(mask)
     kw = dict(ac_fn=cfg.ac_fn, use_kernels=model.use_kernels, lse_core=cfg.train_fused)
 
     def head(desc, layer_id, terms):
@@ -271,9 +269,9 @@ def forward_train_scan(model, data: dict[str, Any]) -> dict[str, Any]:
     sup_all = cfg.train_supervision == "all"
     qk_self = qk_cross = score = None
     for i in range(cfg.n_layers):
-        delta, qk_self = model.gnn[2 * i](desc, desc, qk_self, mask, mask, **kw)
+        delta, qk_self = model.gnn[2 * i](desc, desc, qk_self, mask, rows, **kw)
         desc = desc + delta
-        delta, qk_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, mask_swap, mask, **kw)
+        delta, qk_cross = model.gnn[2 * i + 1](desc, _swap_half(desc), qk_cross, mask_swap, rows, **kw)
         desc = desc + delta
         if sup_all:
             terms, score = head(desc, i, terms)
@@ -298,7 +296,9 @@ def _eimp_step(model, i: int, state: tuple, b: int, p: float, th: float, do_pool
     state = (desc, qk_self, qk_cross, keep0, keep1, full0, full1). Attention
     keys see the keep masks; queries, InstanceNorm and the attention-mass
     sums see full0/full1, every real keypoint of the current tensors (the
-    reference keeps discarded keypoints as queries). Then the per-iteration
+    reference keeps discarded keypoints as queries). Under sequence
+    parallelism the keep masks cover all keypoints, full0/full1 this rank's
+    block, and the masses are summed over the sequence group. Then the per-iteration
     head: final_proj[i], Sinkhorn statistics (or, without
     config.with_sinkhorn, the dual-softmax plan) and matches under the keep
     masks, and, on pooling iterations, two key-mass launches and the pooling rule.
@@ -350,7 +350,7 @@ def forward_scan_eimp(model, data: dict[str, Any], p: float = 0.2, mscore_th: fl
     cfg = model.config
     desc, valid0, valid1, b, _ = _encode(model, data)
     th = mscore_th * uncertainty_ratio
-    state = (desc, None, None, valid0, valid1, valid0, valid1)
+    state = (desc, None, None, valid0, valid1, model.seq_rows(valid0), model.seq_rows(valid1))
     outs = []
     for i, do_pool in enumerate(_eimp_do_pool(cfg)):
         state, out = _eimp_step(model, i, state, b, p, th, do_pool)
@@ -429,6 +429,9 @@ def forward_scan_eimp_compact(model, data: dict[str, Any], p: float = 0.2, mscor
     cfg = model.config
     if not cfg.compaction:
         raise ValueError("forward_scan_eimp_compact needs config.compaction")
+    if model.seq_group is not None:
+        raise ValueError("compaction gathers keypoints across the sequence blocks: under sequence "
+                         "parallelism AdaGMN runs mask-only (forward_scan_eimp)")
     desc, valid0, valid1, b, n = _encode(model, data)
     starts = dict(compaction_schedule(cfg.compaction, cfg.n_layers, n=n))
 
@@ -518,11 +521,11 @@ def forward_train_scan_eimp(model, data: dict[str, Any]) -> dict[str, Any]:
     iteration's, in the keep masks of that iteration."""
     cfg = model.config
     gt = data["matching_mask"]
-    epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
+    epi = maybe_epipolar_matrix(model.whole_keypoints(data), cfg.geo_clamp) if cfg.with_geo else None
     counts = loss_counts(gt, model.data_group)
     n_pairs = None if counts is None else counts[0]
     desc, valid0, valid1, b, _ = _encode(model, data)
-    state = (desc, None, None, valid0, valid1, valid0, valid1)
+    state = (desc, None, None, valid0, valid1, model.seq_rows(valid0), model.seq_rows(valid1))
     terms, accs = zero_terms(epi is not None, desc.device), []
     for i, do_pool in enumerate(_eimp_do_pool(cfg)):
         state, terms, (idx0, ms0) = _eimp_train_step(model, i, do_pool, state, b, gt, epi, terms, counts)
@@ -557,6 +560,9 @@ def forward_train_scan_eimp_compact(model, data: dict[str, Any]) -> dict[str, An
     `forward_train_scan_eimp`'s. Adds compaction_overflow0/1, the survivors
     dropped by full buckets, summed over the batch (fp32)."""
     cfg = model.config
+    if model.seq_group is not None:
+        raise ValueError("compaction gathers keypoints across the sequence blocks: under sequence "
+                         "parallelism AdaGMN trains on the masked scan (forward_train_scan_eimp)")
     gt = data["matching_mask"].float()
     epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
     counts = loss_counts(gt, model.data_group)

@@ -64,6 +64,9 @@ class GM(nn.Module):
         # the batch and the weights)
         self.data_group = None
         self.model_group = None
+        self.seq_group = None       # sequence parallelism (parallel/mesh.py:set_seq_group)
+        self.seq_union = None
+        self.seq_size, self.seq_index = 1, 0
         d = config.descriptor_dim
         self.kenc = MLP([3, *config.keypoint_encoder, d], config.norm_fn)
         self.gnn = nn.ModuleList(
@@ -95,6 +98,45 @@ class GM(nn.Module):
             out[k] = v
         return out
 
+    # ------------------------------------------------------ sequence parallelism
+    def seq_rows(self, x):
+        """This rank's block of axis 1 of x [B, N, ...] (all N keypoints of
+        an image) under sequence parallelism; x itself otherwise. The
+        validity masks arrive whole (impx_torch/parallel/tp.py:shard_batch_sp
+        splits only the feature arrays): key masks and the score head take
+        them as they are, the queries and the norms this block."""
+        if self.seq_group is None:
+            return x
+        n = x.shape[1] // self.seq_size
+        return x[:, self.seq_index * n:(self.seq_index + 1) * n]
+
+    def whole_keypoints(self, data: dict) -> dict:
+        """data with keypoints0/1 gathered over the sequence group (the
+        epipolar loss reads every pair of keypoints); data itself without
+        one."""
+        if self.seq_group is None:
+            return data
+        from impx_torch.parallel.collectives import all_gather
+
+        with torch.no_grad():
+            return {**data, **{k: all_gather(data[k], self.seq_group, axis=1)
+                               for k in ("keypoints0", "keypoints1") if k in data}}
+
+    def _valid_masks(self, data, n0: int, n1: int):
+        """valid0, valid1 over all keypoints (bool; all valid when absent),
+        n0, n1 the local keypoint counts."""
+        out = []
+        for i, n in ((0, n0), (1, n1)):
+            v = data.get(f"valid{i}")
+            full = n * self.seq_size
+            if v is None:
+                v = torch.ones((data[f"descriptors{i}"].shape[0], full), dtype=torch.bool, device=self.device)
+            elif v.shape[1] != full:
+                raise ValueError(f"valid{i}: want all {full} keypoints of the image under sequence "
+                                 f"parallelism (shard_batch_sp leaves the masks whole), got {tuple(v.shape)}")
+            out.append(v.bool())
+        return out
+
     # ------------------------------------------------------------- building blocks
     def encode_keypoint(self, norm_kpts, scores, valid=None, batch_stats: bool = False):
         """MLP over (x, y, score) -> [B, N, D] (impx/models/gm.py:58), one
@@ -113,7 +155,18 @@ class GM(nn.Module):
     def compute_distance(self, desc0, desc1, layer_id: int = -1):
         """Final projection + scaled dot product (impx/models/gm.py:74)."""
         p = self.final_proj[layer_id]
-        dist = torch.einsum("bnd,bmd->bnm", p(desc0), p(desc1))
+        d0, d1 = p(desc0), p(desc1)
+        if self.seq_group is not None:
+            # the projection on this rank's rows, then every row of both
+            # images: the head runs whole on every rank of the group, so the
+            # gather's backward takes this rank's rows without summing
+            from impx_torch.parallel.collectives import gather_for_replicated
+
+            if d0.shape == d1.shape:
+                d0, d1 = gather_for_replicated(torch.stack([d0, d1]), self.seq_group, axis=2).unbind(0)
+            else:
+                d0, d1 = (gather_for_replicated(d, self.seq_group, axis=1) for d in (d0, d1))
+        dist = torch.einsum("bnd,bmd->bnm", d0, d1)
         return dist / (self.config.descriptor_dim ** 0.5)
 
     @property
@@ -129,13 +182,18 @@ class GM(nn.Module):
         its plain version when use_kernels is False, then the fp32 log plan);
         else the non-log Sinkhorn plan, or the dual softmax when
         config.with_sinkhorn is False."""
+        bin_score = self.bin_score
+        if self.seq_group is not None:  # every rank of the group runs the head: its gradient once
+            from impx_torch.parallel.collectives import count_once
+
+            bin_score = count_once(bin_score, self.seq_group)
         if self.scores_are_log:
-            return log_optimal_transport_fused(dist, self.bin_score, self.config.sinkhorn_iterations,
+            return log_optimal_transport_fused(dist, bin_score, self.config.sinkhorn_iterations,
                                                valid0, valid1, plain=not self.use_kernels)
         if not self.config.with_sinkhorn:
-            return dual_softmax(dist, self.bin_score, valid0, valid1)
+            return dual_softmax(dist, bin_score, valid0, valid1)
         plan_dtype = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else None
-        return sink_algorithm(dist, self.bin_score, self.config.sinkhorn_iterations,
+        return sink_algorithm(dist, bin_score, self.config.sinkhorn_iterations,
                               valid0, valid1, plan_dtype=plan_dtype)
 
     def compute_matches(self, scores, p=0.2, valid0=None, valid1=None):
@@ -191,11 +249,11 @@ class GM(nn.Module):
         valid). Returns (desc0, desc1, new_state)."""
         state = self.init_state() if state is None else state
         b, n0, n1 = desc0.shape[0], desc0.shape[1], desc1.shape[1]
-        ones = lambda n: torch.ones((b, n), dtype=torch.bool, device=desc0.device)  # noqa: E731
+        ones = lambda n: torch.ones((b, n * self.seq_size), dtype=torch.bool, device=desc0.device)  # noqa: E731
         valid0 = ones(n0) if valid0 is None else valid0
         valid1 = ones(n1) if valid1 is None else valid1
         desc0, desc1, state, _ = self._layer_pair(desc0, desc1, layer_i, state, valid0, valid1,
-                                                  valid0, valid1)
+                                                  self.seq_rows(valid0), self.seq_rows(valid1))
         return desc0, desc1, state
 
     def _layer_pair(self, desc0, desc1, layer_i: int, state, key0, key1, query0, query1,
@@ -230,12 +288,9 @@ class GM(nn.Module):
         added, valid0, valid1 bool, all-valid when absent). batch_stats: the
         encoder's batch norm from each image's own batch (impx/models/gm.py:186)."""
         desc0, desc1 = data["descriptors0"], data["descriptors1"]
-        valid = []
-        for i, d in ((0, desc0), (1, desc1)):
-            v = data.get(f"valid{i}")
-            valid.append(torch.ones(d.shape[:2], dtype=torch.bool, device=d.device) if v is None else v.bool())
-        enc0 = self.encode_keypoint(self._norm_kpts(data, 0), data["scores0"], valid[0], batch_stats)
-        enc1 = self.encode_keypoint(self._norm_kpts(data, 1), data["scores1"], valid[1], batch_stats)
+        valid = self._valid_masks(data, desc0.shape[1], desc1.shape[1])
+        enc0 = self.encode_keypoint(self._norm_kpts(data, 0), data["scores0"], self.seq_rows(valid[0]), batch_stats)
+        enc1 = self.encode_keypoint(self._norm_kpts(data, 1), data["scores1"], self.seq_rows(valid[1]), batch_stats)
         return desc0 + enc0, desc1 + enc1, valid[0], valid[1]
 
     @torch.no_grad()
@@ -285,7 +340,7 @@ class GM(nn.Module):
         desc0, desc1, valid0, valid1 = self._encode_inputs(data, batch_stats=True)
         gt = data["matching_mask"]
         counts = loss_counts(gt, self.data_group)
-        epi = maybe_epipolar_matrix(data, cfg.geo_clamp) if cfg.with_geo else None
+        epi = maybe_epipolar_matrix(self.whole_keypoints(data), cfg.geo_clamp) if cfg.with_geo else None
         state = self.init_state()
         terms, score = None, None
         for i in range(len(self.gnn)):

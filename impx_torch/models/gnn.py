@@ -89,6 +89,11 @@ class MLP(nn.Module):
                       else None)
         self.data_group = None
         self.model_group = None
+        # sequence parallelism (impx_torch/parallel/mesh.py:set_seq_group):
+        # the sequence group, and the union of the data and sequence groups,
+        # over which batch statistics are taken
+        self.seq_group = None
+        self.seq_union = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for blk in self.blocks:
@@ -100,8 +105,9 @@ class MLP(nn.Module):
     def forward(self, x, *, ac_fn: str, mask=None, batch_stats: bool = False):
         batch_norms = None if self.norms is None else [norm.stats() for norm in self.norms]
         return mlp_apply([(b.weight, b.bias) for b in self.blocks], x, ac_fn=ac_fn, mask=mask,
-                         batch_norms=batch_norms, batch_stats=batch_stats, data_group=self.data_group,
-                         model_group=self.model_group)
+                         batch_norms=batch_norms, batch_stats=batch_stats,
+                         data_group=self.data_group if self.seq_group is None else self.seq_union,
+                         model_group=self.model_group, seq_group=self.seq_group)
 
 
 class AttentionalPropagation(nn.Module):
@@ -110,6 +116,7 @@ class AttentionalPropagation(nn.Module):
         self.num_heads = num_heads
         self.shared = shared
         self.model_group = None
+        self.seq_group = None
         if shared:
             self.proj = Dense(d_model, d_model)
             self.merge = Dense(d_model, d_model)
@@ -153,6 +160,13 @@ class AttentionalPropagation(nn.Module):
             k = project_heads(a["k"].weight, a["k"].bias, source, h)
             v = project_heads(a["v"].weight, a["v"].bias, source, h)
             merge = a["merge"]
+        if self.seq_group is not None:
+            from impx_torch.parallel.collectives import all_gather
+
+            if self.shared:
+                v = all_gather(v, self.seq_group, axis=2)
+            else:
+                k, v = all_gather(torch.stack([k, v]), self.seq_group, axis=3).unbind(0)
         if attn_dtype is not None:
             q, k, v = q.to(attn_dtype), k.to(attn_dtype), v.to(attn_dtype)
         if with_lse:

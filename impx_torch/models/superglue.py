@@ -60,13 +60,14 @@ class SuperGlue(GM):
         return super().compute_distance(desc0, desc1, layer_id=0)
 
     @torch.no_grad()
-    def produce_matches(self, data: dict[str, Any], p: float = 0.2, only_last: bool = False):
+    def produce_matches(self, data: dict[str, Any], p: float = 0.2, only_last: bool = False, **_):
         """Matches for a batch of pairs (impx/models/gm.py:196-221): data as
         DGNNS.produce_matches takes it. Returns lists, one entry per cross
         layer or the last only, under 'scores' (the fp32 log plan
         [B, N+1, M+1]), 'indices0' (-1 = unmatched) and 'mscores0'. The
         stacked loop below needs N0 == N1; other pairs take GM's unrolled
-        forward."""
+        forward. Other keywords (with_scores, which the serving export
+        passes) are ignored, as impx's GM.produce_matches takes them."""
         cfg = self.config
         data = self._on_device(data)
         if data["descriptors0"].shape[1] != data["descriptors1"].shape[1]:

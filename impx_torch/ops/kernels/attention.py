@@ -50,12 +50,21 @@ each query row's log-sum-exp, from the caller (EIMP's pooling layers run
 kernel 4 on the same q, k and key mask) or from a row-lse launch of its own,
 and sums p = exp(s - lse) over heads and queries in one pass: one CTA per
 128 keys, the sum over queries in each thread's registers, a fixed order.
+
+The inference kernels (1, 4 and 6) are `torch.library` ops (`_ops.py`),
+`impx::mha_fwd`, `impx::mha_fwd_lse` and `impx::attention_key_mass`: a
+CUDA implementation that launches the kernel, a CPU implementation that is
+its plain version, and a fake implementation for the output shapes, so that
+`torch.export` (impx_torch/tools/export.py) keeps them in its graph and an
+exported call launches the same kernels as an eager one. The wrappers below
+call through the ops; the autograd Functions of training launch the kernels
+directly.
 """
 from __future__ import annotations
 
 import torch
 
-from impx_torch.ops.kernels import _build
+from impx_torch.ops.kernels import _build, _ops
 
 NEG = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -191,6 +200,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def plain_under_autograd(*tensors) -> bool:
+    """Whether a CPU call must run the plain version directly: the ops have
+    no gradient, and on the CPU the plain version (the ops' CPU body) is
+    differentiable, as the wrappers were before they called through the ops."""
+    return torch.is_grad_enabled() and any(getattr(t, "requires_grad", False) for t in tensors)
+
+
 def _forward(q, k, v, key_mask, with_lse: bool):
     """Kernel 1, or kernel 4 with_lse, on CUDA tensors: (out, lse or None)."""
     _check(q, k, v, key_mask)
@@ -216,32 +232,49 @@ def _forward(q, k, v, key_mask, with_lse: bool):
 
 
 def _mha_forward(q, k, v, key_mask=None):
+    """Kernel 1 without the op's dispatch: the plain version on the CPU, the
+    launch on CUDA tensors (the autograd Function's forward)."""
     if _device_kind(q, "attention") == "cpu":
         return mha_reference(q, k, v, key_mask)
     return _forward(q, k, v, key_mask, with_lse=False)[0]
 
 
+_mha_fwd_op = _ops.define(
+    "mha_fwd(Tensor q, Tensor k, Tensor v, Tensor? key_mask) -> Tensor",
+    cpu=lambda q, k, v, key_mask: mha_reference(q, k, v, key_mask),
+    cuda=lambda q, k, v, key_mask: _forward(q, k, v, key_mask, with_lse=False)[0],
+    fake=lambda q, k, v, key_mask: torch.empty_like(q))
+
+_mha_fwd_lse_op = _ops.define(
+    "mha_fwd_lse(Tensor q, Tensor k, Tensor v, Tensor? key_mask) -> (Tensor, Tensor)",
+    cpu=lambda q, k, v, key_mask: mha_lse_reference(q, k, v, key_mask),
+    cuda=lambda q, k, v, key_mask: _forward(q, k, v, key_mask, with_lse=True),
+    fake=lambda q, k, v, key_mask: (torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)))
+
+
 def mha_fused(q, k, v, key_mask=None):
-    """Masked attention (kernel 1). CPU tensors run `mha_reference`; CUDA
-    tensors launch the kernel in impx_torch/csrc/attention.cu or raise. When
-    grad is enabled and q, k or v requires it, this is `MhaFunction`, whose
-    backward is `mha_bwd` (kernel 3)."""
+    """Masked attention (kernel 1), through the op `impx::mha_fwd`: CPU
+    tensors run `mha_reference`; CUDA tensors launch the kernel in
+    impx_torch/csrc/attention.cu or raise. When grad is enabled and q, k or
+    v requires it, this is `MhaFunction`, whose backward is `mha_bwd`
+    (kernel 3)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return MhaFunction.apply(q, k, v, key_mask, False)
-    return _mha_forward(q, k, v, key_mask)
+    _device_kind(q, "attention")
+    return _mha_fwd_op(q, k, v, key_mask)
 
 
 mha_fused.launches = 0
 
 
 def mha_fused_lse(q, k, v, key_mask=None):
-    """Kernel 4: (out as `mha_fused`, lse [B,H,Nq] fp32). CPU tensors run
-    `mha_lse_reference`; CUDA tensors launch impx_torch/csrc/attention.cu or
-    raise. Not differentiable by itself: `MhaLseFunction` pairs it with
-    `mha_bwd_from_lse`."""
-    if _device_kind(q, "attention") == "cpu":
+    """Kernel 4, through the op `impx::mha_fwd_lse`: (out as `mha_fused`, lse
+    [B,H,Nq] fp32). CPU tensors run `mha_lse_reference`; CUDA tensors launch
+    impx_torch/csrc/attention.cu or raise. Not differentiable by itself:
+    `MhaLseFunction` pairs it with `mha_bwd_from_lse`."""
+    if _device_kind(q, "attention") == "cpu" and plain_under_autograd(q, k, v):
         return mha_lse_reference(q, k, v, key_mask)
-    return _forward(q, k, v, key_mask, with_lse=True)
+    return _mha_fwd_lse_op(q, k, v, key_mask)
 
 
 mha_fused_lse.launches = 0
@@ -387,12 +420,21 @@ def attention_key_mass(q, k, key_mask=None, query_mask=None, lse=None, splits=No
     the default, as many CTAs as the card has SMs) divides the (head, query
     tile) items among CTAs, and a second launch sums their partial rows when
     it is above 1. No atomics: the same bits on every run."""
-    if q.device.type == "cpu":
-        if lse is None:
-            return attention_key_mass_reference(q, k, key_mask, query_mask)
-        return attention_key_mass_from_lse_reference(q, k, key_mask, query_mask, lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention-mass kernel for device {q.device}")
+    if q.device.type == "cpu" and plain_under_autograd(q, k, lse):
+        return _key_mass_plain(q, k, key_mask, query_mask, lse)
+    return _key_mass_op(q, k, key_mask, query_mask, lse, 0 if splits is None else splits)
+
+
+def _key_mass_plain(q, k, key_mask, query_mask, lse):
+    if lse is None:
+        return attention_key_mass_reference(q, k, key_mask, query_mask)
+    return attention_key_mass_from_lse_reference(q, k, key_mask, query_mask, lse)
+
+
+def _key_mass_cuda(q, k, key_mask, query_mask, lse, splits):
+    """The launches of `attention_key_mass` (splits 0: the default)."""
     _check(q, k, key_mask=key_mask, query_mask=query_mask)
     if lse is not None:
         _check_like("lse", lse, q[..., 0], torch.float32)
@@ -401,7 +443,7 @@ def attention_key_mass(q, k, key_mask=None, query_mask=None, lse=None, splits=No
     km, qm = _bool_mask(key_mask), _bool_mask(query_mask)
     lib = _build.load("attention_mass")
     bf16 = int(q.dtype == torch.bfloat16)
-    if splits is None:
+    if not splits:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         splits = lib.impx_attention_key_mass_splits(b, h, nq, nk, bf16, sms)
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -423,4 +465,9 @@ def attention_key_mass(q, k, key_mask=None, query_mask=None, lse=None, splits=No
     return out
 
 
+_key_mass_op = _ops.define(
+    "attention_key_mass(Tensor q, Tensor k, Tensor? key_mask, Tensor? query_mask, Tensor? lse, int splits) -> Tensor",
+    cpu=lambda q, k, key_mask, query_mask, lse, splits: _key_mass_plain(q, k, key_mask, query_mask, lse),
+    cuda=_key_mass_cuda,
+    fake=lambda q, k, key_mask, query_mask, lse, splits: q.new_empty((q.shape[0], k.shape[2]), dtype=torch.float32))
 attention_key_mass.launches = 0

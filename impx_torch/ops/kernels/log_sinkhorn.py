@@ -42,14 +42,19 @@ column, as in impx. It changes no valid column (exp(-1e30 - x) is 0). impx
 without alignment rows and without an invalid row, under the bf16 rule,
 starts from -1e30 with weight 0 and sets v to +inf, then NaN, at an invalid
 column (ROADMAP.md §C); the port does not.
+
+Kernel 7 is the `torch.library` op `impx::log_sinkhorn_stats` (CUDA:
+the launch; CPU: the plain version; a fake implementation for the output
+shapes), so that an exported graph (impx_torch/tools/export.py) holds it.
 """
 from __future__ import annotations
 
 import torch
 
-from impx_torch.ops.kernels import _build
+from impx_torch.ops.kernels import _build, _ops
+from impx_torch.ops.kernels.attention import plain_under_autograd
 from impx_torch.ops.kernels.sinkhorn import (
-    _flags, barrier_words, kernel_mask, plan_dtype, query_schedule)
+    _flags, barrier_words, kernel_mask, plan_dtype, query_schedule, stats_fake)
 from impx_torch.ops.sinkhorn import NEG, log_marginals, log_optimal_transport, masked_scores
 
 
@@ -94,25 +99,46 @@ def log_sinkhorn_fused_stats(dist, dustbin, iterations: int, valid0=None, valid1
     `log_sinkhorn_stats_reference`; CUDA tensors launch the kernel or raise.
     The statistics have no gradient: under autograd a CUDA call raises (the
     differentiable head is `log_optimal_transport_fused`)."""
-    if dist.device.type == "cpu":
-        return log_sinkhorn_stats_reference(dist, dustbin, iterations, valid0, valid1)
-    if dist.device.type != "cuda":
+    if dist.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no log-Sinkhorn kernel for device {dist.device}")
-    if torch.is_grad_enabled() and (dist.requires_grad or getattr(dustbin, "requires_grad", False)):
+    if dist.device.type == "cpu" and plain_under_autograd(dist, dustbin):
+        return log_sinkhorn_stats_reference(dist, dustbin, iterations, valid0, valid1)
+    if plain_under_autograd(dist, dustbin):
         raise NotImplementedError("the log-Sinkhorn kernel's statistics have no gradient; train "
                                   "through log_optimal_transport_fused, whose backward recomputes the "
                                   "plain fp32 head, or call this under torch.no_grad()")
+    if iterations < 1:
+        raise ValueError("the log-Sinkhorn kernel runs at least one iteration")
+    bin_ = torch.as_tensor(dustbin, dtype=torch.float32, device=dist.device).reshape(1)
+    return dict(zip(LOG_STATS_KEYS, _log_stats_op(dist, bin_, iterations, valid0, valid1)))
+
+
+LOG_STATS_KEYS = ("u", "v", "max0", "idx0", "idx1")
+
+
+def _log_stats_cpu(dist, dustbin, iterations, valid0, valid1):
+    out = log_sinkhorn_stats_reference(dist, dustbin[0], iterations, valid0, valid1)
+    return tuple(out[k] for k in LOG_STATS_KEYS)
+
+
+def _log_stats_cuda(dist, dustbin, iterations, valid0, valid1):
     if dist.dtype != torch.float32 or dist.dim() != 3 or not dist.is_contiguous():
         raise ValueError(f"dist: want a contiguous fp32 [B, N, M], got "
                          f"{tuple(dist.shape)} {dist.dtype}")
-    if iterations < 1:
-        raise ValueError("the log-Sinkhorn kernel runs at least one iteration")
     b, n, m = dist.shape
     m0 = kernel_mask(valid0, b, n, dist.device, "valid0")
     m1 = kernel_mask(valid1, b, m, dist.device, "valid1")
-    bin_ = torch.as_tensor(dustbin, dtype=torch.float32, device=dist.device).reshape(1).contiguous()
     with torch.cuda.device(dist.device):
-        return _launch(dist, bin_, iterations, m0, m1, torch.cuda.current_stream().cuda_stream)
+        out = _launch(dist, dustbin.contiguous(), iterations, m0, m1, torch.cuda.current_stream().cuda_stream)
+    return tuple(out[k] for k in LOG_STATS_KEYS)
+
+
+_log_stats_op = _ops.define(
+    "log_sinkhorn_stats(Tensor dist, Tensor dustbin, int iterations, Tensor? valid0, Tensor? valid1) -> "
+    "(Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cpu=_log_stats_cpu, cuda=_log_stats_cuda,
+    fake=lambda dist, dustbin, iterations, valid0, valid1: stats_fake(dist, dustbin, iterations, valid0, valid1,
+                                                                      LOG_STATS_KEYS))
 
 
 def _launch(dist, bin_, iterations: int, mask0, mask1, stream: int) -> dict:

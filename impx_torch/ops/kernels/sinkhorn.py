@@ -27,6 +27,10 @@ depend on it); u and v are rounded to the plan dtype before each product,
 sums are fp32; the statistics use the unrounded u and v; max0 has a -1 fill
 and the masses a 0 fill at invalid cells; argmax takes the first index on
 ties, by row and by column.
+
+Kernel 2 is the `torch.library` op `impx::sinkhorn_stats` (CUDA: the
+launch; CPU: the plain version; a fake implementation for the output
+shapes), so that an exported graph (impx_torch/tools/export.py) holds it.
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ import ctypes
 
 import torch
 
-from impx_torch.ops.kernels import _build
+from impx_torch.ops.kernels import _build, _ops
+from impx_torch.ops.kernels.attention import plain_under_autograd
 from impx_torch.ops.sinkhorn import NEG, _uv_iterate, marginals, masked_scores
 
 
@@ -135,27 +140,57 @@ def schedule(b: int, n: int, m: int, device=None) -> dict:
                               "impx_sinkhorn_schedule", b, n, m, plan_dtype(n, m))
 
 
+STATS_KEYS = ("u", "v", "max0", "idx0", "idx1", "rowmass", "colmass")
+
+
 def sinkhorn_fused_stats(dist, dustbin, iterations: int, valid0=None, valid1=None):
-    """Sinkhorn head without returning the plan. dist [B, N, M] fp32, dustbin
-    a scalar, valid0/valid1 bool [B, N]/[B, M] (others are read as > 0).
-    Returns u [B, N+1], v [B, M+1] (plan = softmax_pad * u v^T),
-    max0/idx0/rowmass [B, N] and idx1/colmass [B, M]. CPU tensors run
+    """Sinkhorn head without returning the plan, through the op
+    `impx::sinkhorn_stats`. dist [B, N, M] fp32, dustbin a scalar,
+    valid0/valid1 bool [B, N]/[B, M] (others are read as > 0). Returns u
+    [B, N+1], v [B, M+1] (plan = softmax_pad * u v^T), max0/idx0/rowmass
+    [B, N] and idx1/colmass [B, M]. CPU tensors run
     `sinkhorn_stats_reference`; CUDA tensors launch the kernel or raise."""
-    if dist.device.type == "cpu":
-        return sinkhorn_stats_reference(dist, dustbin, iterations, valid0, valid1)
-    if dist.device.type != "cuda":
+    if dist.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no Sinkhorn kernel for device {dist.device}")
+    if iterations < 1:
+        raise ValueError("the Sinkhorn kernel runs at least one iteration")
+    if dist.device.type == "cpu" and plain_under_autograd(dist, dustbin):
+        return sinkhorn_stats_reference(dist, dustbin, iterations, valid0, valid1)
+    bin_ = torch.as_tensor(dustbin, dtype=torch.float32, device=dist.device).reshape(1)
+    return dict(zip(STATS_KEYS, _stats_op(dist, bin_, iterations, valid0, valid1)))
+
+
+def _stats_cpu(dist, dustbin, iterations, valid0, valid1):
+    out = sinkhorn_stats_reference(dist, dustbin[0], iterations, valid0, valid1)
+    return tuple(out[k] for k in STATS_KEYS)
+
+
+def _stats_cuda(dist, dustbin, iterations, valid0, valid1):
     if dist.dtype != torch.float32 or dist.dim() != 3 or not dist.is_contiguous():
         raise ValueError(f"dist: want a contiguous fp32 [B, N, M], got "
                          f"{tuple(dist.shape)} {dist.dtype}")
-    if iterations < 1:
-        raise ValueError("the Sinkhorn kernel runs at least one iteration")
     b, n, m = dist.shape
     m0 = kernel_mask(valid0, b, n, dist.device, "valid0")
     m1 = kernel_mask(valid1, b, m, dist.device, "valid1")
-    bin_ = torch.as_tensor(dustbin, dtype=torch.float32, device=dist.device).reshape(1).contiguous()
     with torch.cuda.device(dist.device):
-        return _launch(dist, bin_, iterations, m0, m1, torch.cuda.current_stream().cuda_stream)
+        out = _launch(dist, dustbin.contiguous(), iterations, m0, m1, torch.cuda.current_stream().cuda_stream)
+    return tuple(out[k] for k in STATS_KEYS)
+
+
+def stats_fake(dist, dustbin, iterations, valid0, valid1, keys=STATS_KEYS):
+    """Fake outputs of a Sinkhorn statistics op: u, v, then [B, N] / [B, M]
+    statistics (idx0, idx1 int32)."""
+    b, n, m = dist.shape
+    shapes = {"u": (b, n + 1), "v": (b, m + 1), "max0": (b, n), "idx0": (b, n), "idx1": (b, m),
+              "rowmass": (b, n), "colmass": (b, m)}
+    return tuple(dist.new_empty(shapes[k], dtype=torch.int32 if k.startswith("idx") else torch.float32)
+                 for k in keys)
+
+
+_stats_op = _ops.define(
+    "sinkhorn_stats(Tensor dist, Tensor dustbin, int iterations, Tensor? valid0, Tensor? valid1) -> "
+    "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cpu=_stats_cpu, cuda=_stats_cuda, fake=stats_fake)
 
 
 def _launch(dist, bin_, iterations: int, mask0, mask1, stream: int) -> dict:

@@ -48,6 +48,7 @@ def mlp_apply(
     batch_stats: bool = False,
     data_group=None,
     model_group=None,
+    seq_group=None,
 ) -> torch.Tensor:
     """Dense -> [norm -> activation] for every block but the last
     (impx/ops/mlp.py:71).
@@ -67,7 +68,12 @@ def mlp_apply(
     chain (`chain_roles`); x is replicated over the group, a column block's
     output and the norm after it are this rank's channels (per-channel norms
     need no communication), and a row block's partial products are summed
-    over the group before its bias."""
+    over the group before its bias.
+
+    seq_group (sequence parallelism): x holds this rank's block of the
+    tokens; the InstanceNorm's moments are summed over the group
+    (norms.instance_norm). Batch norm from batch statistics then takes
+    data_group as the union of the data and sequence groups."""
     n = len(blocks)
     roles = chain_roles(n) if model_group is not None else ["rep"] * n
     if model_group is not None:
@@ -81,7 +87,7 @@ def mlp_apply(
             x = dense_apply(w, b, x)
         if i < n - 1:
             if batch_norms is None:
-                y = norms.instance_norm(x.float(), mask=mask)
+                y = norms.instance_norm(x.float(), mask=mask, group=seq_group)
             elif batch_stats:
                 scale, bias = batch_norms[i][:2]
                 y, _, _ = norms.batch_norm_train(x.float(), scale, bias, mask=mask, group=data_group,

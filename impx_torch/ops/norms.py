@@ -4,7 +4,8 @@ InstanceNorm1d(eps=1e-3, affine=False) over the token axis, with statistics
 over valid tokens only, and BatchNorm1d(eps=1e-3) from running statistics
 (eval mode) or from the batch's (train mode, masked). impx's `axis_name`,
 which averages the batch moments across a data mesh, is the `group` of
-`batch_norm_train`.
+`batch_norm_train`; under sequence parallelism `instance_norm`'s `group`
+sums the moments of the tokens that the ranks hold.
 """
 from __future__ import annotations
 
@@ -13,12 +14,27 @@ import torch
 EPS = 1e-3
 
 
-def instance_norm(x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, mask: torch.Tensor | None = None, group=None) -> torch.Tensor:
     """InstanceNorm over N of [B, N, C], per (batch, channel), in x's dtype.
 
     With `mask` [B, N], mean and variance come from the valid tokens only
-    (count clamped at 1), which equals running on the unpadded token set."""
-    if mask is None:
+    (count clamped at 1), which equals running on the unpadded token set.
+
+    group (sequence parallelism): x holds this rank's block of the tokens,
+    and the masked sum and count, then the centred sum of squares, are
+    summed over the group before they are divided (two all-reduces, with a
+    gradient through them): the single-device moments up to summation
+    order."""
+    if group is not None:
+        from impx_torch.parallel.collectives import psum
+
+        m = torch.ones_like(x[..., :1]) if mask is None else mask[:, :, None].to(x.dtype)
+        c = x.shape[-1]
+        tot = psum(torch.cat([(x * m).sum(dim=1), m.sum(dim=1)], dim=1), group)   # [B, C + 1]
+        count = tot[:, None, c:].clamp_min(1.0)
+        mean = tot[:, None, :c] / count
+        var = psum((((x - mean) ** 2) * m).sum(dim=1), group)[:, None] / count
+    elif mask is None:
         mean = x.mean(dim=1, keepdim=True)
         var = ((x - mean) ** 2).mean(dim=1, keepdim=True)
     else:

@@ -9,7 +9,13 @@ so `psum`'s backward is the all-reduce of the cotangents and `all_gather`'s
 is their reduce-scatter. Megatron's two operators for tensor parallelism,
 where every rank of the model group computes the same loss, are
 `copy_to_group` (f: identity forward, all-reduce backward) and
-`reduce_from_group` (g: all-reduce forward, identity backward).
+`reduce_from_group` (g: all-reduce forward, identity backward). Sequence
+parallelism, where every rank of the sequence group runs the score head
+whole on the gathered rows, has two more: `gather_for_replicated` (an
+all-gather whose backward takes this rank's block of the cotangent without
+summing it) and `count_once` (identity forward; the backward keeps the
+cotangent on the group's rank 0 only, so a replicated parameter's gradient
+is counted once when the ranks' gradients are summed).
 
 Backends. NCCL takes CUDA tensors for every collective. Gloo takes CUDA
 tensors for broadcast and all_reduce only, so a gloo group handed CUDA
@@ -94,6 +100,29 @@ class _AllGather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.group, ctx.axis), None, None
 
 
+class _GatherForReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis, ctx.n = group, axis, x.shape[axis]
+        return _all_gather(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = dist.get_rank(ctx.group)
+        return g.narrow(ctx.axis, i * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _CountOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.keep = dist.get_rank(group) == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, axis):
@@ -155,6 +184,21 @@ def all_gather(x: torch.Tensor, group=None, axis: int = 0, tiled: bool = True) -
     if not tiled:
         x, axis = x.unsqueeze(0), 0
     return _AllGather.apply(x, group, axis) if _needs_grad(x) else _all_gather(x, group, axis)
+
+
+def gather_for_replicated(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """Tiled all-gather along `axis` for a consumer that every rank of the
+    group computes whole (the score head under sequence parallelism): each
+    rank already holds the full cotangent, so the backward takes this rank's
+    block of it and sums nothing."""
+    return _GatherForReplicated.apply(x, group, axis) if _needs_grad(x) else _all_gather(x, group, axis)
+
+
+def count_once(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is; its gradient kept on the group's rank 0 and zero on the
+    others, for a parameter that every rank of the group uses on the same
+    replicated values."""
+    return _CountOnce.apply(x, group) if _needs_grad(x) else x
 
 
 def reduce_scatter(x: torch.Tensor, group=None, axis: int = 0) -> torch.Tensor:

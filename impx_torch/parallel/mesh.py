@@ -160,3 +160,34 @@ def set_data_group(model, group):
         if isinstance(m, MLP):
             m.data_group = group
     return model
+
+
+def set_seq_group(model, group):
+    """Hand a matcher (GM, DGNNS, AdaGMN) the sequence-parallel group
+    (impx_torch/parallel/tp.py:shard_batch_sp splits the keypoints over it);
+    returns the model. Each rank then holds its block of every image's
+    keypoints: the masked InstanceNorm sums its moments over the group,
+    attention gathers k and v along the keys (its backward the
+    reduce-scatter), the final projection gathers both images' rows, and the
+    score head runs whole on every rank, whose outputs are full. Batch
+    statistics and make_train_step's gradient sum run over the union of the
+    data and sequence groups, the world, which a (data, sequence) mesh
+    covers. No trainer or CLI reaches it. Raises
+    ValueError for a tensor-parallel model (both take the mesh's second
+    axis) and for SuperGlue, whose loop the port does not split."""
+    from impx_torch.models.gnn import MLP, AttentionalPropagation
+    from impx_torch.models.superglue import SuperGlue
+
+    if getattr(model, "model_group", None) is not None:
+        raise ValueError("sequence parallelism and tensor parallelism both take the mesh's second axis")
+    if isinstance(model, SuperGlue):
+        raise ValueError("sequence parallelism runs GM, DGNNS and AdaGMN; SuperGlue's loop is not split")
+    union = dist.group.WORLD
+    model.seq_group, model.seq_union = group, union
+    model.seq_size, model.seq_index = dist.get_world_size(group), dist.get_rank(group)
+    for m in model.modules():
+        if isinstance(m, (MLP, AttentionalPropagation)):
+            m.seq_group = group
+        if isinstance(m, MLP):
+            m.seq_union = union
+    return model

@@ -25,14 +25,20 @@ the weights (impx_torch/tools/convert.py:param_spec):
   score head runs whole on every model rank.
 
 Without a model group every module runs its single-device path.
+
+Sequence parallelism (`shard_batch_sp`, impx/parallel/tp.py:124-150) splits
+the keypoint axis instead, over the same second axis of the grid; its
+collectives are placed by impx_torch/parallel/mesh.py:set_seq_group's
+modules.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from impx_torch.parallel.collectives import all_gather
-from impx_torch.parallel.mesh import DATA_AXIS, Mesh
+from impx_torch.parallel.mesh import DATA_AXIS, Mesh, shard_rows
 from impx_torch.tools.convert import param_spec, tp_gather_state_dict, tp_shard_state_dict
 
 MODEL_AXIS = "model"
@@ -106,3 +112,39 @@ def gather_full(model, tensors: dict) -> dict:
             shards[r][key] = parts[r]
     return tp_gather_state_dict(shards, model.config)
 
+
+
+# ------------------------------------------------------------------ sequence parallel
+
+_SEQ_KEYS = ("descriptors0", "descriptors1", "keypoints0", "keypoints1",
+             "norm_keypoints0", "norm_keypoints1", "scores0", "scores1")
+
+
+def shard_batch_sp(mesh: Mesh, batch: dict, data_axis: str = DATA_AXIS, seq_axis: str = MODEL_AXIS) -> dict:
+    """Sequence parallelism: this rank's block of batch rows over `data_axis`
+    and, for the arrays of _SEQ_KEYS, its contiguous block of keypoints over
+    `seq_axis`, as impx's P(data, seq). Every other array (the validity
+    masks, matching_mask's N+1 rows, intrinsics, poses) is split over the
+    data axis only, so the masks stay whole. Arrays or tensors; other
+    leaves pass through. Raises ValueError when the sequence size does not
+    divide a keypoint axis. Hand the model the group with
+    mesh.set_seq_group(model, mesh.group(seq_axis)).
+
+    impx's docstring (impx/parallel/tp.py:130-133) has the norms "over
+    channels" stay keypoint-local; the matcher's InstanceNorm normalises
+    over the keypoints of each channel, so the port sums its moments over
+    the sequence group (impx_torch/ops/norms.py:instance_norm), as GSPMD's
+    reduction does."""
+    di, dn = mesh.index(data_axis), mesh.size(data_axis)
+    si, sn = mesh.index(seq_axis), mesh.size(seq_axis)
+    out = {}
+    for key, x in batch.items():
+        if isinstance(x, (np.ndarray, torch.Tensor)) and x.ndim > 0:
+            x = shard_rows(x, di, dn)
+            if key in _SEQ_KEYS and x.ndim >= 2:
+                if x.shape[1] % sn:
+                    raise ValueError(f"{key}: {x.shape[1]} keypoints do not split over a sequence size of {sn}")
+                n = x.shape[1] // sn
+                x = x[:, si * n:(si + 1) * n]
+        out[key] = x
+    return out

@@ -27,6 +27,13 @@ shards; the clipping norm sums the squares of the sharded parameters'
 gradients over the model group and counts a replicated parameter once.
 After a step, each parameter's `.grad` holds the gradient its update
 applied: the global one, clipped where `grad_clip` is set.
+
+Sequence parallelism (the model's `seq_group`, impx_torch/parallel/mesh.py:
+set_seq_group): each rank's gradients are its keypoints' part (the score
+head's replicated bin score counted on one rank), so the bucket is summed
+over the union of the data and sequence groups (`seq_union`); every rank of
+a sequence group computed the same loss, so only its rank 0 puts the loss
+and metric shares into the bucket.
 """
 from __future__ import annotations
 
@@ -98,16 +105,20 @@ SUMMED_METRICS = ("loss", "matching_loss", "acc_corr", "acc_incorr", "total_acc_
                   "geo_loss")
 
 
-def reduce_bucket(grads: list, out: dict, group) -> tuple[list, dict]:
+def reduce_bucket(grads: list, out: dict, group, with_metrics: bool = True) -> tuple[list, dict]:
     """One all-reduce over the data group of a flat bucket holding every
     gradient, the loss and metric shares of SUMMED_METRICS and, for the
     largest match score, this rank's maximum in its own slot (zeros in the
-    others), so that the sum carries every rank's. Returns the summed
-    gradients (views of the bucket) and the global metrics."""
+    others), so that the sum carries every rank's. with_metrics=False puts
+    zeros for this rank's shares (a rank whose sequence group's rank 0
+    holds the same ones). Returns the summed gradients (views of the
+    bucket) and the global metrics."""
     import torch.distributed as dist
 
     n, me = dist.get_world_size(group), dist.get_rank(group)
     scalars = torch.stack([out[k].detach().float().reshape(()) for k in SUMMED_METRICS])
+    if not with_metrics:
+        scalars = torch.zeros_like(scalars)
     slots = scalars.new_zeros(n)
     slots[me] = out["matching_scores0"].max().float()
     flat = torch.cat([g.reshape(-1).float() for g in grads] + [scalars, slots])
@@ -127,6 +138,9 @@ def make_train_step(model, hp: TrainHyperParams) -> Callable:
     params = [p for _, p in model.named_parameters()]
     data_group = getattr(model, "data_group", None)
     model_group = getattr(model, "model_group", None)
+    seq_group = getattr(model, "seq_group", None)
+    bucket_group = data_group if seq_group is None else model.seq_union
+    with_metrics = seq_group is None or model.seq_index == 0
     sharded = [n in getattr(model, "tp_sharded", ()) for n in names]
 
     def step(opt_state: dict, iteration: int, batch: dict, stats: dict):
@@ -137,16 +151,16 @@ def make_train_step(model, hp: TrainHyperParams) -> Callable:
         with torch.no_grad():
             # a parameter the loss does not reach has gradient 0, as in JAX
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            if data_group is None:
+            if bucket_group is None:
                 glob = {k: out[k].detach() for k in SUMMED_METRICS}
                 glob["max_mscore"] = out["matching_scores0"].max()
             else:
-                grads, glob = reduce_bucket(grads, out, data_group)
+                grads, glob = reduce_bucket(grads, out, bucket_group, with_metrics)
             loss = glob["loss"]
             bad = ~torch.isfinite(loss)
             if hp.grad_clip > 0:
                 grads = _clip_by_global_norm(grads, hp.grad_clip, sharded, model_group)
-            if data_group is not None or hp.grad_clip > 0:
+            if bucket_group is not None or hp.grad_clip > 0:
                 for p, g in zip(params, grads):   # .grad: the gradient the update applies
                     p.grad = g
             mus = [opt_state["mu"][n] for n in names]

@@ -626,3 +626,52 @@ def test_queue_loops_on_a_cpu_model_count_no_launch(loop):
     assert out["indices0"].shape == (3, 16) and out["indices0"].device == torch.device("cpu")
     assert out["checkpoints"] > 0
     assert [fn.launches for fn in kernels] == before
+
+
+SLICE_19_MODULES = ("impx_torch.tools.export", "impx_torch.tools.profiling", "impx_torch.tools.timer",
+                    "impx_torch.tools.image", "impx_torch.tools.video", "impx_torch.tools.common",
+                    "impx_torch.tools.make_scene_lists", "impx_torch.eval.pose_study", "impx_torch.eval.fm_study",
+                    "impx_torch.eval.geo_study", "impx_torch.parallel.tp", "impx_torch.ops.kernels")
+
+
+def test_sp_export_tools_and_studies_import_neither_jax_nor_impx():
+    """The sequence-parallel, export, tool and study modules, imported in a
+    fresh process (and walked by the static guard above)."""
+    walked = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {f"{m.split('.', 1)[1].replace('.', '/')}.py" for m in SLICE_19_MODULES[:-1]} <= walked
+    code = (f"import sys, {', '.join(SLICE_19_MODULES)}; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'impx')); "
+            "assert not bad, bad")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_studies_need_cuda_unless_cpu_is_named(monkeypatch):
+    """The studies' device backends and geo_study's matchers take the card
+    by default and raise without one; --device cpu runs them."""
+    from impx_torch.eval import fm_study, geo_study, pose_study
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pairs = [pose_study.synth_pair(np.random.RandomState(0), 30, 1.0, 0.0)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pose_study.run_backend("torch8", pairs)
+    assert len(pose_study.run_backend("torch8", pairs, num_hypotheses=16, device="cpu")) == 1
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fm_study.study(trials=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        geo_study.main(["--fast"])
+
+
+def test_exported_ops_refuse_devices_without_a_kernel():
+    """The kernel ops behind the wrappers: kernel 4's and kernel 7's wrappers
+    refuse a meta tensor as the others do (the export traces fake tensors,
+    whose device is the real one)."""
+    from impx_torch.ops.kernels.attention import mha_fused_lse
+
+    q = torch.empty((1, 1, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="no attention kernel"):
+        mha_fused_lse(q, q, q)
+    with pytest.raises(ValueError, match="no log-Sinkhorn kernel"):
+        log_sinkhorn_fused_stats(torch.empty((1, 4, 4), device="meta"), 1.0, 20)

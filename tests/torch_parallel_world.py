@@ -274,6 +274,66 @@ def job_tp(payload, rank, world):
     return out
 
 
+SP_GRIDS = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
+
+
+def _sp_model(case, mesh):
+    """The case's model handed the grid's sequence group (and its data group
+    when the data axis is split) and this rank's block of the batch."""
+    from impx_torch.parallel.mesh import set_data_group, set_seq_group
+    from impx_torch.parallel.tp import shard_batch_sp
+
+    model = set_seq_group(_build(case, case["cls"]), mesh.group("model"))
+    if mesh.size("data") > 1:
+        set_data_group(model, mesh.group("data"))
+    return model, shard_batch_sp(mesh, case["batch"])
+
+
+def _sp_step(case, mesh) -> dict:
+    """One make_train_step step: its global loss and the gradient it applied."""
+    from impx_torch.train.step import TrainHyperParams, init_opt_state, init_stats, make_train_step
+
+    model, mine = _sp_model(case, mesh)
+    metrics, _ = make_train_step(model, TrainHyperParams(**case["hp"]))(init_opt_state(model), 0, mine,
+                                                                         init_stats("cpu"))
+    return {"loss": float(metrics["loss"]),
+            "grads": {n: _np(torch.zeros_like(q) if q.grad is None else q.grad) for n, q in model.named_parameters()}}
+
+
+def job_sp(payload, rank, world):
+    """Sequence parallelism on each grid of SP_GRIDS[world]: the forward of
+    every case in payload['forward'] whose grids hold this one, the training
+    steps of payload['steps'] likewise, and at (1, 2) the step with the score
+    head's gradient counted s times, two ways (payload['miscount'])."""
+    from impx_torch.parallel import collectives
+    from impx_torch.parallel.tp import make_2d_mesh
+
+    out = {}
+    for grid in SP_GRIDS[world]:
+        mesh = make_2d_mesh(*grid)
+        res = out[grid] = {"coords": mesh.coords}
+        for name, case in payload["forward"].items():
+            if grid in case["grids"]:
+                model, mine = _sp_model(case, mesh)
+                got = model.produce_matches(mine, p=0.2, only_last=True)
+                res[name] = {k: _np(got[k][-1]) for k in ("indices0", "mscores0")}
+                if "keep0" in got:
+                    res[name].update(keep0=_np(got["keep0"]), keep1=_np(got["keep1"]))
+        for name, case in payload["steps"].items():
+            if grid in case["grids"]:
+                res[f"step_{name}"] = _sp_step(case, mesh)
+        if grid == (1, 2):
+            case = payload["steps"]["in"]
+            gather, once = collectives.gather_for_replicated, collectives.count_once
+            collectives.gather_for_replicated = collectives.all_gather   # the head's rows: backward summed
+            res["miscount_gather"] = _sp_step(case, mesh)
+            collectives.gather_for_replicated = gather
+            collectives.count_once = lambda x, group: x                  # the bin score: on every rank
+            res["miscount_bin"] = _sp_step(case, mesh)
+            collectives.count_once = once
+    return out
+
+
 def job_pp(payload, rank, world):
     """The GPipe forward for each (stages, microbatches) case: the stage
     ranks' outputs (None on a rank that is no stage)."""
