@@ -8,7 +8,9 @@ impx_torch/csrc, with ptxas's registers and spills for each kernel, and a
 summary line (registers, spills, shared memory) for each instantiation of the
 bf16 attention forward, of the fp32 kernels in 3xTF32 (the forward
 attn_fwd_tf32x3<dh, 1>, its row lse alone <dh, 0>, the mass
-key_mass_tf32x3<dh>), and of the persistent Sinkhorn kernels; (3) each kernel
+key_mass_tf32x3<dh>), and of the persistent Sinkhorn kernels, and every
+wgmma kernel's machine code read for register faults
+(impx_torch/tools/sass_check.py); (3) each kernel
 against its plain PyTorch version at the main path's shapes (kernel 1 at bf16
 and fp32 and kernel 4 at fp32, o and lse, twice for the same bits, also with
 fewer keys than queries, [8, 4, 2048, 64] against 1536 keys and a ragged
@@ -151,9 +153,12 @@ gloo (`--parallel-rank`): (b) the data-parallel step at world 2 and (c) the
 tensor-parallel forward, AdaGMN's pooling and step at (1, 2), the steps held
 by their loss and the gradient each applied (cosines, global norm) against
 the one-process step's; (d) the GPipe forward at 3 stages x 2 microbatches
-against forward_scan. (24) Kernels 3, 4 and 5 at fp32 at [4, 4, 2048, 64]
-against their plain versions (reported against TRAIN_REL_L2, an open fault
-of ROADMAP section C) and both against float64; (a) sequence parallelism
+against forward_scan. (24) Kernels 1, 4, 3 and 5 at fp32 at [4, 4, 2048,
+64] and [2, 4, 4096, 64] (one batch of valid keys), each tile's P.V, dQ, dK
+and dV taken from zero and added in fp32: held against their plain versions
+(FWD_O_REL_L2, TRAIN_REL_L2, the backwards' same bits twice) and read
+against float64, a reading at 4096 keys over FP64_GROWTH_MAX times the one
+at 2048 failing; (a) sequence parallelism
 (impx_torch/parallel/tp.py:shard_batch_sp, mesh.set_seq_group) through a
 one-rank NCCL group in process and over 2 ranks sharing the card through
 gloo: IMP bf16 at the eval config (indices0 against one process), AdaGMN
@@ -1049,6 +1054,27 @@ def persistent_resources(logs: dict) -> None:
                 say(f"ptxas {name}_persistent<{dtype}>: {line.split(':', 1)[1].strip()}; {spills}; dynamic "
                     f"smem a CTA {sched['smem_bytes']} bytes at dist {[B, N, N]} "
                     f"({str(ks.plan_dtype(N, N))[6:]} rule)")
+
+
+def check_sass() -> None:
+    """Every built function that issues wgmma, read in its machine code by
+    impx_torch/tools/sass_check.py: no instruction overwrites a register that
+    an HGMMA reads or writes while it is in flight, or a fragment that a
+    loop's HGMMA reads and only code before the loop writes. ptxas built the
+    fp32 forward with one TF32 pass so, from right PTX (PERF.md section 7):
+    right at one key tile, wrong from the second."""
+    from impx_torch.ops.kernels import _build
+    from impx_torch.tools.sass_check import library_faults
+
+    checked, bad = 0, {}
+    for name in sorted(_build.SIGNATURES):
+        for fn, found in library_faults(_build._target(name)).items():
+            checked += 1
+            if found:
+                bad[kernel_name(fn)] = found[:2]
+    say(f"sass check: {checked} built functions issue wgmma, {len(bad)} with a register fault")
+    if bad:
+        fail(f"wgmma register faults in the built kernels: {bad}")
 
 
 KERNEL_GROUPS = (  # device kernel name -> the layer that launched it (first match)
@@ -2122,16 +2148,13 @@ TRAIN_CHECK_SHAPES = ((torch.bfloat16, dict()), (torch.float32, dict()),
                       (torch.float32, dict(b=3, h=2, n=333, dh=32)), (torch.float32, dict(b=3, h=2, n=250, dh=16)))
 
 
-def check_training_kernels(dev, ka, shapes=TRAIN_CHECK_SHAPES, gate: bool = True) -> dict:
+def check_training_kernels(dev, ka, shapes=TRAIN_CHECK_SHAPES) -> dict:
     """Kernels 4, 3 and 5 against their plain versions at `shapes`:
     o, dq, dk and dv by the relative L2 error of each batch (the fully masked
     batch on a line of its own), the lse elementwise; the backwards twice,
     for the same bits. Prints every check before failing on any. Returns
     each kernel's max_abs_err at the training shape, bf16 under its name and
-    fp32 under (name, torch.float32). gate=False reports the readings over
-    the limit instead of failing on them (phase 24's fp32 readings at 2048
-    keys, an open fault of ROADMAP section C); the bit-for-bit second runs
-    and finiteness still fail."""
+    fp32 under (name, torch.float32)."""
     gen = torch.Generator().manual_seed(10)
     errs, failures = {}, []
     for dtype, shape in shapes:
@@ -2156,10 +2179,8 @@ def check_training_kernels(dev, ka, shapes=TRAIN_CHECK_SHAPES, gate: bool = True
                 f"over the batches with valid keys (max {limit:g}); max_abs_err {err:.3e}; finite {finite}"
                 + ("" if name == "mha_fused_lse" else f"; second run bitwise equal {same}"))
             say(f"check {name} {part} {where} fully masked batch: relative L2 {rel[-1].item():.3e} (max {limit:g})")
-            if not finite or not same or (gate and not bool((rel <= limit).all())):
+            if not finite or not same or not bool((rel <= limit).all()):
                 failures.append(f"{name} {part} at {where}")
-            elif not bool((rel <= limit).all()):
-                say(f"check {name} {part} {where}: over the limit {limit:g} (reported, not held: ROADMAP C)")
             if not shape:
                 key = name if dtype == torch.bfloat16 else (name, dtype)
                 errs[key] = max(errs.get(key, 0.0), err)
@@ -4135,7 +4156,10 @@ SP_WORLD = 2                                   # sequence ranks sharing the card
 SP_DTYPES = ("bfloat16",)                      # the eval config's IMP forward (the main path's dtype)
 SP_AGREE = {"float32": 0.999, "bfloat16": 0.99}   # indices0 of valid rows against one process
 SP_KERNELS = ("mha_fused", "sinkhorn_fused_stats", "mha_bwd", "attention_key_mass", "mha_fused_lse")
-BWD_2048_SHAPES = ((torch.float32, dict(b=4, n=2048)),)   # kernels 3 and 5 at fp32, [4, 4, 2048, 64] (ROADMAP C)
+# the fp32 kernels' long walks: [4, 4, 2048, 64] and [2, 4, 4096, 64] (its
+# last batch fully masked, so one batch of 4096 valid keys)
+LONG_F32_SHAPES = ((torch.float32, dict(b=4, n=2048)), (torch.float32, dict(b=2, n=4096)))
+FP64_GROWTH_MAX = 1.5                          # a kernel's float64 reading at 4096 keys over its reading at 2048
 EXPORT_CPU_LAYERS = 3                          # the CPU-exported artifact: the eval widths, depth cut to 3 layers
 HOST_TURNS = 3                                 # host-clock medians of the wrapper, direct launch and op, in turns
 
@@ -4152,25 +4176,47 @@ def _bwd_fp64(q, k, v, mask, do):
 
 
 def fp32_against_fp64(dev, ka) -> None:
-    """Kernels 4 (o), 3 and 5 at fp32 at [4, 4, 2048, 64] and their plain
-    versions, each against float64: which side of the over-the-limit reading
-    carries the error (the largest relative L2 over the batches with valid
-    keys)."""
-    (dtype, shape), = BWD_2048_SHAPES
-    q, k, v, mask, do = training_inputs(torch.Generator().manual_seed(10), dev, dtype, **shape)
-    o64, g64 = _bwd_fp64(q, k, v, mask, do)
-    o, lse = ka.mha_fused_lse(q, k, v, mask)
-    ro, _ = ka.mha_lse_reference(q, k, v, mask)
-    rows = [("mha_fused_lse o", o, ro, o64)]
-    for name, got, ref in (("mha_bwd", ka.mha_bwd(q, k, v, mask, do), ka.mha_bwd_reference(q, k, v, mask, do)),
-                           ("mha_bwd_from_lse", ka.mha_bwd_from_lse(q, k, v, mask, lse, o, do),
-                            ka.mha_bwd_from_lse_reference(q, k, v, mask, lse, o, do))):
-        rows += [(f"{name} {part}", a, r, x) for part, a, r, x in zip(("dq", "dk", "dv"), got, ref, g64)]
-    for label, kern, plain, exact in rows:
-        rk, rp = (rel_l2_per_batch(t.double(), exact)[:-1].max().item() for t in (kern, plain))
-        say(f"fp64 {label} {list(q.shape)} fp32: relative L2 against float64, kernel {rk:.3e}, plain version "
-            f"{rp:.3e}")
-    del q, k, v, do, o64, g64, rows
+    """Kernels 1 and 4 (o), 3 and 5 at fp32 at LONG_F32_SHAPES and their
+    plain versions, each against float64 (the largest relative L2 over the
+    batches with valid keys); kernel 1's o also against its plain version,
+    held to FWD_O_REL_L2 a batch, the fully masked one included (kernels 4,
+    3 and 5 are held by check_training_kernels at these shapes). Fails if a
+    kernel's float64 reading at 4096 keys exceeds FP64_GROWTH_MAX times its
+    reading at 2048: an error that grows with the key walk."""
+    readings, failures = {}, []
+    for dtype, shape in LONG_F32_SHAPES:
+        q, k, v, mask, do = training_inputs(torch.Generator().manual_seed(10), dev, dtype, **shape)
+        o64, g64 = _bwd_fp64(q, k, v, mask, do)
+        o1 = ka.mha_fused(q, k, v, mask)
+        o, lse = ka.mha_fused_lse(q, k, v, mask)
+        ro, _ = ka.mha_lse_reference(q, k, v, mask)
+        rows = [("mha_fused o", o1, ro, o64), ("mha_fused_lse o", o, ro, o64)]
+        for name, got, ref in (("mha_bwd", ka.mha_bwd(q, k, v, mask, do), ka.mha_bwd_reference(q, k, v, mask, do)),
+                               ("mha_bwd_from_lse", ka.mha_bwd_from_lse(q, k, v, mask, lse, o, do),
+                                ka.mha_bwd_from_lse_reference(q, k, v, mask, lse, o, do))):
+            rows += [(f"{name} {part}", a, r, x) for part, a, r, x in zip(("dq", "dk", "dv"), got, ref, g64)]
+        torch.cuda.synchronize()
+        where = f"{list(q.shape)} fp32"
+        rel = rel_l2_per_batch(o1, ro)
+        limit = FWD_O_REL_L2[dtype]
+        say(f"check mha_fused o {where}: relative L2 a batch, largest {rel[:-1].max().item():.3e} over the batches "
+            f"with valid keys, fully masked batch {rel[-1].item():.3e} (max {limit:g}); finite "
+            f"{bool(torch.isfinite(o1).all())}")
+        if not bool(torch.isfinite(o1).all()) or not bool((rel <= limit).all()):
+            failures.append(f"mha_fused o at {where} against its plain version")
+        for label, kern, plain, exact in rows:
+            rk, rp = (rel_l2_per_batch(t.double(), exact)[:-1].max().item() for t in (kern, plain))
+            readings.setdefault(label, []).append(rk)
+            say(f"fp64 {label} {where}: relative L2 against float64, kernel {rk:.3e}, plain version {rp:.3e}")
+        del q, k, v, do, o64, g64, o1, o, lse, ro, rows
+        torch.cuda.empty_cache()
+    for label, (at_2048, at_4096) in readings.items():
+        growth = at_4096 / at_2048
+        say(f"fp64 {label}: 4096 keys over 2048 {growth:.3f} (max {FP64_GROWTH_MAX})")
+        if not growth <= FP64_GROWTH_MAX:
+            failures.append(f"{label} grows with the keys against float64 ({growth:.3f})")
+    if failures:
+        fail(f"the fp32 kernels at 2048 and 4096 keys: {failures}")
 
 
 def sp_data(dev):
@@ -4437,8 +4483,9 @@ def studies_collect(proc) -> None:
 
 
 def sp_export_phase(dev, kernels, ka, DGNNS, AdaGMN, MatcherConfig) -> dict:
-    """Phase 24: kernels 3, 4 and 5 at fp32 with 2048 keys (reported against
-    TRAIN_REL_L2 and float64); (a) sequence parallelism, a one-rank NCCL
+    """Phase 24: kernels 1, 4, 3 and 5 at fp32 with 2048 and 4096 keys (held
+    against FWD_O_REL_L2 and TRAIN_REL_L2, read against float64, their error's
+    growth with the keys held); (a) sequence parallelism, a one-rank NCCL
     group in process, then 2 ranks over gloo on the one card; while those
     ranks and (d) the studies run in processes of their own, (b) the serving
     export in this one; then, with the card to itself, the host µs of a
@@ -4452,7 +4499,7 @@ def sp_export_phase(dev, kernels, ka, DGNNS, AdaGMN, MatcherConfig) -> dict:
     workdir = SP_DIR
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
-    check_training_kernels(dev, ka, BWD_2048_SHAPES, gate=False)
+    check_training_kernels(dev, ka, LONG_F32_SHAPES)
     fp32_against_fp64(dev, ka)
     for fn in kernels.values():
         fn.launches = 0
@@ -4531,6 +4578,7 @@ def main() -> int:
     forward_resources(logs.get("attention"), _build.load("attention"))
     f32_resources(logs)
     persistent_resources(logs)
+    check_sass()
 
     attention_errs = check_attention(dev, ka)
     errs = {"mha_fused": attention_errs[("mha_fused", torch.bfloat16)],

@@ -88,8 +88,8 @@
 //     as hi and lo A fragments (dh registers a thread), its second (dO, or V)
 //     in shared memory as hi and lo K-major blocks (A from shared memory), so
 //     the registers hold the accumulators: at dh = 64, dQ (32), or dK and dV
-//     (64), beside S and dP of a tile (32) and the A fragments of P and dS
-//     (64); 192-239 registers a thread, no spills.
+//     (64), beside S and dP of a tile (32), a tile's product (32) and the A
+//     fragments of P or dS (32).
 //   * The other side streams in 32-row tiles (keys, or queries): cp.async
 //     brings tile j + 2's rows into a raw tile while the block computes tile
 //     j, and the block splits tile j + 1 from the raw tile into one of two
@@ -102,6 +102,15 @@
 //     fragment of the next product once its k index t stands for column 2t
 //     and t + 4 for 2t + 1 (the forward's permutation), so the transposed
 //     blocks store their 8 rows in the order 0 2 4 6 1 3 5 7.
+//   * Each tile's dQ, dK or dV products (12 k-steps) run into an accumulator
+//     that starts from zero and join the running sum after the wait in fp32
+//     (add_tile_product), so the sum takes one fp32 rounding a tile instead
+//     of the tensor cores' rounding of every k-step of the walk, whose error
+//     grew with the keys (dq) and queries (dk, dv): 1.48e-05-1.55e-05
+//     against float64 at [4, 4, 2048, 64] while the running sums were the
+//     accumulators (PERF.md section 6). The dk/dv launch takes dV's
+//     products, then dK's, through one such accumulator: a second beside dK,
+//     dV and both A operands would not fit 255 registers.
 //   * Kernel 3's dq launch takes the bf16 design's one pass for m, l and D
 //     (base 2: mu = m c with c = log2(e) / sqrt(dh), p = 2^(s c - mu) / l),
 //     then writes mu, 1/l and delta to the [3, BH, Nq] scratch; kernel 5's
@@ -795,18 +804,35 @@ __device__ __forceinline__ void wait_tile_products(float (&s)[16], float (&p2)[1
 
 // acc (64 x DH) += A Y over a tile's 32 rows: A as hi and lo fragments of 4
 // k-steps, Y transposed at layout `yt` (hi, then lo kPart after); three TF32
-// passes. Issued, not waited for: the caller commits and waits.
+// passes into `part`, an accumulator that starts from zero (scale_d = 0 on
+// the first), waited for, then added to acc in fp32 registers. The running
+// sum stays out of the tensor cores' accumulator, whose rounding of each
+// k-step's sum lost accuracy in proportion to the walk's length while every
+// tile ran on in it (PERF.md section 6).
 template <class L, int DH>
-__device__ __forceinline__ void issue_acc_products(float (&acc)[DH / 2], uint32_t (&ah)[4][4],
-                                                   uint32_t (&al)[4][4], uint32_t yt) {
+__device__ __forceinline__ void add_tile_product(float (&acc)[DH / 2], uint32_t (&ah)[4][4],
+                                                 uint32_t (&al)[4][4], uint32_t yt) {
+  float part[DH / 2];
+  fence_regs(part);
+  fence_regs(ah);
+  fence_regs(al);
+  wgmma_fence();
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
     const uint64_t b_hi = wgmma_desc_interleave(yt + jj * L::kColStep);
     const uint64_t b_lo = wgmma_desc_interleave(yt + L::kPart + jj * L::kColStep);
-    wgmma_tf32_rs(acc, al[jj], b_hi);
-    wgmma_tf32_rs(acc, ah[jj], b_lo);
-    wgmma_tf32_rs(acc, ah[jj], b_hi);
+    wgmma_tf32_rs(part, al[jj], b_hi, jj);
+    wgmma_tf32_rs(part, ah[jj], b_lo, 1);
+    wgmma_tf32_rs(part, ah[jj], b_hi, 1);
   }
+  wgmma_commit();
+  fence_regs(part);
+  fence_regs(ah);
+  fence_regs(al);
+  wgmma_wait<0>();
+  fence_regs(part);
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] += part[i];
 }
 
 // rows r0 and r0 + 8 (< n) of a 64 x DH accumulator out to dst [n, DH] fp32
@@ -988,17 +1014,7 @@ __device__ __forceinline__ void dq_tf32_body(uint8_t* smem, const float* __restr
       }
       uint32_t ah[4][4], al[4][4];
       acc_to_a(s, ah, al);
-      fence_regs(acc);
-      fence_regs(ah);
-      fence_regs(al);
-      wgmma_fence();
-      issue_acc_products<L, DH>(acc, ah, al, set + 4 * L::kPart);
-      wgmma_commit();
-      fence_regs(acc);
-      fence_regs(ah);
-      fence_regs(al);
-      wgmma_wait<0>();
-      fence_regs(acc);
+      add_tile_product<L, DH>(acc, ah, al, set + 4 * L::kPart);
     }
     __syncthreads();  // set (it + 1) % 2 in place; set it % 2 and the raw tile free
     if (it + 2 < total) load_tile(it + 2);
@@ -1103,28 +1119,13 @@ __device__ __forceinline__ void dkdv_tf32_body(uint8_t* smem, const float* __res
       dp[i] = p * (dp[i] - st[2 * kTfTile + col]) * scale;
       s[i] = p;
     }
-    uint32_t ph[4][4], pl[4][4], dh_[4][4], dl_[4][4];
-    acc_to_a(s, ph, pl);
-    acc_to_a(dp, dh_, dl_);
-    fence_regs(dva);
-    fence_regs(dka);
-    fence_regs(ph);
-    fence_regs(pl);
-    fence_regs(dh_);
-    fence_regs(dl_);
-    wgmma_fence();
-    issue_acc_products<L, DH>(dva, ph, pl, set + 6 * L::kPart);   // dV += P^T dO
-    issue_acc_products<L, DH>(dka, dh_, dl_, set + 4 * L::kPart);  // dK += dS^T Q
-    wgmma_commit();
-    fence_regs(dva);
-    fence_regs(dka);
-    fence_regs(ph);
-    fence_regs(pl);
-    fence_regs(dh_);
-    fence_regs(dl_);
-    wgmma_wait<0>();
-    fence_regs(dva);
-    fence_regs(dka);
+    // dV's products, then dK's, through one tile accumulator: a second one
+    // beside dK, dV and both A operands would not fit the registers
+    uint32_t ah[4][4], al[4][4];
+    acc_to_a(s, ah, al);
+    add_tile_product<L, DH>(dva, ah, al, set + 6 * L::kPart);  // dV += P^T dO
+    acc_to_a(dp, ah, al);
+    add_tile_product<L, DH>(dka, ah, al, set + 4 * L::kPart);  // dK += dS^T Q
     __syncthreads();  // set (it + 1) % 2 in place; set it % 2 and the raw tile free
     if (it + 2 < ntiles) load_tile(it + 2);
   }

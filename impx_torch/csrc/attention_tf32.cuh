@@ -34,12 +34,18 @@
 //   * two sets of split blocks: tile j's QK^T runs from one while the block
 //     splits tile j + 1 into the other, two barriers a tile (tile j + 1's raw
 //     copy in place; the next set in place and the last one free); a
-//     warpgroup runs its two products in turn.
+//     warpgroup runs its two products in turn;
+//   * each tile's P V runs into an accumulator that starts from zero (scale_d
+//     = 0 on its first k-step) and joins O after the wait in one fp32 FFMA,
+//     O = O alpha + P V. With O itself as the accumulator, every k-step of
+//     the walk (24 a tile, 768 at 2048 keys) rounded the running sum on the
+//     tensor cores, and the error grew with the key count (1.47e-05 against
+//     float64 at 2048 keys, over FWD_O_REL_L2 = 1e-5; PERF.md section 6).
 // Where the time goes (impx_torch/tools/tf32_phases.py, H100 80GB HBM3,
 // 700 W, [8, 4, 2048, 64]): both products on mma.sync m16n8k8, each warp
 // splitting its own fragments, took 0.76 ms a call with cvt.rna and 0.64
 // with the integer rounding below; on wgmma with one split set 0.50, with two
-// 0.48, against 0.38 without the split pass and 0.34 with one TF32 pass.
+// 0.48, against 0.38 without the split pass.
 // kPV = false leaves out P.V and the output: the row lse alone, for a caller
 // that passes a query mask (a block whose queries all weigh 0 writes nothing).
 #pragma once
@@ -177,23 +183,27 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// the same at N = 16 and 32 with D accumulated (the P.V product at dh 16 and 32)
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+// the same at N = dh (16, 32 or 64): the P.V product and the backward's dQ,
+// dK and dV products; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_tf32_rs_n32(d, a, db, 1);
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d = 1) {
+  wgmma_tf32_rs_n32(d, a, db, scale_d);
 }
 
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_tf32_rs_n64(d, a, db, 1);
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d = 1) {
+  wgmma_tf32_rs_n64(d, a, db, scale_d);
 }
 
 // The no-swizzle ("interleaved") K-major layout of a wgmma operand: core
@@ -367,7 +377,7 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const 
   float s[32];
 
   // Each tile j: S = Q K^T from split set j % 2, in flight while the block
-  // splits tile j + 1 into the other set; the softmax; O += P V. Tile j + 2
+  // splits tile j + 1 into the other set; the softmax; O = O alpha + P V. Tile j + 2
   // streams into the raw stage that tile j left. fence_regs before a
   // wgmma.fence keeps the definitions of the wgmma's register operands ahead
   // of it, and after the issue keeps their next uses behind the wait (see
@@ -407,8 +417,6 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const 
     softmax(s, words[2 * j], words[2 * j + 1], t, c, m, mu, l, alpha);
 
     if constexpr (kPV) {  // O = O alpha + P V, 8 keys a k-step: P's A fragment is S's n-block jj
-#pragma unroll
-      for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       uint32_t ph[8][4], pl[8][4];
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
@@ -417,7 +425,8 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const 
         split_tf32(s[4 * jj + 1], ph[jj][2], pl[jj][2]);  // row g, key 8jj + 2t + 1 (k index t + 4)
         split_tf32(s[4 * jj + 3], ph[jj][3], pl[jj][3]);  // row g + 8, key 8jj + 2t + 1
       }
-      fence_regs(o);
+      float pv[DH / 2];  // this tile's P V: the accumulator starts from 0 (scale_d = 0)
+      fence_regs(pv);
       fence_regs(ph);
       fence_regs(pl);
       wgmma_fence();
@@ -425,16 +434,18 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const 
       for (int jj = 0; jj < 8; ++jj) {
         const uint64_t d_hi = wgmma_desc_interleave(set + L::kVHi + jj * L::kVStep);
         const uint64_t d_lo = wgmma_desc_interleave(set + L::kVLo + jj * L::kVStep);
-        wgmma_tf32_rs(o, pl[jj], d_hi);
-        wgmma_tf32_rs(o, ph[jj], d_lo);
-        wgmma_tf32_rs(o, ph[jj], d_hi);
+        wgmma_tf32_rs(pv, pl[jj], d_hi, jj);
+        wgmma_tf32_rs(pv, ph[jj], d_lo, 1);
+        wgmma_tf32_rs(pv, ph[jj], d_hi, 1);
       }
       wgmma_commit();
-      fence_regs(o);
+      fence_regs(pv);
       fence_regs(ph);
       fence_regs(pl);
       wgmma_wait<0>();
-      fence_regs(o);
+      fence_regs(pv);
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], pv[i]);
     }
     __syncthreads();  // set (j + 1) % 2 in place; every warpgroup is done with set j % 2 and raw stage (j + 1) % 2
     if (j + 1 + kF32Stages < ntiles) load_tile(j + 1 + kF32Stages);

@@ -6,7 +6,12 @@ Every product runs in 3xTF32 on wgmma m64nNk8: each fp32 operand splits as
 hi = tf32(x) and lo = tf32(x - hi) (round to nearest, ties away from zero,
 on the int32 view), and each 8-deep k-step adds lo.hi, then hi.lo, then
 hi.hi to the fp32 accumulator, each product one rounding of its exact 8-term
-sum. Two launches a call, each block 128 rows of its own (kTfRows) and a walk
+sum: to nearest, or toward zero (the model of the card's tensor cores in
+test_torch_f32_design.py). Each tile's dQ, dK and dV products run into an
+accumulator that starts from zero and are then added to the running sum in
+fp32 (the walk "tile"); before, they ran on in the running sum's own
+accumulator (the walk "chain"), whose error under toward-zero rounding
+grows with the walk's length. Two launches a call, each block 128 rows of its own (kTfRows) and a walk
 over 32-row tiles (kTfTile) of the other side, zero-filled past the end:
   * the dq launch walks the key tiles. Kernel 3's first pass finds each
     query row's max m (raw units; mu = m c its base-2 copy, c = log2(e) /
@@ -26,7 +31,9 @@ These tests settle that arithmetic before the kernels meet the card: by
 batch, the fully masked batch included, within BWD_REL_L2[float32] (the card
 tests' and chip_smoke.py's TRAIN_REL_L2 limit) of the plain versions and of
 impx's Pallas kernels interpreted; one TF32 pass, without the lo terms,
-misses that limit."""
+misses that limit. Under toward-zero accumulation the chained walk misses
+it against float64 over 2048 keys (dq) or 2048 queries (dk, dv), which the
+tile walk meets at 2048 and 4096."""
 import functools
 import math
 
@@ -79,17 +86,35 @@ def split(x):
     return hi, tf32(x.float() - hi)
 
 
-def mma(acc, a, b, passes=3):
+def to_f32(x, rounding):
+    """float64 x to fp32, to nearest or toward zero (rounded to nearest, then
+    one ulp back toward zero where that overshot)."""
+    r = x.float()
+    if rounding == "zero":
+        r = torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+    return r
+
+
+def mma(acc, a, b, passes=3, rounding="nearest"):
     """acc [..., M, N] fp32 += a [..., M, K] b [..., K, N], 8 of K a k-step:
-    lo.hi, hi.lo, hi.hi (passes=3), or hi.hi alone (one TF32 pass)."""
+    lo.hi, hi.lo, hi.hi (passes=3), or hi.hi alone (one TF32 pass); each
+    k-step's sum with the accumulator rounded to nearest or toward zero."""
     ah, al = split(a)
     bh, bl = split(b)
     terms = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
     for k0 in range(0, a.shape[-1], STEP):
         for x, y in terms:
             step = x[..., k0:k0 + STEP].double() @ y[..., k0:k0 + STEP, :].double()
-            acc = (acc.double() + step).float()
+            acc = to_f32(acc.double() + step, rounding)
     return acc
+
+
+def acc_tile(acc, a, b, passes, rounding, walk):
+    """acc += a b over one tile: from zero, then added in fp32 ("tile"), or
+    in acc's own accumulator ("chain")."""
+    if walk == "chain":
+        return mma(acc, a, b, passes, rounding)
+    return acc + mma(torch.zeros(acc.shape), a, b, passes, rounding)
 
 
 def ffma(a, b, c):
@@ -115,7 +140,7 @@ def _setup(q, mask):
     return scale, valid, c[:, None, None, None], all_masked
 
 
-def emulate_dq(q, k, v, mask, do, lse=None, o=None, passes=3):
+def emulate_dq(q, k, v, mask, do, lse=None, o=None, passes=3, walk="tile", rounding="nearest"):
     """The dq launch: (dq, (mu, 1/l, delta) a query row [B, H, Nq, 1]).
     Kernel 3 when lse is None (two passes over the key tiles), else kernel 5
     (mu = lse log2 e, 1/l = 1, delta = rowsum(do o))."""
@@ -128,8 +153,8 @@ def emulate_dq(q, k, v, mask, do, lse=None, o=None, passes=3):
 
     def products(k0):
         kt, vt = kp[..., k0:k0 + TILE, :], vp[..., k0:k0 + TILE, :]
-        s = mma(torch.zeros((b, h, nq, TILE)), q, kt.transpose(-1, -2), passes)
-        dp = mma(torch.zeros((b, h, nq, TILE)), do, vt.transpose(-1, -2), passes)
+        s = mma(torch.zeros((b, h, nq, TILE)), q, kt.transpose(-1, -2), passes, rounding)
+        dp = mma(torch.zeros((b, h, nq, TILE)), do, vt.transpose(-1, -2), passes, rounding)
         return kt, s, dp, validp[:, None, None, k0:k0 + TILE]
 
     if lse is None:
@@ -156,11 +181,11 @@ def emulate_dq(q, k, v, mask, do, lse=None, o=None, passes=3):
         kt, s, dp, vm = products(k0)
         p = torch.where(vm, torch.exp2(ffma(s, c, -mu)) * il, 0.0)
         ds = p * (dp - delta) * scale
-        dq = mma(dq, ds, kt, passes)
+        dq = acc_tile(dq, ds, kt, passes, rounding, walk)
     return dq, (mu, il, delta)
 
 
-def emulate_dkdv(q, k, v, mask, do, stats, lse_route, passes=3):
+def emulate_dkdv(q, k, v, mask, do, stats, lse_route, passes=3, walk="tile", rounding="nearest"):
     """The dk/dv launch from the dq launch's per-query statistics: (dk, dv).
     Queries past Nq weigh 0: mu = 0 and 1/l = 0 (kernel 3), mu = +inf
     (kernel 5); delta = 0."""
@@ -175,25 +200,25 @@ def emulate_dkdv(q, k, v, mask, do, stats, lse_route, passes=3):
     for q0 in range(0, _ceil(nq), TILE):
         qt, dot = qp[..., q0:q0 + TILE, :], dop[..., q0:q0 + TILE, :]
         cols = slice(q0, q0 + TILE)
-        st = mma(torch.zeros((b, h, nk, TILE)), k, qt.transpose(-1, -2), passes)    # S^T
-        dpt = mma(torch.zeros((b, h, nk, TILE)), v, dot.transpose(-1, -2), passes)  # dP^T
+        st = mma(torch.zeros((b, h, nk, TILE)), k, qt.transpose(-1, -2), passes, rounding)    # S^T
+        dpt = mma(torch.zeros((b, h, nk, TILE)), v, dot.transpose(-1, -2), passes, rounding)  # dP^T
         p = torch.where(key_valid, torch.exp2(ffma(st, c, -mu[..., cols])) * il[..., cols], 0.0)
         ds = p * (dpt - delta[..., cols]) * scale
-        dv = mma(dv, p, dot, passes)
-        dk = mma(dk, ds, qt, passes)
+        dv = acc_tile(dv, p, dot, passes, rounding, walk)
+        dk = acc_tile(dk, ds, qt, passes, rounding, walk)
     return dk, dv
 
 
-def emulate_bwd(q, k, v, mask, do, passes=3):
+def emulate_bwd(q, k, v, mask, do, passes=3, walk="tile", rounding="nearest"):
     """Kernel 3's design: (dq, dk, dv)."""
-    dq, stats = emulate_dq(q, k, v, mask, do, passes=passes)
-    return (dq, *emulate_dkdv(q, k, v, mask, do, stats, False, passes))
+    dq, stats = emulate_dq(q, k, v, mask, do, passes=passes, walk=walk, rounding=rounding)
+    return (dq, *emulate_dkdv(q, k, v, mask, do, stats, False, passes, walk, rounding))
 
 
-def emulate_bwd_from_lse(q, k, v, mask, lse, o, do, passes=3):
+def emulate_bwd_from_lse(q, k, v, mask, lse, o, do, passes=3, walk="tile", rounding="nearest"):
     """Kernel 5's design: (dq, dk, dv)."""
-    dq, stats = emulate_dq(q, k, v, mask, do, lse=lse, o=o, passes=passes)
-    return (dq, *emulate_dkdv(q, k, v, mask, do, stats, True, passes))
+    dq, stats = emulate_dq(q, k, v, mask, do, lse=lse, o=o, passes=passes, walk=walk, rounding=rounding)
+    return (dq, *emulate_dkdv(q, k, v, mask, do, stats, True, passes, walk, rounding))
 
 
 def _inputs(b, h, nq, nk, dh, seed=0):
@@ -306,3 +331,56 @@ def test_design_matches_impx_interpreted(kernel):
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
         rel = _rel_l2_per_batch(a, r)
         assert bool((rel <= LIMIT).all()), (name, rel.tolist())
+
+
+# (b, h, nq, nk, dh): a dq walk over 2048 or 4096 keys, a dk/dv walk over as
+# many queries
+LONG_CASES = [(1, 2, 64, 2048, 64), (1, 2, 64, 4096, 64), (1, 2, 2048, 64, 64), (1, 2, 4096, 64, 64)]
+
+
+def _long_inputs(b, h, nq, nk, dh, seed=2):
+    """fp32 q, k, v, do and a key mask with the last 20 keys masked."""
+    rs = np.random.RandomState(seed)
+    q, do = (rs.randn(b, h, nq, dh).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(b, h, nk, dh).astype(np.float32) for _ in range(2))
+    mask = np.arange(nk)[None].repeat(b, 0) < nk - 20
+    return (*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask), torch.from_numpy(do))
+
+
+def _exact(q, k, v, mask, do):
+    """(dq, dk, dv) of masked attention in float64."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    s = torch.where(mask[:, None, None, :], q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5, NEG)
+    p = torch.softmax(s, dim=-1)
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / q.shape[-1] ** 0.5
+    return ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh", LONG_CASES)
+def test_tile_walk_holds_the_limit_under_toward_zero_accumulation(b, h, nq, nk, dh):
+    """With every accumulation rounded toward zero, both kernels' tile walks
+    keep dq, dk and dv within LIMIT of float64 over 2048 and 4096 keys (the
+    dq walk) and queries (the dk/dv walk), at half the limit."""
+    q, k, v, mask, do = _long_inputs(b, h, nq, nk, dh)
+    exact = _exact(q, k, v, mask, do)
+    o, lse = mha_lse_reference(q, k, v, mask)
+    for kernel, got in ((3, emulate_bwd(q, k, v, mask, do, rounding="zero")),
+                        (5, emulate_bwd_from_lse(q, k, v, mask, lse, o, do, rounding="zero"))):
+        for name, a, r in zip(("dq", "dk", "dv"), got, exact):
+            rel = _rel_l2_per_batch(a, r)
+            assert bool((rel <= LIMIT / 2).all()), (kernel, name, rel.tolist())
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh", [LONG_CASES[0], LONG_CASES[2]])
+def test_chained_walk_misses_the_limit_under_toward_zero_accumulation(b, h, nq, nk, dh):
+    """Kernel 3's design before (every tile chained in the running
+    accumulator) misses LIMIT against float64 under toward-zero rounding on
+    the long walk's outputs (dq over 2048 keys; dk and dv over 2048
+    queries), as the card read 1.48e-05-1.51e-05 at [4, 4, 2048, 64]."""
+    q, k, v, mask, do = _long_inputs(b, h, nq, nk, dh)
+    chain = emulate_bwd(q, k, v, mask, do, walk="chain", rounding="zero")
+    long_walk = ("dq",) if nk > nq else ("dk", "dv")
+    for name, a, r in zip(("dq", "dk", "dv"), chain, _exact(q, k, v, mask, do)):
+        if name in long_walk:
+            assert _rel_l2_per_batch(a, r).max().item() > LIMIT, name

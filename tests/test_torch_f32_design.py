@@ -8,9 +8,16 @@ hi = tf32(x) and lo = tf32(x - hi) (round to nearest, ties away from zero, as
 cvt.rna, which the kernels do in integer arithmetic on the bits and this file
 on the int32 view), and each 8-deep k-step adds lo.hi, then hi.lo, then
 hi.hi to the fp32 accumulator, each product one rounding of its exact 8-term
-sum. The forward walks 64-key tiles with the bf16 kernel's
+sum: to nearest, or toward zero, as NVIDIA's tensor cores were measured to
+round their fp32 accumulation (Fasi, Higham, Mikaitis and Pranesh, PeerJ CS
+2021: V100, T4, A100), a model of the card that its readings decide. The
+forward walks 64-key tiles with the bf16 kernel's
 base-2 online softmax (p = 2^(s c - m c), c = log2(e) / sqrt(dh), one FFMA a
-score), P unrounded and split for P.V; lse = m / sqrt(dh) + log(l), -1e30 on
+score), P unrounded and split for P.V into an accumulator that starts from
+zero each tile, then O = O alpha + that in one fp32 FFMA (the walk "tile");
+before, every tile's P.V ran on in O's own accumulator, rescaled by alpha
+first (the walk "chain"), whose error under toward-zero rounding grows with
+the key count. lse = m / sqrt(dh) + log(l), -1e30 on
 a batch with no valid key. Without P.V the same pass is the mass's standalone
 row lse, so both routes of the mass take the same lse. The mass sums p =
 2^(s c - lse log2 e) over S^T = K Q^T in 64-query tiles, each thread over its
@@ -21,7 +28,9 @@ exponentials are exact here (the card's ex2.approx is within 2^-22).
 These tests settle that arithmetic before the kernels meet the card: against
 the plain versions and impx's Pallas kernels in interpret mode, at the card's
 fp32 limits (chip_smoke.py's ATTN_TOL, FWD_LSE_TOL, MASS_RTOL, MASS_ATOL);
-one TF32 pass, without the lo terms, misses ATTN_TOL. They also hold the
+one TF32 pass, without the lo terms, misses ATTN_TOL; under toward-zero
+accumulation the chained walk misses FWD_O_REL_L2 at 2048 keys against
+float64, which the tile walk meets at 2048 and 4096. They also hold the
 plain versions to impx on a float key mask with negative entries, which
 impx reads as `> 0`."""
 import functools
@@ -33,7 +42,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ATTN_TOL, FWD_LSE_TOL, MASS_ATOL, MASS_RTOL
+from chip_smoke import ATTN_TOL, FWD_LSE_TOL, FWD_O_REL_L2, MASS_ATOL, MASS_RTOL
 from impx.ops.pallas.attention import attention_key_mass as jax_key_mass
 from impx.ops.pallas.attention import mha_fused_lse as jax_mha_fused_lse
 from impx_torch.ops.kernels.attention import (
@@ -45,6 +54,7 @@ TILE_Q = 64                    # queries a mass ring stage, as kF32MassQ
 STEP = 8                       # the k depth of a tf32 wgmma
 LOG2E = 1.4426950408889634
 TOL = ATTN_TOL[torch.float32]
+REL_L2 = FWD_O_REL_L2[torch.float32]
 
 # (b, h, nq, nk, dh): ragged last key tiles (150, 77, 5), Nq not a multiple
 # of the 128 query rows of a block (200, 100, 17, 130), a multiple of the key
@@ -53,6 +63,8 @@ FWD_CASES = [(3, 2, 200, 150, 64), (3, 2, 100, 77, 32), (3, 2, 17, 5, 16), (3, 2
 # (b, h, nq, nk, dh): ragged 64-query tiles (100, 130) and 128-key CTAs (300,
 # 140, 77), whole tiles (320)
 MASS_CASES = [(3, 2, 320, 300, 64), (3, 3, 100, 140, 32), (3, 4, 130, 77, 16)]
+# (b, h, nq, dh) and the long key walks of the card's accuracy checks
+LONG = (1, 2, 64, 64)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -82,21 +94,33 @@ def split(x):
     return hi, tf32(x.float() - hi)
 
 
-def mma(acc, a, b, passes=3):
+def to_f32(x, rounding):
+    """float64 x to fp32, to nearest or toward zero (rounded to nearest, then
+    one ulp back toward zero where that overshot)."""
+    r = x.float()
+    if rounding == "zero":
+        r = torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+    return r
+
+
+def mma(acc, a, b, passes=3, rounding="nearest"):
     """acc [..., M, N] fp32 += a [..., M, K] b [..., K, N], 8 of K a k-step:
-    lo.hi, hi.lo, hi.hi (passes=3), or hi.hi alone (one TF32 pass)."""
+    lo.hi, hi.lo, hi.hi (passes=3), or hi.hi alone (one TF32 pass); each
+    k-step's sum with the accumulator rounded to nearest or toward zero."""
     ah, al = split(a)
     bh, bl = split(b)
     terms = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
     for k0 in range(0, a.shape[-1], STEP):
         for x, y in terms:
             step = x[..., k0:k0 + STEP].double() @ y[..., k0:k0 + STEP, :].double()
-            acc = (acc.double() + step).float()
+            acc = to_f32(acc.double() + step, rounding)
     return acc
 
 
-def emulate_forward(q, k, v, mask, passes=3, with_pv=True):
-    """Kernels 1 and 4 (with_pv) or the row lse alone: (o or None, lse)."""
+def emulate_forward(q, k, v, mask, passes=3, with_pv=True, walk="tile", rounding="nearest"):
+    """Kernels 1 and 4 (with_pv) or the row lse alone: (o or None, lse).
+    walk: each tile's P.V from zero, added to O in fp32 ("tile"), or every
+    tile chained in O's accumulator ("chain", the design before)."""
     b, h, nq, dh = q.shape
     nk = k.shape[2]
     scale = _f32(1.0 / math.sqrt(dh))
@@ -110,7 +134,7 @@ def emulate_forward(q, k, v, mask, passes=3, with_pv=True):
     o = torch.zeros(q.shape)
     for k0 in range(0, nk, TILE_K):
         kt, vt = k[..., k0:k0 + TILE_K, :], v[..., k0:k0 + TILE_K, :]
-        st = mma(torch.zeros((b, h, nq, kt.shape[2])), q, kt.transpose(-1, -2), passes)
+        st = mma(torch.zeros((b, h, nq, kt.shape[2])), q, kt.transpose(-1, -2), passes, rounding)
         vmask = valid[:, None, None, k0:k0 + TILE_K]
         m_new = torch.maximum(m, torch.where(vmask, st, -math.inf).amax(dim=-1, keepdim=True))
         mu_new = torch.where(m_new == -math.inf, 0.0, m_new * c)
@@ -118,8 +142,11 @@ def emulate_forward(q, k, v, mask, passes=3, with_pv=True):
         arg = (st.double() * c.double() - mu_new.double()).float()   # one FFMA: one rounding
         e = torch.where(vmask, torch.exp2(arg), 0.0)
         l = l * alpha + e.sum(dim=-1, keepdim=True)
-        if with_pv:
-            o = mma(o * alpha, e, vt, passes)                          # P unrounded, split for P.V
+        if with_pv and walk == "chain":
+            o = mma(o * alpha, e, vt, passes, rounding)                # P unrounded, split for P.V
+        elif with_pv:
+            pv = mma(torch.zeros(o.shape), e, vt, passes, rounding)
+            o = (o.double() * alpha.double() + pv.double()).float()   # one FFMA
         m, mu = m_new, mu_new
     lse = torch.where(all_masked[:, None, None], NEG, (m * scale + torch.log(l))[..., 0])
     return (o / l if with_pv else None), lse
@@ -250,6 +277,44 @@ def test_single_pass_tf32_misses_the_fp32_tolerance():
     three = emulate_forward(q, k, v, mask)[0]
     assert _out_of_tolerance(three, ref, TOL) == 0
     assert _out_of_tolerance(one_pass, ref, TOL) > 0.01 * ref.numel()
+
+
+def _long_inputs(nk, seed=2):
+    """fp32 q, k, v [LONG's b, h, nq, dh] with nk keys, the last 20 masked."""
+    b, h, nq, dh = LONG
+    rs = np.random.RandomState(seed)
+    q = rs.randn(b, h, nq, dh).astype(np.float32)
+    k, v = (rs.randn(b, h, nk, dh).astype(np.float32) for _ in range(2))
+    mask = np.arange(nk)[None].repeat(b, 0) < nk - 20
+    return (*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask))
+
+
+def _rel_l2_fp64(o, q, k, v, mask):
+    """o's largest relative L2 error a batch against masked attention in float64."""
+    s = torch.where(mask[:, None, None, :], q.double() @ k.double().transpose(-1, -2) / q.shape[-1] ** 0.5, NEG)
+    ref = (torch.softmax(s, dim=-1) @ v.double()).flatten(1)
+    return ((o.double().flatten(1) - ref).norm(dim=1) / ref.norm(dim=1)).max().item()
+
+
+@pytest.mark.parametrize("nk", [2048, 4096])
+def test_tile_walk_holds_the_limit_under_toward_zero_accumulation(nk):
+    """With every accumulation rounded toward zero, each tile's P.V from
+    zero keeps o within FWD_O_REL_L2 of float64 at 2048 and 4096 keys, and
+    its error does not double with the key count."""
+    q, k, v, mask = _long_inputs(nk)
+    err = _rel_l2_fp64(emulate_forward(q, k, v, mask, rounding="zero")[0], q, k, v, mask)
+    assert err <= REL_L2 / 2, err
+
+
+def test_chained_walk_misses_the_limit_under_toward_zero_accumulation():
+    """The design before (P.V of every tile chained in O's accumulator)
+    misses FWD_O_REL_L2 at 2048 keys under toward-zero rounding, as the card
+    read 1.465e-05 against float64, and meets it rounding to nearest: the
+    rounding of one long chain, not the split, loses the accuracy."""
+    q, k, v, mask = _long_inputs(2048)
+    chain = _rel_l2_fp64(emulate_forward(q, k, v, mask, walk="chain", rounding="zero")[0], q, k, v, mask)
+    nearest = _rel_l2_fp64(emulate_forward(q, k, v, mask, walk="chain")[0], q, k, v, mask)
+    assert chain > REL_L2 and nearest <= REL_L2 / 2, (chain, nearest)
 
 
 @pytest.mark.parametrize("splits", [1, 3])
