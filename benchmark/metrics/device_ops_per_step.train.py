@@ -1,0 +1,6 @@
+"""Device operations (kernels, copies, sets) in the trace, a training step."""
+
+
+def read(view):
+    t = view.trace
+    return len(t.device_ops) / t.calls if t.calls else None
