@@ -4420,14 +4420,14 @@ def trace_phase(dev, DGNNS, MatcherConfig, workdir) -> None:
     call; the Chrome trace must name attn_fwd_wgmma, and its count of that
     kernel's device events against the 30 launches tells whether the
     profiler lost one."""
-    from impx_torch.tools.profiling import annotate, trace
+    from impx_torch.tools.profiling import span, trace
 
     model = par_model(dev, DGNNS, MatcherConfig, "bfloat16")
     imp, _ = sp_data(dev)
     with torch.no_grad():
         model.produce_matches(imp, only_last=True, with_scores=False)
         with trace(f"{workdir}/trace") as path:
-            with annotate("impx_produce_matches"):
+            with span("impx_produce_matches"):
                 model.produce_matches(imp, only_last=True, with_scores=False)
     with open(path) as f:
         events = json.load(f)["traceEvents"]

@@ -44,6 +44,7 @@ from impx_torch.models.fast import (
     forward_train_scan_eimp, forward_train_scan_eimp_compact, loss_outputs, zero_terms)
 from impx_torch.models.loss import geo_loss, graph_loss, loss_counts, matching_accuracy, maybe_epipolar_matrix
 from impx_torch.ops.kernels.attention import attention_key_mass, attention_key_mass_reference
+from impx_torch.tools.profiling import span
 
 
 def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -304,19 +305,20 @@ class AdaGMN(DGNNS):
         pooling) and, compacted, 'overflow0'/'overflow1' [B] (survivors
         dropped because a bucket was full: re-run those pairs with
         compaction=())."""
-        data = self._on_device(data)
-        cfg = self.config
-        if not self._on_scan(data):
-            scores, idx0, ms0, (keep0, keep1), _ = self._iterate(data, p, mscore_th, uncertainty_ratio,
-                                                                 with_scores)
-            if only_last:
-                idx0, ms0 = idx0[-1:], ms0[-1:]
-            return {"scores": scores[-1:], "indices0": idx0, "mscores0": ms0, "keep0": keep0, "keep1": keep1}
-        kw = dict(p=p, mscore_th=mscore_th, uncertainty_ratio=uncertainty_ratio,
-                  only_last=only_last)
-        if cfg.compaction and self.seq_group is None:  # sequence parallelism runs mask-only
-            return forward_scan_eimp_compact(self, data, **kw)
-        return forward_scan_eimp(self, data, with_scores=with_scores, **kw)
+        with span("impx.match"):
+            data = self._on_device(data)
+            cfg = self.config
+            if not self._on_scan(data):
+                scores, idx0, ms0, (keep0, keep1), _ = self._iterate(data, p, mscore_th, uncertainty_ratio,
+                                                                     with_scores)
+                if only_last:
+                    idx0, ms0 = idx0[-1:], ms0[-1:]
+                return {"scores": scores[-1:], "indices0": idx0, "mscores0": ms0, "keep0": keep0, "keep1": keep1}
+            kw = dict(p=p, mscore_th=mscore_th, uncertainty_ratio=uncertainty_ratio,
+                      only_last=only_last)
+            if cfg.compaction and self.seq_group is None:  # sequence parallelism runs mask-only
+                return forward_scan_eimp_compact(self, data, **kw)
+            return forward_scan_eimp(self, data, with_scores=with_scores, **kw)
 
     def forward_train(self, data):
         """EIMP training (impx/models/adgm.py:271): `produce_matches`'s data

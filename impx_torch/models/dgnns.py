@@ -17,6 +17,7 @@ import torch
 
 from impx_torch.models.fast import forward_scan, forward_train_scan
 from impx_torch.models.gm import GM
+from impx_torch.tools.profiling import span
 
 
 class DGNNS(GM):
@@ -41,11 +42,12 @@ class DGNNS(GM):
         keypoint count in both images the stacked forward runs; otherwise
         GM's unrolled one under GM's dtype contract, as impx's routing does
         (its scan needs 'in' and equal counts)."""
-        data = self._on_device(data)
-        if (self.config.norm_fn != "in"
-                or data["descriptors0"].shape[1] != data["descriptors1"].shape[1]):
-            return GM.produce_matches(self, data, p=p, only_last=only_last, with_scores=with_scores)
-        return forward_scan(self, data, p=p, only_last=only_last, with_scores=with_scores)
+        with span("impx.match"):
+            data = self._on_device(data)
+            if (self.config.norm_fn != "in"
+                    or data["descriptors0"].shape[1] != data["descriptors1"].shape[1]):
+                return GM.produce_matches(self, data, p=p, only_last=only_last, with_scores=with_scores)
+            return forward_scan(self, data, p=p, only_last=only_last, with_scores=with_scores)
 
     def forward_train(self, data):
         """Training forward (impx/models/dgnns.py:37): `produce_matches`'s

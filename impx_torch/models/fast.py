@@ -63,6 +63,7 @@ from impx_torch.ops.kernels.sinkhorn import (
     sinkhorn_fused_stats, sinkhorn_plan_from_uv, sinkhorn_stats_reference)
 from impx_torch.models.loss import geo_loss, graph_loss, loss_counts, matching_accuracy, maybe_epipolar_matrix
 from impx_torch.ops.matching import matches_from_stats
+from impx_torch.tools.profiling import span
 
 
 def _swap_half(x: torch.Tensor) -> torch.Tensor:
@@ -79,24 +80,25 @@ def final_matches_from_desc(model, desc, b: int, valid0, valid1, p: float, with_
     Without config.with_sinkhorn the score head (the dual softmax) builds the
     plan and the matches come from it, as impx's third branch
     (impx/models/fast.py:309-312)."""
-    cfg = model.config
-    dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=-1)
-    if not cfg.with_sinkhorn:
-        score = model.compute_score(dist, valid0, valid1)
-        idx0, _, ms0, _ = model.compute_matches(score, p=p, valid0=valid0, valid1=valid1)
-        return {"scores": [score if with_scores else None], "indices0": [idx0], "mscores0": [ms0]}
-    if cfg.log_ot:
-        stats_fn = log_sinkhorn_fused_stats if model.use_kernels else log_sinkhorn_stats_reference
-        plan_fn = log_plan_from_uv
-    else:
-        stats_fn = sinkhorn_fused_stats if model.use_kernels else sinkhorn_stats_reference
-        plan_fn = sinkhorn_plan_from_uv
-    stats = stats_fn(dist, model.bin_score, cfg.sinkhorn_iterations, valid0, valid1)
-    max0 = torch.exp(stats["max0"]) if cfg.log_ot else stats["max0"]
-    idx0, _, ms0, _ = matches_from_stats(max0, stats["idx0"], stats["idx1"], p, valid0, valid1)
-    score = (plan_fn(dist, model.bin_score, stats["u"], stats["v"], valid0, valid1)
-             if with_scores else None)
-    return {"scores": [score], "indices0": [idx0], "mscores0": [ms0]}
+    with span("impx.head"):
+        cfg = model.config
+        dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=-1)
+        if not cfg.with_sinkhorn:
+            score = model.compute_score(dist, valid0, valid1)
+            idx0, _, ms0, _ = model.compute_matches(score, p=p, valid0=valid0, valid1=valid1)
+            return {"scores": [score if with_scores else None], "indices0": [idx0], "mscores0": [ms0]}
+        if cfg.log_ot:
+            stats_fn = log_sinkhorn_fused_stats if model.use_kernels else log_sinkhorn_stats_reference
+            plan_fn = log_plan_from_uv
+        else:
+            stats_fn = sinkhorn_fused_stats if model.use_kernels else sinkhorn_stats_reference
+            plan_fn = sinkhorn_plan_from_uv
+        stats = stats_fn(dist, model.bin_score, cfg.sinkhorn_iterations, valid0, valid1)
+        max0 = torch.exp(stats["max0"]) if cfg.log_ot else stats["max0"]
+        idx0, _, ms0, _ = matches_from_stats(max0, stats["idx0"], stats["idx1"], p, valid0, valid1)
+        score = (plan_fn(dist, model.bin_score, stats["u"], stats["v"], valid0, valid1)
+                 if with_scores else None)
+        return {"scores": [score], "indices0": [idx0], "mscores0": [ms0]}
 
 
 def _encode(model, data: dict[str, Any], stream_dtype: torch.dtype | None = None):
@@ -104,15 +106,16 @@ def _encode(model, data: dict[str, Any], stream_dtype: torch.dtype | None = None
     `stream_dtype`, by default the compute dtype, valid0, valid1 [B, N] bool,
     B, N). Under sequence parallelism desc and N are this rank's block of
     the keypoints and valid0, valid1 cover all of them (GM.seq_rows)."""
-    b, n = data["descriptors0"].shape[:2]
-    if data["descriptors1"].shape[1] != n:
-        raise ValueError("the stacked batch needs the same keypoint count in both "
-                         "images; pad with valid0/valid1")
-    valid0, valid1 = model._valid_masks(data, n, n)
-    enc0 = model.encode_keypoint(model._norm_kpts(data, 0), data["scores0"], model.seq_rows(valid0))
-    enc1 = model.encode_keypoint(model._norm_kpts(data, 1), data["scores1"], model.seq_rows(valid1))
-    desc = torch.cat([data["descriptors0"] + enc0, data["descriptors1"] + enc1], dim=0)
-    return desc.to(stream_dtype or model.compute_dtype), valid0, valid1, b, n
+    with span("impx.encode"):
+        b, n = data["descriptors0"].shape[:2]
+        if data["descriptors1"].shape[1] != n:
+            raise ValueError("the stacked batch needs the same keypoint count in both "
+                             "images; pad with valid0/valid1")
+        valid0, valid1 = model._valid_masks(data, n, n)
+        enc0 = model.encode_keypoint(model._norm_kpts(data, 0), data["scores0"], model.seq_rows(valid0))
+        enc1 = model.encode_keypoint(model._norm_kpts(data, 1), data["scores1"], model.seq_rows(valid1))
+        desc = torch.cat([data["descriptors0"] + enc0, data["descriptors1"] + enc1], dim=0)
+        return desc.to(stream_dtype or model.compute_dtype), valid0, valid1, b, n
 
 
 def encode_stacked(model, data: dict[str, Any]):
@@ -207,13 +210,14 @@ def supervised_head(model, desc0, desc1, layer_id: int, gt, epi, valid0, valid1,
     log-OT head) and, when epi is given, the geo_loss of its probabilities
     under 'geo'. counts (loss.loss_counts of gt): the terms are this rank's
     shares of the data-parallel global batch's. Returns (terms, score)."""
-    dist = model.compute_distance(desc0.float(), desc1.float(), layer_id=layer_id)
-    score = model.compute_score(dist, valid0, valid1)
-    terms = graph_loss(score, gt, scores_are_log=model.scores_are_log, counts=counts)
-    if epi is not None:
-        terms["geo"] = geo_loss(torch.exp(score) if model.scores_are_log else score, epi, valid0, valid1,
-                                n_pairs=None if counts is None else counts[0])
-    return terms, score
+    with span("impx.head"):
+        dist = model.compute_distance(desc0.float(), desc1.float(), layer_id=layer_id)
+        score = model.compute_score(dist, valid0, valid1)
+        terms = graph_loss(score, gt, scores_are_log=model.scores_are_log, counts=counts)
+        if epi is not None:
+            terms["geo"] = geo_loss(torch.exp(score) if model.scores_are_log else score, epi, valid0, valid1,
+                                    n_pairs=None if counts is None else counts[0])
+        return terms, score
 
 
 def train_outputs(model, terms: dict, score, gt, valid0, valid1, counts=None) -> dict:
@@ -318,24 +322,27 @@ def _eimp_step(model, i: int, state: tuple, b: int, p: float, th: float, do_pool
                                                       **kw)
     desc = desc + delta
 
-    dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=i)
-    if cfg.with_sinkhorn:
-        stats_fn = sinkhorn_fused_stats if model.use_kernels else sinkhorn_stats_reference
-        stats = stats_fn(dist, model.bin_score, cfg.sinkhorn_iterations, keep0, keep1)
-        idx0, _, ms0, _ = matches_from_stats(stats["max0"], stats["idx0"], stats["idx1"], p, keep0, keep1)
-        rowmass, colmass, u, v = stats["rowmass"], stats["colmass"], stats["u"], stats["v"]
-    else:
-        # the dual-softmax head: the plan itself, u and v zero
-        # (impx/models/fast.py:659-666)
-        score = model.compute_score(dist, keep0, keep1)
-        idx0, _, ms0, _ = model.compute_matches(score, p=p, valid0=keep0, valid1=keep1)
-        inner = score[:, :-1, :-1]
-        rowmass, colmass = inner.sum(dim=2), inner.sum(dim=1)
-        u = v = torch.zeros((b, keep0.shape[1] + 1), dtype=torch.float32, device=dist.device)
+    with span("impx.head"):
+        dist = model.compute_distance(desc[:b].float(), desc[b:].float(), layer_id=i)
+        if cfg.with_sinkhorn:
+            stats_fn = sinkhorn_fused_stats if model.use_kernels else sinkhorn_stats_reference
+            stats = stats_fn(dist, model.bin_score, cfg.sinkhorn_iterations, keep0, keep1)
+            idx0, _, ms0, _ = matches_from_stats(stats["max0"], stats["idx0"], stats["idx1"], p, keep0, keep1)
+            rowmass, colmass, u, v = stats["rowmass"], stats["colmass"], stats["u"], stats["v"]
+        else:
+            # the dual-softmax head: the plan itself, u and v zero
+            # (impx/models/fast.py:659-666)
+            score = model.compute_score(dist, keep0, keep1)
+            idx0, _, ms0, _ = model.compute_matches(score, p=p, valid0=keep0, valid1=keep1)
+            inner = score[:, :-1, :-1]
+            rowmass, colmass = inner.sum(dim=2), inner.sum(dim=1)
+            u = v = torch.zeros((b, keep0.shape[1] + 1), dtype=torch.float32, device=dist.device)
     out = (idx0, ms0, u, v, keep0, keep1)
     if do_pool:
-        masses = model._key_masses(qk_self, qk_cross, keep0, keep1, full0, full1, *lse_self, *lse_cross)
-        keep0, keep1 = model._pool_from_masses(rowmass, colmass, *masses, keep0, keep1, th, cfg.n_min_tokens)
+        with span("impx.pool"):
+            masses = model._key_masses(qk_self, qk_cross, keep0, keep1, full0, full1, *lse_self, *lse_cross)
+            keep0, keep1 = model._pool_from_masses(rowmass, colmass, *masses, keep0, keep1, th,
+                                                   cfg.n_min_tokens)
     return (desc, qk_self, qk_cross, keep0, keep1, full0, full1), out
 
 
@@ -444,17 +451,19 @@ def forward_scan_eimp_compact(model, data: dict[str, Any], p: float = 0.2, mscor
     outs = []
     for i, do_pool in enumerate(_eimp_do_pool(cfg)):
         if i in starts:
-            k = starts[i]
-            desc, qk_self, qk_cross, keep0, keep1, _, _ = state
-            overflow0 += (keep0.sum(dim=1) - k).clamp(min=0).to(torch.int32)
-            overflow1 += (keep1.sum(dim=1) - k).clamp(min=0).to(torch.int32)
-            desc, qk_self, qk_cross, keep0, keep1, g0, g1 = _compact_gather(
-                desc, qk_self, qk_cross, keep0, keep1, g0, g1, _stable_topk_indices(keep0, k),
-                _stable_topk_indices(keep1, k))
-            state = (desc, qk_self, qk_cross, keep0, keep1, keep0, keep1)
+            with span("impx.compact"):
+                k = starts[i]
+                desc, qk_self, qk_cross, keep0, keep1, _, _ = state
+                overflow0 += (keep0.sum(dim=1) - k).clamp(min=0).to(torch.int32)
+                overflow1 += (keep1.sum(dim=1) - k).clamp(min=0).to(torch.int32)
+                desc, qk_self, qk_cross, keep0, keep1, g0, g1 = _compact_gather(
+                    desc, qk_self, qk_cross, keep0, keep1, g0, g1, _stable_topk_indices(keep0, k),
+                    _stable_topk_indices(keep1, k))
+                state = (desc, qk_self, qk_cross, keep0, keep1, keep0, keep1)
         state, (idx0, ms0, *_) = _eimp_step(model, i, state, b, p, th, do_pool)
         if not only_last or i == cfg.n_layers - 1:
-            outs.append(_scatter_matches(idx0, ms0, g0, g1, n))
+            with span("impx.compact"):
+                outs.append(_scatter_matches(idx0, ms0, g0, g1, n))
 
     keep0, keep1 = state[3], state[4]
     none = torch.zeros((b, n), dtype=torch.bool, device=desc.device)

@@ -26,6 +26,7 @@ from torch import nn
 from impx_torch.ops.attention import merge_heads, project_heads
 from impx_torch.ops.kernels.attention import MhaFunction, MhaLseFunction, mha_fused, mha_fused_lse
 from impx_torch.ops.mlp import dense_apply, mlp_apply
+from impx_torch.tools.profiling import KEYS, count, span
 
 
 class Dense(nn.Module):
@@ -143,40 +144,43 @@ class AttentionalPropagation(nn.Module):
         is (delta, (q, k), lse) with each query row's log-sum-exp [B, H, N]
         fp32, from which EIMP's key masses take one pass. batch_stats: batch
         norm from the moments of query_mask's tokens (norm_fn='bn')."""
-        h = self.num_heads
-        xq = x
-        if self.model_group is not None:  # Megatron's f before the column-parallel projections
-            from impx_torch.parallel.collectives import copy_to_group
+        with span("impx.layer"):
+            h = self.num_heads
+            xq = x
+            if self.model_group is not None:  # Megatron's f before the column-parallel projections
+                from impx_torch.parallel.collectives import copy_to_group
 
-            xq = copy_to_group(x, self.model_group)
-            source = xq if source is x else copy_to_group(source, self.model_group)
-        if self.shared:
-            q, k = qk
-            v = project_heads(self.proj.weight, self.proj.bias, source, h)
-            merge = self.merge
-        else:
-            a = self.attn
-            q = project_heads(a["q"].weight, a["q"].bias, xq, h)
-            k = project_heads(a["k"].weight, a["k"].bias, source, h)
-            v = project_heads(a["v"].weight, a["v"].bias, source, h)
-            merge = a["merge"]
-        if self.seq_group is not None:
-            from impx_torch.parallel.collectives import all_gather
-
+                xq = copy_to_group(x, self.model_group)
+                source = xq if source is x else copy_to_group(source, self.model_group)
             if self.shared:
-                v = all_gather(v, self.seq_group, axis=2)
+                q, k = qk
+                v = project_heads(self.proj.weight, self.proj.bias, source, h)
+                merge = self.merge
             else:
-                k, v = all_gather(torch.stack([k, v]), self.seq_group, axis=3).unbind(0)
-        if attn_dtype is not None:
-            q, k, v = q.to(attn_dtype), k.to(attn_dtype), v.to(attn_dtype)
-        if with_lse:
-            out, lse = mha_fused_lse(q, k, v, key_mask)
-            return self.tail(x, out, merge, query_mask, ac_fn, batch_stats), (q, k), lse
-        if use_kernels and not lse_core:
-            out = mha_fused(q, k, v, key_mask)
-        else:  # the plain versions keep the kernels' residuals: q, k, v (and o, lse)
-            out = (MhaLseFunction if lse_core else MhaFunction).apply(q, k, v, key_mask, not use_kernels)
-        return self.tail(x, out, merge, query_mask, ac_fn, batch_stats), (q, k)
+                a = self.attn
+                q = project_heads(a["q"].weight, a["q"].bias, xq, h)
+                k = project_heads(a["k"].weight, a["k"].bias, source, h)
+                v = project_heads(a["v"].weight, a["v"].bias, source, h)
+                merge = a["merge"]
+            if self.seq_group is not None:
+                from impx_torch.parallel.collectives import all_gather
+
+                if self.shared:
+                    v = all_gather(v, self.seq_group, axis=2)
+                else:
+                    k, v = all_gather(torch.stack([k, v]), self.seq_group, axis=3).unbind(0)
+            if attn_dtype is not None:
+                q, k, v = q.to(attn_dtype), k.to(attn_dtype), v.to(attn_dtype)
+            with span("impx.attn"):
+                count(KEYS, key_mask, q.shape[0] * q.shape[1] * q.shape[2], k.shape[2])
+                if with_lse:
+                    out, lse = mha_fused_lse(q, k, v, key_mask)
+                elif use_kernels and not lse_core:
+                    out = mha_fused(q, k, v, key_mask)
+                else:  # the plain versions keep the kernels' residuals: q, k, v (and o, lse)
+                    out = (MhaLseFunction if lse_core else MhaFunction).apply(q, k, v, key_mask, not use_kernels)
+            delta = self.tail(x, out, merge, query_mask, ac_fn, batch_stats)
+            return (delta, (q, k), lse) if with_lse else (delta, (q, k))
 
     def tail(self, x, out, merge: Dense, query_mask, ac_fn: str, batch_stats: bool = False):
         """Head merge, then the concat-MLP (its norm in fp32), all in x's

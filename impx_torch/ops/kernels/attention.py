@@ -65,6 +65,7 @@ from __future__ import annotations
 import torch
 
 from impx_torch.ops.kernels import _build, _ops
+from impx_torch.tools.profiling import span
 
 NEG = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -353,9 +354,10 @@ class MhaFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, key_mask = ctx.saved_tensors
-        bwd = mha_bwd_reference if ctx.plain else mha_bwd
-        return (*bwd(q, k, v, key_mask, do.contiguous()), None, None)
+        with span("impx.attn.backward"):
+            q, k, v, key_mask = ctx.saved_tensors
+            bwd = mha_bwd_reference if ctx.plain else mha_bwd
+            return (*bwd(q, k, v, key_mask, do.contiguous()), None, None)
 
 
 class MhaLseFunction(torch.autograd.Function):
@@ -373,9 +375,10 @@ class MhaLseFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, key_mask, o, lse = ctx.saved_tensors
-        bwd = mha_bwd_from_lse_reference if ctx.plain else mha_bwd_from_lse
-        return (*bwd(q, k, v, key_mask, lse, o, do.contiguous()), None, None)
+        with span("impx.attn.backward"):
+            q, k, v, key_mask, o, lse = ctx.saved_tensors
+            bwd = mha_bwd_from_lse_reference if ctx.plain else mha_bwd_from_lse
+            return (*bwd(q, k, v, key_mask, lse, o, do.contiguous()), None, None)
 
 
 # ------------------------------------------------------------ attention key mass

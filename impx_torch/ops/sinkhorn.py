@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from impx_torch.tools.profiling import span
+
 EPS = 1e-8
 NEG = -1e30
 
@@ -136,27 +138,28 @@ class SinkhornUV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        p, r, c, sus, svs, us, vs = ctx.saved_tensors
-        pd = ctx.pd
-        p_loop = p.to(pd).float()
-        u_t, v_t = us[-1], vs[-1]
-        gp = g * p
-        u_bar = torch.einsum("bnm,bm->bn", gp, v_t)   # output -> u_T
-        v_bar = torch.einsum("bnm,bn->bm", gp, u_t)   # output -> v_T
-        v_prevs = torch.cat([torch.ones_like(vs[:1]), vs[:-1]], dim=0)
-        sv_bars, su_bars = [], []
-        for t in reversed(range(us.shape[0])):
-            su, sv = sus[t], svs[t]
-            sv_bar = -(v_bar * c) / (sv * sv)              # v_t = c / sv
-            u_tot = u_bar + _mv(p_loop, sv_bar, pd)        # u_t is used in sv
-            su_bar = -(u_tot * r) / (su * su)              # u_t = r / su
-            sv_bars.insert(0, sv_bar)
-            su_bars.insert(0, su_bar)
-            u_bar, v_bar = torch.zeros_like(u_bar), _mtv(p_loop, su_bar, pd)  # v_{t-1} in su
-        a = torch.cat([us, torch.stack(su_bars)])               # [2T, B, N+1]
-        bm = torch.cat([torch.stack(sv_bars), v_prevs])         # [2T, B, M+1]
-        p_bar = g * (u_t[:, :, None] * v_t[:, None, :]) + torch.einsum("tbn,tbm->bnm", a, bm)
-        return p_bar, None, None, None, None
+        with span("impx.head.backward"):
+            p, r, c, sus, svs, us, vs = ctx.saved_tensors
+            pd = ctx.pd
+            p_loop = p.to(pd).float()
+            u_t, v_t = us[-1], vs[-1]
+            gp = g * p
+            u_bar = torch.einsum("bnm,bm->bn", gp, v_t)   # output -> u_T
+            v_bar = torch.einsum("bnm,bn->bm", gp, u_t)   # output -> v_T
+            v_prevs = torch.cat([torch.ones_like(vs[:1]), vs[:-1]], dim=0)
+            sv_bars, su_bars = [], []
+            for t in reversed(range(us.shape[0])):
+                su, sv = sus[t], svs[t]
+                sv_bar = -(v_bar * c) / (sv * sv)              # v_t = c / sv
+                u_tot = u_bar + _mv(p_loop, sv_bar, pd)        # u_t is used in sv
+                su_bar = -(u_tot * r) / (su * su)              # u_t = r / su
+                sv_bars.insert(0, sv_bar)
+                su_bars.insert(0, su_bar)
+                u_bar, v_bar = torch.zeros_like(u_bar), _mtv(p_loop, su_bar, pd)  # v_{t-1} in su
+            a = torch.cat([us, torch.stack(su_bars)])               # [2T, B, N+1]
+            bm = torch.cat([torch.stack(sv_bars), v_prevs])         # [2T, B, M+1]
+            p_bar = g * (u_t[:, :, None] * v_t[:, None, :]) + torch.einsum("tbn,tbm->bnm", a, bm)
+            return p_bar, None, None, None, None
 
 
 def log_marginals(f0: torch.Tensor, f1: torch.Tensor):
@@ -222,30 +225,31 @@ class LogUV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        z, log_mu, log_nu, us, vs = ctx.saved_tensors
-        row_ok = log_mu > NEG / 2
-        col_ok = log_nu > NEG / 2
-        ok = row_ok[:, :, None] & col_ok[:, None, :]
-        s = torch.where(ok, z, NEG).amax(dim=2)                          # [B, N+1] row shift
-        e = torch.where(ok, torch.exp(z - s[:, :, None]), 0.0)           # in [0, 1]
-        u_bar, v_bar = g.sum(dim=2), g.sum(dim=1)                        # output Z + u_T + v_T
-        v_prevs = torch.cat([torch.zeros_like(vs[:1]), vs[:-1]])
-        a_ts, vds, uas, ev_prevs, u_tots, v_bars = [], [], [], [], [], []
-        for t in reversed(range(us.shape[0])):
-            u_t, v_t, v_prev = us[t], vs[t], v_prevs[t]
-            # v_t = log_nu - LSE_n(Z + u_t): weights E a_t[n] d_t[m]
-            a_t = torch.where(row_ok, torch.exp(s + u_t), 0.0)
-            d_t = torch.where(col_ok, torch.exp(v_t - log_nu), 0.0)
-            vd = v_bar * d_t
-            u_tot = u_bar - a_t * torch.matmul(e, vd[:, :, None])[:, :, 0]
-            # u_t = log_mu - LSE_m(Z + v_{t-1}): weights E alpha_t[n] exp(v_prev[m])
-            ua = u_tot * torch.where(row_ok, torch.exp(s + u_t - log_mu), 0.0)
-            ev_prev = torch.where(col_ok, torch.exp(v_prev), 0.0)
-            for lst, x in ((a_ts, a_t), (vds, vd), (uas, ua), (ev_prevs, ev_prev), (u_tots, u_tot),
-                           (v_bars, v_bar)):
-                lst.append(x)
-            u_bar, v_bar = torch.zeros_like(u_bar), -ev_prev * torch.matmul(ua[:, None, :], e)[:, 0, :]
-        a = -torch.stack(a_ts[::-1] + uas[::-1])                         # [2T, B, N+1], sweeps in order
-        bm = torch.stack(vds[::-1] + ev_prevs[::-1])                     # [2T, B, M+1]
-        z_bar = g + e * torch.einsum("tbn,tbm->bnm", a, bm)
-        return z_bar, torch.stack(u_tots).sum(0), torch.stack(v_bars).sum(0), None
+        with span("impx.head.backward"):
+            z, log_mu, log_nu, us, vs = ctx.saved_tensors
+            row_ok = log_mu > NEG / 2
+            col_ok = log_nu > NEG / 2
+            ok = row_ok[:, :, None] & col_ok[:, None, :]
+            s = torch.where(ok, z, NEG).amax(dim=2)                          # [B, N+1] row shift
+            e = torch.where(ok, torch.exp(z - s[:, :, None]), 0.0)           # in [0, 1]
+            u_bar, v_bar = g.sum(dim=2), g.sum(dim=1)                        # output Z + u_T + v_T
+            v_prevs = torch.cat([torch.zeros_like(vs[:1]), vs[:-1]])
+            a_ts, vds, uas, ev_prevs, u_tots, v_bars = [], [], [], [], [], []
+            for t in reversed(range(us.shape[0])):
+                u_t, v_t, v_prev = us[t], vs[t], v_prevs[t]
+                # v_t = log_nu - LSE_n(Z + u_t): weights E a_t[n] d_t[m]
+                a_t = torch.where(row_ok, torch.exp(s + u_t), 0.0)
+                d_t = torch.where(col_ok, torch.exp(v_t - log_nu), 0.0)
+                vd = v_bar * d_t
+                u_tot = u_bar - a_t * torch.matmul(e, vd[:, :, None])[:, :, 0]
+                # u_t = log_mu - LSE_m(Z + v_{t-1}): weights E alpha_t[n] exp(v_prev[m])
+                ua = u_tot * torch.where(row_ok, torch.exp(s + u_t - log_mu), 0.0)
+                ev_prev = torch.where(col_ok, torch.exp(v_prev), 0.0)
+                for lst, x in ((a_ts, a_t), (vds, vd), (uas, ua), (ev_prevs, ev_prev), (u_tots, u_tot),
+                               (v_bars, v_bar)):
+                    lst.append(x)
+                u_bar, v_bar = torch.zeros_like(u_bar), -ev_prev * torch.matmul(ua[:, None, :], e)[:, 0, :]
+            a = -torch.stack(a_ts[::-1] + uas[::-1])                         # [2T, B, N+1], sweeps in order
+            bm = torch.stack(vds[::-1] + ev_prevs[::-1])                     # [2T, B, M+1]
+            z_bar = g + e * torch.einsum("tbn,tbm->bnm", a, bm)
+            return z_bar, torch.stack(u_tots).sum(0), torch.stack(v_bars).sum(0), None

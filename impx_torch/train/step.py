@@ -42,6 +42,8 @@ from typing import Callable
 
 import torch
 
+from impx_torch.tools.profiling import span
+
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam's defaults
 
 
@@ -144,52 +146,55 @@ def make_train_step(model, hp: TrainHyperParams) -> Callable:
     sharded = [n in getattr(model, "tp_sharded", ()) for n in names]
 
     def step(opt_state: dict, iteration: int, batch: dict, stats: dict):
-        model.zero_grad(set_to_none=True)
-        out = model.forward_train(batch)
-        out["loss"].backward()
-        lr = lr_at(hp, iteration)
-        with torch.no_grad():
-            # a parameter the loss does not reach has gradient 0, as in JAX
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            if bucket_group is None:
-                glob = {k: out[k].detach() for k in SUMMED_METRICS}
-                glob["max_mscore"] = out["matching_scores0"].max()
-            else:
-                grads, glob = reduce_bucket(grads, out, bucket_group, with_metrics)
-            loss = glob["loss"]
-            bad = ~torch.isfinite(loss)
-            if hp.grad_clip > 0:
-                grads = _clip_by_global_norm(grads, hp.grad_clip, sharded, model_group)
-            if bucket_group is not None or hp.grad_clip > 0:
-                for p, g in zip(params, grads):   # .grad: the gradient the update applies
-                    p.grad = g
-            mus = [opt_state["mu"][n] for n in names]
-            nus = [opt_state["nu"][n] for n in names]
-            count = opt_state["count"]
-            count_inc = count + 1
-            mu_new = torch._foreach_add(torch._foreach_mul(grads, 1 - ADAM_B1),
-                                        torch._foreach_mul(mus, ADAM_B1))
-            nu_new = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - ADAM_B2),
-                                        torch._foreach_mul(nus, ADAM_B2))
-            t = count_inc.float()
-            mu_hat = torch._foreach_div(mu_new, 1 - ADAM_B1 ** t)
-            nu_hat = torch._foreach_div(nu_new, 1 - ADAM_B2 ** t)
-            upd = torch._foreach_div(mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), ADAM_EPS))
-            if hp.optim == "adamw":
-                upd = torch._foreach_add(upd, torch._foreach_mul(params, hp.weight_decay))
-            new_params = torch._foreach_add(params, torch._foreach_mul(torch._foreach_neg(upd), lr))
-            # skip the whole update on a bad loss (impx/train/step.py:88-92)
-            for old, new in zip(params + mus + nus, new_params + mu_new + nu_new):
-                old.copy_(torch.where(bad, old, new))
-            count.copy_(torch.where(bad, count, count_inc))
+        with span("impx.train.step"):
+            model.zero_grad(set_to_none=True)
+            with span("impx.train.forward"):
+                out = model.forward_train(batch)
+            with span("impx.train.backward"):
+                out["loss"].backward()
+            lr = lr_at(hp, iteration)
+            with span("impx.train.optimizer"), torch.no_grad():
+                # a parameter the loss does not reach has gradient 0, as in JAX
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                if bucket_group is None:
+                    glob = {k: out[k].detach() for k in SUMMED_METRICS}
+                    glob["max_mscore"] = out["matching_scores0"].max()
+                else:
+                    grads, glob = reduce_bucket(grads, out, bucket_group, with_metrics)
+                loss = glob["loss"]
+                bad = ~torch.isfinite(loss)
+                if hp.grad_clip > 0:
+                    grads = _clip_by_global_norm(grads, hp.grad_clip, sharded, model_group)
+                if bucket_group is not None or hp.grad_clip > 0:
+                    for p, g in zip(params, grads):   # .grad: the gradient the update applies
+                        p.grad = g
+                mus = [opt_state["mu"][n] for n in names]
+                nus = [opt_state["nu"][n] for n in names]
+                count = opt_state["count"]
+                count_inc = count + 1
+                mu_new = torch._foreach_add(torch._foreach_mul(grads, 1 - ADAM_B1),
+                                            torch._foreach_mul(mus, ADAM_B1))
+                nu_new = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - ADAM_B2),
+                                            torch._foreach_mul(nus, ADAM_B2))
+                t = count_inc.float()
+                mu_hat = torch._foreach_div(mu_new, 1 - ADAM_B1 ** t)
+                nu_hat = torch._foreach_div(nu_new, 1 - ADAM_B2 ** t)
+                upd = torch._foreach_div(mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), ADAM_EPS))
+                if hp.optim == "adamw":
+                    upd = torch._foreach_add(upd, torch._foreach_mul(params, hp.weight_decay))
+                new_params = torch._foreach_add(params, torch._foreach_mul(torch._foreach_neg(upd), lr))
+                # skip the whole update on a bad loss (impx/train/step.py:88-92)
+                for old, new in zip(params + mus + nus, new_params + mu_new + nu_new):
+                    old.copy_(torch.where(bad, old, new))
+                count.copy_(torch.where(bad, count, count_inc))
 
-            badf = bad.float()
-            consec = torch.where(bad, stats["consec_bad"] + 1.0, 0.0)
-            stats = {"loss_sum": stats["loss_sum"] + torch.where(bad, 0.0, loss),
-                     "n_good": stats["n_good"] + (1.0 - badf),
-                     "consec_bad": consec,
-                     "max_consec_bad": torch.maximum(stats["max_consec_bad"], consec)}
-            metrics = {**glob, "lr": lr, "bad_loss": bad.to(torch.int32)}
-        return metrics, stats
+                badf = bad.float()
+                consec = torch.where(bad, stats["consec_bad"] + 1.0, 0.0)
+                stats = {"loss_sum": stats["loss_sum"] + torch.where(bad, 0.0, loss),
+                         "n_good": stats["n_good"] + (1.0 - badf),
+                         "consec_bad": consec,
+                         "max_consec_bad": torch.maximum(stats["max_consec_bad"], consec)}
+                metrics = {**glob, "lr": lr, "bad_loss": bad.to(torch.int32)}
+            return metrics, stats
 
     return step

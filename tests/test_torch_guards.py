@@ -628,10 +628,10 @@ def test_queue_loops_on_a_cpu_model_count_no_launch(loop):
     assert [fn.launches for fn in kernels] == before
 
 
-SLICE_19_MODULES = ("impx_torch.tools.export", "impx_torch.tools.profiling", "impx_torch.tools.timer",
-                    "impx_torch.tools.image", "impx_torch.tools.video", "impx_torch.tools.common",
-                    "impx_torch.tools.make_scene_lists", "impx_torch.eval.pose_study", "impx_torch.eval.fm_study",
-                    "impx_torch.eval.geo_study", "impx_torch.parallel.tp", "impx_torch.ops.kernels")
+SLICE_19_MODULES = ("impx_torch.tools.export", "impx_torch.tools.profiling", "impx_torch.tools.image",
+                    "impx_torch.tools.video", "impx_torch.tools.common", "impx_torch.tools.make_scene_lists",
+                    "impx_torch.eval.pose_study", "impx_torch.eval.fm_study", "impx_torch.eval.geo_study",
+                    "impx_torch.parallel.tp", "impx_torch.ops.kernels")
 
 
 def test_sp_export_tools_and_studies_import_neither_jax_nor_impx():
