@@ -19,10 +19,14 @@ attention-mass and Sinkhorn kernels also twice on the same inputs, for the
 same bits, and once more through a CUDA-graph replay; the attention mass on
 both routes, from kernel 4's row lse and from its own, at the main path's
 shape in bf16 and fp32, EIMP's compacted sizes and a ragged shape with a
-fully masked batch, with its device launches a call); (4)
+fully masked batch, with its device launches a call; the MLP block's norm
+(kernel 8, csrc/norm.cu) at the layers' [2B, N, 2D] and the encoder's
+[B, N, 32-256] in fp32 and bf16 and at an image whose rows exceed a CTA's
+shared memory, twice for the same bits); (4)
 DGNNS.produce_matches at the published eval config (15 layers, D = 256, 2048
 keypoints, 4 pairs, bf16) with random weights from a seed carried through the
-reference-checkpoint loader, counting kernel launches and comparing with the
+reference-checkpoint loader, counting kernel launches (the norm kernel's 38
+too, here and in phase 7) and comparing with the
 plain path; (5) CUDA-event timings of each kernel, its plain version and the
 library call, and of the whole call, the host time of one attention
 wrapper call (median over WRAPPER_CALLS calls, host clock), kernels 1
@@ -43,7 +47,10 @@ graph's device time), its bound and its split at the compacted sizes, its
 fp32 times on both routes beside the 3xTF32 and FMA bounds,
 pairs_per_s of both EIMP variants, kernel and plain path, and the profile of
 each (device time by kernel, host time by operation, the attention-mass group
-beside its time before the redesign); (9) the
+beside its time before the redesign), and the norm kernel against the
+eager chain it replaces at the benchmark's layer shapes in fp32 and at the
+main path's in bf16 (one call, queued, in a CUDA graph, the bound of its
+bytes, the host time of a call through its op); (9) the
 training kernels, the forward that writes the row log-sum-exp (kernel 4)
 and the two attention backwards (kernels 3 and 5),
 against their plain versions at the training shape [32, 4, 1024, 64] in bf16
@@ -814,6 +821,12 @@ def time_path(label, model, call, pairs):
         f"plain path {p_ms:.3f} ms = pairs_per_s {1e3 * B / p_ms:.2f}")
 
 
+def norms_a_call(cfg) -> int:
+    """The MLP norms of a match call: one a layer an image's side, and each
+    encoder block's but the last, an image."""
+    return 2 * (cfg.n_layers + len(cfg.keypoint_encoder))
+
+
 def main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels):
     cfg = dataclasses.replace(MatcherConfig.eval_config("spp", 15), compute_dtype="bfloat16")
     model = carried_model(DGNNS, cfg, dev, reference_layout, load_reference_state_dict)
@@ -822,7 +835,8 @@ def main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels):
     data = permuted_pairs(torch.Generator().manual_seed(3), dev)
     launches = drive_path("main path", model, data,
                           lambda d: model.produce_matches(d, only_last=True, with_scores=False),
-                          {"mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1}, kernels)
+                          {"mha_fused": 2 * cfg.n_layers, "sinkhorn_fused_stats": 1, "norm_act": norms_a_call(cfg)},
+                          kernels)
     return model, launches
 
 
@@ -896,6 +910,90 @@ def time_all(dev, model, mods, errs, launches):
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
          "bound_by": s_by, "library_ms": None},
     ]
+
+
+# ---------------------------------------------------------------- the MLP block's norm (kernel 8)
+# the kernel against its plain version, as tests/test_torch_kernels.py holds
+# it: fp32 moments summed in another order move y by a few ulps; under bf16
+# both sides round y and the activation's output, a rounding flipping now and
+# then by one bf16 ulp
+NORM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2 ** -7, atol=1e-2)}
+NORM_TIMED = {"yfcc": (8, 2000, 512), "4096": (4, 4096, 512)}   # the benchmark's layer norms, fp32
+NORM_BEYOND_SMEM = (1, 60000, 512)   # a CTA's rows beyond its shared memory: read from device memory
+
+
+def norm_inputs(gen, dev, dtype, r, n, c):
+    """A product [r, n, c] with per-channel offsets and scales (so that the
+    bias and the centring matter), its bias and a padding mask that leaves
+    at least 85% of each image's tokens valid."""
+    x = (torch.randn((r, n, c), generator=gen) * (0.5 + 2.5 * torch.rand(c, generator=gen))
+         + 4 * torch.rand(c, generator=gen) - 2)
+    bias = 2 * torch.rand(c, generator=gen) - 1
+    valid = torch.arange(n)[None] < padded_counts(gen, r, n, int(0.85 * n))[:, None]
+    return x.to(dev, dtype), bias.to(dev, dtype), valid.to(dev)
+
+
+def check_norm(dev, norm_act, norm_act_reference) -> dict:
+    """The kernel against its plain version on card tensors at the main
+    path's shapes, the layers' [2B, N, 2D] and the encoder's [B, N, 32-256],
+    in fp32 and bf16, and at one fp32 image whose rows exceed a CTA's shared
+    memory; relu, gelu and leaky relu in turn. Fails outside NORM_TOL, or
+    when two calls differ in a bit. Returns the largest error a dtype."""
+    gen = torch.Generator().manual_seed(11)
+    shapes = [(2 * B, N, 2 * D)] + [(B, N, c) for c in (32, 64, 128, 256)]
+    cases = [(dtype, shape) for dtype in (torch.float32, torch.bfloat16) for shape in shapes]
+    errs = {}
+    for i, (dtype, shape) in enumerate(cases + [(torch.float32, NORM_BEYOND_SMEM)]):
+        ac_fn = ("relu", "gelu", "lrelu")[i % 3]
+        x, bias, valid = norm_inputs(gen, dev, dtype, *shape)
+        with torch.no_grad():
+            out, again = norm_act(x, bias, valid, ac_fn), norm_act(x, bias, valid, ac_fn)
+            ref = norm_act_reference(x, bias, valid, ac_fn)
+        err = (out.float() - ref.float()).abs().max().item()
+        close = bool(torch.isclose(out.float(), ref.float(), **NORM_TOL[dtype]).all())
+        same = torch.equal(out, again)
+        say(f"check norm_act {list(shape)} {str(dtype)[6:]} {ac_fn} masked: max_abs_err {err:.3e} against the "
+            f"plain chain (rtol = atol = {NORM_TOL[dtype]['rtol']:.3g}: {close}); the same bits twice {same}")
+        if not (close and same):
+            fail(f"norm_act {list(shape)} {dtype} {ac_fn}: outside the tolerance or not the same bits twice")
+        errs[dtype] = max(errs.get(dtype, 0.0), err)
+    return errs
+
+
+def time_norm(dev, norm_act, norm_act_reference, errs, launches, eimp_launches) -> dict:
+    """The kernel and the eager chain it replaces (norm_act_reference) at the
+    benchmark's layer shapes in fp32 and at the main path's [2B, N, 2D] in
+    bf16, masked: one call between two events, 20 calls queued, and 20 calls
+    replayed from a CUDA graph (the device time alone: through the op a
+    call's host time is about the kernel's, so the queued time is the
+    host's); the bound, x read once and y written once at HBM_BYTES_PER_S;
+    the host time of a call through the op. The kernels line's row, its
+    times and bound at NORM_TIMED's first shape."""
+    gen = torch.Generator().manual_seed(12)
+    shapes = {**{f"{k} fp32": (torch.float32, s) for k, s in NORM_TIMED.items()},
+              "main path bf16": (torch.bfloat16, (2 * B, N, 2 * D))}
+    timed = {}
+    with torch.no_grad():
+        for label, (dtype, shape) in shapes.items():
+            inputs = [norm_inputs(gen, dev, dtype, *shape) + ("relu",) for _ in range(3)]
+            ms, queued, graph = cuda_ms(norm_act, inputs), queued_ms(norm_act, inputs), graph_ms(norm_act, inputs)
+            plain, plain_graph = queued_ms(norm_act_reference, inputs), graph_ms(norm_act_reference, inputs)
+            x = inputs[0][0]
+            bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+            timed[label] = {"shape": list(shape), "ms": ms, "queued_ms": queued, "graph_ms": graph,
+                            "plain_ms": plain, "plain_graph_ms": plain_graph, "bound_ms": bound}
+            say(f"time norm_act {list(shape)} {label} masked: ms {ms:.4f} (one call between two events) queued_ms "
+                f"{queued:.4f} (20 calls back to back) graph_ms {graph:.4f} (20 calls in a CUDA graph: device time) "
+                f"bound_us {1e3 * bound:.2f} (bytes: x read once, y written once; {bound / graph:.1%} of it) "
+                f"plain_ms {plain:.4f} queued, {plain_graph:.4f} in a graph (the eager chain)")
+        host = host_us(norm_act, inputs[0])
+    say(f"host norm_act {list(shapes['main path bf16'][1])} bf16: {host:.2f} us a call through the op "
+        f"impx::norm_act (median of {WRAPPER_CALLS} calls, host clock, enqueue only)")
+    first = next(iter(timed.values()))
+    return {"name": "norm_act", "route": "cuda", "source": "impx_torch/csrc/norm.cu", "replaces": None,
+            "launches": launches, "launches_eimp": eimp_launches, "max_abs_err": errs[torch.bfloat16],
+            **{k: v for k, v in first.items() if k != "shape"}, "bound_by": "bytes", "library_ms": None,
+            "host_us": host, "shapes": timed, "fp32": {"max_abs_err": errs[torch.float32]}}
 
 
 def device_kernels(fn, args, calls: int = 2) -> list[str]:
@@ -1084,6 +1182,7 @@ KERNEL_GROUPS = (  # device kernel name -> the layer that launched it (first mat
     ("mha_bwd_from_lse (csrc/attention_bwd.cu)", ("bwd_dq_lse", "bwd_dkdv_lse")),
     ("sinkhorn_fused_stats (csrc/sinkhorn.cu)", ("sinkhorn_persistent",)),
     ("attention_key_mass (csrc/attention_mass.cu)", ("key_mass",)),
+    ("norm_act (csrc/norm.cu)", ("norm_act_cluster",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "sm90_", "cutlass", "nvjet", "xmma")),
 )
 
@@ -1228,7 +1327,7 @@ def eimp_path(dev, models, kernels, pool_its):
     # a pooling iteration's two layers run kernel 4 for the row lse its masses take
     want = {**dict.fromkeys(kernels, 0), "mha_fused": 2 * (n_layers - len(pool_its)),
             "mha_fused_lse": 2 * len(pool_its), "sinkhorn_fused_stats": n_layers,
-            "attention_key_mass": 2 * len(pool_its)}
+            "attention_key_mass": 2 * len(pool_its), "norm_act": norms_a_call(models["mask-only"].config)}
     dropped_any = False
     first_launches = None
     for name, model in models.items():
@@ -4553,6 +4652,7 @@ def main() -> int:
     from impx_torch.ops.kernels.attention import (
         attention_key_mass, attention_key_mass_reference, mha_fused, mha_reference)
     from impx_torch.ops.kernels.log_sinkhorn import log_sinkhorn_fused_stats, log_sinkhorn_stats_reference
+    from impx_torch.ops.kernels.norm import norm_act, norm_act_reference
     from impx_torch.ops.kernels.sinkhorn import (
         plan_dtype, sinkhorn_fused_stats, sinkhorn_stats_reference)
     from impx_torch.tools.convert import load_reference_state_dict, load_superglue_state_dict
@@ -4586,14 +4686,18 @@ def main() -> int:
                                                    sinkhorn_stats_reference, plan_dtype)}
     mass_errs = check_mass(dev, attention_key_mass, attention_key_mass_reference, ka.mha_fused_lse)
     errs["attention_key_mass"] = mass_errs[torch.bfloat16]
+    norm_errs = check_norm(dev, norm_act, norm_act_reference)
     kernels = {"mha_fused": mha_fused, "sinkhorn_fused_stats": sinkhorn_fused_stats,
                "attention_key_mass": attention_key_mass, "mha_fused_lse": ka.mha_fused_lse,
                "mha_bwd": ka.mha_bwd, "mha_bwd_from_lse": ka.mha_bwd_from_lse,
                "log_sinkhorn_fused_stats": log_sinkhorn_fused_stats}
-    GROUP_WRAPPERS.update(zip((g for g, _ in KERNEL_GROUPS[:6]), (
+    GROUP_WRAPPERS.update(zip((g for g, _ in KERNEL_GROUPS[:7]), (
         (mha_fused, ka.mha_fused_lse), (log_sinkhorn_fused_stats,), (ka.mha_bwd,), (ka.mha_bwd_from_lse,),
-        (sinkhorn_fused_stats,), (attention_key_mass,))))
-    model, launches = main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, kernels)
+        (sinkhorn_fused_stats,), (attention_key_mass,), (norm_act,))))
+    # the main path and EIMP count the norm kernel's launches too; the later
+    # phases hold the attention and Sinkhorn kernels' counts
+    matcher_kernels = {**kernels, "norm_act": norm_act}
+    model, launches = main_path(dev, DGNNS, MatcherConfig, load_reference_state_dict, matcher_kernels)
     rows = time_all(dev, model, (mha_fused, mha_reference, sinkhorn_fused_stats,
                                  sinkhorn_stats_reference, plan_dtype), errs, launches)
     fp32 = time_fp32_forward(dev, ka, attention_errs)
@@ -4602,7 +4706,9 @@ def main() -> int:
 
     models = eimp_models(dev, AdaGMN, MatcherConfig, load_reference_state_dict)
     pool_its = [i for i, pool in enumerate(_eimp_do_pool(models["mask-only"].config)) if pool]
-    eimp_launches = eimp_path(dev, models, kernels, pool_its)
+    eimp_launches = eimp_path(dev, models, matcher_kernels, pool_its)
+    norm_row = time_norm(dev, norm_act, norm_act_reference, norm_errs, launches["norm_act"],
+                         eimp_launches["norm_act"])
     rows.append(time_eimp(dev, models, (attention_key_mass, attention_key_mass_reference, ka.mha_fused_lse),
                           errs["attention_key_mass"], eimp_launches))
     fp32["attention_key_mass"] = time_fp32_mass(dev, attention_key_mass, attention_key_mass_reference,
@@ -4661,6 +4767,7 @@ def main() -> int:
         row["launches_sp_export"] = sp_export.get(row["name"], 0)
         if row["name"] in fp32:
             row["fp32"] = fp32[row["name"]]
+    rows.append(norm_row)
     say(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -143,7 +143,8 @@ class GM(nn.Module):
         image's keypoints; batch_stats: batch norm from this image's valid
         keypoints over the batch (impx's train=True)."""
         x = torch.cat([norm_kpts, scores[..., None]], dim=-1)
-        return self.kenc(x, ac_fn=self.config.ac_fn, mask=valid, batch_stats=batch_stats)
+        return self.kenc(x, ac_fn=self.config.ac_fn, mask=valid, batch_stats=batch_stats,
+                         use_kernels=self.use_kernels)
 
     def _norm_kpts(self, data, which: int):
         key = f"norm_keypoints{which}"

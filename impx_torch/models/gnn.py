@@ -103,12 +103,12 @@ class MLP(nn.Module):
         for norm in self.norms or ():
             norm.reset_parameters()
 
-    def forward(self, x, *, ac_fn: str, mask=None, batch_stats: bool = False):
+    def forward(self, x, *, ac_fn: str, mask=None, batch_stats: bool = False, use_kernels: bool = False):
         batch_norms = None if self.norms is None else [norm.stats() for norm in self.norms]
         return mlp_apply([(b.weight, b.bias) for b in self.blocks], x, ac_fn=ac_fn, mask=mask,
                          batch_norms=batch_norms, batch_stats=batch_stats,
                          data_group=self.data_group if self.seq_group is None else self.seq_union,
-                         model_group=self.model_group, seq_group=self.seq_group)
+                         model_group=self.model_group, seq_group=self.seq_group, use_kernels=use_kernels)
 
 
 class AttentionalPropagation(nn.Module):
@@ -179,12 +179,14 @@ class AttentionalPropagation(nn.Module):
                     out = mha_fused(q, k, v, key_mask)
                 else:  # the plain versions keep the kernels' residuals: q, k, v (and o, lse)
                     out = (MhaLseFunction if lse_core else MhaFunction).apply(q, k, v, key_mask, not use_kernels)
-            delta = self.tail(x, out, merge, query_mask, ac_fn, batch_stats)
+            delta = self.tail(x, out, merge, query_mask, ac_fn, batch_stats, use_kernels)
             return (delta, (q, k), lse) if with_lse else (delta, (q, k))
 
-    def tail(self, x, out, merge: Dense, query_mask, ac_fn: str, batch_stats: bool = False):
-        """Head merge, then the concat-MLP (its norm in fp32), all in x's
-        dtype (impx/models/fast.py:_tail)."""
+    def tail(self, x, out, merge: Dense, query_mask, ac_fn: str, batch_stats: bool = False,
+             use_kernels: bool = False):
+        """Head merge, then the concat-MLP (its norm in fp32; the fused kernel
+        under use_kernels where autograd is off), all in x's dtype
+        (impx/models/fast.py:_tail)."""
         if self.model_group is None:
             message = merge_heads(merge.weight, merge.bias, out.to(x.dtype))
         else:  # row-parallel merge of this rank's heads, then Megatron's g
@@ -193,4 +195,4 @@ class AttentionalPropagation(nn.Module):
             partial = merge_heads(merge.weight, torch.zeros_like(merge.bias), out.to(x.dtype))
             message = reduce_from_group(partial, self.model_group) + merge.bias.to(x.dtype)
         return self.mlp(torch.cat([x, message], dim=-1), ac_fn=ac_fn, mask=query_mask,
-                        batch_stats=batch_stats)
+                        batch_stats=batch_stats, use_kernels=use_kernels)

@@ -67,6 +67,11 @@ SIGNATURES = {
         # batch, n, m, z_is_bf16, int[8] out -> the persistent schedule
         "impx_log_sinkhorn_schedule": [_I] * 4 + [_P],
     },
+    "norm": {
+        # x, bias, mask (bool or null), out, images, tokens, channels, slice,
+        # cluster, activation, is_bf16, stream
+        "impx_norm_act": [_P] * 4 + [_I] * 7 + [_P],
+    },
     "sinkhorn": {
         # dist, bin, valid0, valid1 (bool or null), overflow rows, u, v, max0,
         # idx0, idx1, rowmass, colmass, workspace, barrier words, batch, n, m,

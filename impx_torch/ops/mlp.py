@@ -13,6 +13,9 @@ import torch
 import torch.nn.functional as F
 
 from impx_torch.ops import norms
+from impx_torch.ops.kernels.attention import plain_under_autograd
+from impx_torch.ops.kernels.norm import norm_act
+from impx_torch.tools.profiling import NORMS, count
 
 
 def dense_apply(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -49,6 +52,7 @@ def mlp_apply(
     data_group=None,
     model_group=None,
     seq_group=None,
+    use_kernels: bool = False,
 ) -> torch.Tensor:
     """Dense -> [norm -> activation] for every block but the last
     (impx/ops/mlp.py:71).
@@ -73,26 +77,42 @@ def mlp_apply(
     seq_group (sequence parallelism): x holds this rank's block of the
     tokens; the InstanceNorm's moments are summed over the group
     (norms.instance_norm). Batch norm from batch statistics then takes
-    data_group as the union of the data and sequence groups."""
+    data_group as the union of the data and sequence groups.
+
+    use_kernels: a block's bias add, InstanceNorm and activation run as one
+    op (`impx::norm_act`, ops/kernels/norm.py) where autograd is off for
+    the blocks and the norm is the InstanceNorm over this rank's tokens
+    alone (no seq_group): on a CUDA tensor it launches the kernel, or raises
+    for what the kernel does not take (a width not a multiple of 8, a mask
+    other than bool); on the CPU it runs the chain. Batch norm, sequence
+    groups and training under grad keep the chain above. Counter NORMS
+    records for each norm whether it took the op."""
     n = len(blocks)
     roles = chain_roles(n) if model_group is not None else ["rep"] * n
     if model_group is not None:
         from impx_torch.parallel.collectives import copy_to_group, reduce_from_group
+    fused = (use_kernels and batch_norms is None and seq_group is None
+             and not plain_under_autograd(x, *(t for block in blocks for t in block)))
     for i, (w, b) in enumerate(blocks):
         if roles[i] == "col":
-            x = dense_apply(w, b, copy_to_group(x, model_group))
-        elif roles[i] == "row":
-            x = reduce_from_group(torch.matmul(x, w.to(x.dtype)), model_group) + b.to(x.dtype)
+            x = copy_to_group(x, model_group)
+        x = torch.matmul(x, w.to(x.dtype))
+        if roles[i] == "row":
+            x = reduce_from_group(x, model_group)
+        if i == n - 1:
+            return x + b.to(x.dtype)
+        count(NORMS, fused)
+        if fused:
+            x = norm_act(x, b.to(x.dtype), mask, ac_fn)
+            continue
+        x = x + b.to(x.dtype)
+        if batch_norms is None:
+            y = norms.instance_norm(x.float(), mask=mask, group=seq_group)
+        elif batch_stats:
+            scale, bias = batch_norms[i][:2]
+            y, _, _ = norms.batch_norm_train(x.float(), scale, bias, mask=mask, group=data_group,
+                                             global_batch=True)
         else:
-            x = dense_apply(w, b, x)
-        if i < n - 1:
-            if batch_norms is None:
-                y = norms.instance_norm(x.float(), mask=mask, group=seq_group)
-            elif batch_stats:
-                scale, bias = batch_norms[i][:2]
-                y, _, _ = norms.batch_norm_train(x.float(), scale, bias, mask=mask, group=data_group,
-                                                 global_batch=True)
-            else:
-                y = norms.batch_norm_eval(x.float(), *batch_norms[i])
-            x = activation(y.to(x.dtype), ac_fn)
+            y = norms.batch_norm_eval(x.float(), *batch_norms[i])
+        x = activation(y.to(x.dtype), ac_fn)
     return x

@@ -178,6 +178,16 @@ def key_use(rec: Recording) -> tuple[int, int]:
     return kept, walked
 
 
+NORMS = "impx.norm"   # a counter: (took the kernel,) a norm of an MLP block (ops/mlp.py:mlp_apply)
+
+
+def norm_use(rec: Recording) -> tuple[int, int]:
+    """(norms that took the fused kernel impx::norm_act, norms) over counter
+    NORMS."""
+    taken = [took for (took,) in rec.counts.get(NORMS, ())]
+    return sum(taken), len(taken)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str = "impx_trace"):
     """Capture a torch.profiler trace of the CPU and, where there is a card,

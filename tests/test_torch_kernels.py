@@ -559,7 +559,8 @@ def test_forward_train_kernel_path_matches_plain_path(cuda_device, fused, comput
     backward kernel once per layer, and the loss and the gradients agree with
     the plain path. fp32: rtol 1e-4, atol 1e-6. bf16 (the training stream):
     loss rtol 1e-2 and a cosine of at least 0.99 on every leaf whose exact
-    gradient is not 0, as chip_smoke.py holds the published config."""
+    gradient is not 0, as chip_smoke.py holds the published config. Under
+    grad every norm keeps the plain chain (counter impx.norm: none fused)."""
     cfg = MatcherConfig(descriptor_dim=64, keypoint_encoder=(32, 64), n_layers=4, num_heads=4,
                         norm_fn="in", train_fused=fused, compute_dtype=compute_dtype)
     model = DGNNS(cfg, device=cuda_device)
@@ -575,16 +576,20 @@ def test_forward_train_kernel_path_matches_plain_path(cuda_device, fused, comput
     gt[:, np.arange(100, 120), n] = 1
     gt[:, n, np.arange(100, 111)] = 1
     data["matching_mask"] = gt
+    from impx_torch.tools import profiling
+
     fwd, bwd = (mha_fused_lse, mha_bwd_from_lse) if fused else (mha_fused, mha_bwd)
     grads = []
     for use_kernels in (True, False):
         model.use_kernels = use_kernels
         model.zero_grad()
         before = (fwd.launches, bwd.launches)
-        out = model.forward_train(data)
+        with profiling.recording() as rec:
+            out = model.forward_train(data)
         out["loss"].backward()
         torch.cuda.synchronize()
         assert (fwd.launches - before[0], bwd.launches - before[1]) == ((8, 8) if use_kernels else (0, 0))
+        assert profiling.norm_use(rec) == (0, 2 * 4 + 2 * 2)   # under grad no norm takes the fused kernel
         grads.append((out["loss"].item(), {n_: p.grad.float().clone() for n_, p in model.named_parameters()
                                            if p.grad is not None}))
     (lk, gk), (lp, gp) = grads
@@ -654,3 +659,164 @@ def test_demo_launches_the_kernels(cuda_device, tmp_path, feature, method):
         assert launches == [30, 0, 0, 1]
     else:
         assert launches[0] + launches[1] == 30 and launches[1] == launches[2] > 0 and launches[3] == 15
+
+
+# the MLP block's epilogue (impx_torch/csrc/norm.cu) against its plain
+# version on the card. fp32: the moments are summed in another order, so y
+# moves by a few fp32 ulps (a fully masked image scales by 1/sqrt(eps), about
+# 32). bf16: both sides round y and the activation's output to bf16, so a
+# rounding flips now and then by one bf16 ulp (2^-8 relative)
+NORM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2 ** -7, atol=1e-2)}
+NORM_MASKS = ["none", "padded", "random", "fully-masked", "count-1"]
+
+
+def norm_inputs(device, dtype, r, n, c, mask_kind, seed=0):
+    """A product [r, n, c] with a per-channel offset and scale (so the bias
+    and the centring matter), its bias and a mask of `mask_kind`: the first
+    two thirds valid (padded), a random half, no token of image 1 valid, or
+    one token of each image."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(r, n, c) * rs.uniform(0.5, 3.0, c) + rs.uniform(-2.0, 2.0, c)
+    bias = rs.uniform(-1.0, 1.0, c)
+    mask = {"none": None, "padded": np.arange(n)[None].repeat(r, 0) < 2 * n // 3,
+            "random": rs.rand(r, n) < 0.5, "fully-masked": rs.rand(r, n) < 0.7,
+            "count-1": np.eye(r, n, k=min(3, n - 1), dtype=bool)}[mask_kind]
+    if mask_kind == "fully-masked":
+        mask[min(1, r - 1)] = False
+    x, bias = (torch.from_numpy(a).to(device, dtype) for a in (x, bias))
+    return x, bias, None if mask is None else torch.from_numpy(mask).to(device)
+
+
+def _check_norm(device, dtype, r, n, c, mask_kind, ac_fn):
+    from impx_torch.ops.kernels.norm import norm_act, norm_act_reference
+
+    x, bias, mask = norm_inputs(device, dtype, r, n, c, mask_kind)
+    before = norm_act.launches
+    with torch.no_grad():
+        out = norm_act(x, bias, mask, ac_fn)
+        again = norm_act(x, bias, mask, ac_fn)
+        ref = norm_act_reference(x, bias, mask, ac_fn)
+    torch.cuda.synchronize()
+    assert norm_act.launches - before == 2
+    assert out.dtype == dtype and out.shape == x.shape
+    assert torch.equal(out, again)   # the same bits on every call
+    torch.testing.assert_close(out.float(), ref.float(), **NORM_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac_fn", ["relu", "gelu", "lrelu"])
+@pytest.mark.parametrize("mask_kind", NORM_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_norm_kernel_matches_plain(cuda_device, dtype, mask_kind, ac_fn):
+    _check_norm(cuda_device, dtype, 4, 333, 64, mask_kind, ac_fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("n", [333, 2000, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_norm_kernel_at_the_matchers_widths(cuda_device, dtype, n, c):
+    """Token counts that no cluster split divides, at the encoder's and the
+    layers' widths (C = 32 to 512), masked at random."""
+    _check_norm(cuda_device, dtype, 3, n, c, "random", "relu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_norm_kernel_at_eight_channel_slices(cuda_device, dtype, c):
+    """Widths that only a slice of 8 channels divides (tensor parallelism
+    over 4 ranks leaves the encoder's first block 32 / 4)."""
+    _check_norm(cuda_device, dtype, 3, 2000, c, "random", "gelu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 60000), (torch.bfloat16, 110000)], ids=["fp32", "bf16"])
+def test_norm_kernel_beyond_shared_memory(cuda_device, dtype, n):
+    """Token counts whose rows overflow a CTA's shared memory at C = 512 (the
+    kernel then reads them from device memory in each pass), padded."""
+    _check_norm(cuda_device, dtype, 2, n, 512, "padded", "relu")
+
+
+@pytest.mark.cuda
+def test_norm_kernel_raises_for_what_it_does_not_take(cuda_device):
+    """Under use_kernels and no grad mlp_apply takes the op on a CUDA
+    tensor whatever the shape: a width no slice divides raises, and so does
+    a float mask; with use_kernels=False the chain runs."""
+    from impx_torch.ops.mlp import mlp_apply
+
+    x = torch.randn(2, 50, 8, device=cuda_device)
+    blocks = [(torch.randn(8, 20, device=cuda_device), torch.randn(20, device=cuda_device)),
+              (torch.randn(20, 8, device=cuda_device), torch.randn(8, device=cuda_device))]
+    mask = torch.ones(2, 50, dtype=torch.bool, device=cuda_device)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            mlp_apply(blocks, x, mask=mask, use_kernels=True)
+        blocks[0] = (torch.randn(8, 32, device=cuda_device), torch.randn(32, device=cuda_device))
+        blocks[1] = (torch.randn(32, 8, device=cuda_device), torch.randn(8, device=cuda_device))
+        with pytest.raises(ValueError):
+            mlp_apply(blocks, x, mask=mask.float(), use_kernels=True)
+        assert mlp_apply(blocks, x, mask=mask.float(), use_kernels=False).shape == (2, 50, 8)
+
+
+def _norm_gaps(out, ref, valid0):
+    """The benchmark's agreement numbers of one call against the plain path:
+    the share of valid rows whose indices0 differ, and the RMS gap of
+    mscores0 over the rows both sides match to the same keypoint."""
+    idx, ridx = out["indices0"][-1], ref["indices0"][-1]
+    same = (idx == ridx) & (idx >= 0) & valid0
+    mismatch = ((idx != ridx) & valid0).sum().item() / valid0.sum().item()
+    gap = (out["mscores0"][-1] - ref["mscores0"][-1])[same]
+    return mismatch, gap.pow(2).mean().sqrt().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["IMP", "EIMP"])
+def test_matcher_with_the_norm_kernel_within_the_benchmark_limits(cuda_device, method):
+    """The eval config (15 layers, D = 256, fp32) on pairs of 2000 slots,
+    1700-2000 valid, descriptors x16 so that random weights match, as the
+    benchmark's cells (IMP 4 pairs; EIMP 16, its compaction and dustbin
+    score): every norm through the kernel (38 of 38 for IMP), and the kernel
+    path within the
+    benchmark's limits of the plain path: IMP `idx_mismatch` 2.5e-4 and
+    `mscore_rms` 5e-4 (imp_match_yfcc); EIMP `idx_mismatch` 1e-4 and the
+    keep masks' `keep_mismatch` 6e-5 (eimp_match_compact)."""
+    from impx_torch.data.synthetic_device import synthesize_feed_device
+    from impx_torch.ops.kernels.norm import norm_act
+    from impx_torch.tools import profiling
+
+    b, n = (4 if method == "IMP" else 16), 2000
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    feed, _, _ = synthesize_feed_device(gen, b, n, 256, device=cuda_device)
+    feed = {k: feed[k] for k in ("descriptors0", "descriptors1", "norm_keypoints0", "norm_keypoints1",
+                                 "scores0", "scores1", "valid0", "valid1")}
+    for k in ("descriptors0", "descriptors1"):
+        feed[k] = feed[k] * 16
+    counts = torch.linspace(1700, 2000, b, device=cuda_device).round()
+    for k in ("valid0", "valid1"):
+        feed[k] = torch.arange(n, device=cuda_device)[None] < counts[:, None]
+    cfg = MatcherConfig.eval_config("spp", 15)
+    if method == "EIMP":
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, first_it_to_update=2, compaction=((4, 1024), (8, 512), (12, 256)))
+        model = AdaGMN(cfg, device=cuda_device, seed=0)
+        model.bin_score.data.fill_(9.0)
+    else:
+        model = DGNNS(cfg, device=cuda_device, seed=0)
+    call = lambda: model.produce_matches(feed, p=0.2, only_last=True, with_scores=False)  # noqa: E731
+    before = norm_act.launches
+    with profiling.recording() as rec:
+        out = call()
+    taken, norms_ = profiling.norm_use(rec)
+    assert taken == norms_ and norm_act.launches - before == taken
+    if method == "IMP":
+        assert taken == 38
+    model.use_kernels = False
+    ref = call()
+    mismatch, rms = _norm_gaps(out, ref, feed["valid0"])
+    if method == "IMP":
+        assert mismatch <= 2.5e-4 and rms <= 5e-4, (mismatch, rms)
+        return
+    keep = torch.cat([(out[f"keep{i}"] != ref[f"keep{i}"])[feed[f"valid{i}"]] for i in (0, 1)])
+    assert mismatch <= 1e-4 and keep.float().mean().item() <= 6e-5, (mismatch, keep.float().mean().item())

@@ -2,8 +2,8 @@
 a span is one shared no-op; on, the program dispatches the same operations
 as off (a match call of IMP and of EIMP with compaction, a training step),
 records the span tree its config implies (a span on another thread joins
-the open call), counts every attention call's key mask, and stamps each
-span on the profiler's clock."""
+the open call), counts every attention call's key mask and whether each
+norm took the fused kernel, and stamps each span on the profiler's clock."""
 import collections
 
 import pytest
@@ -218,6 +218,24 @@ def test_key_counter_equals_the_masks(monkeypatch):
     rec, _ = _recorded(_match(_dgnns()))
     kept, walked = profiling.key_use(rec)
     assert kept == walked == 2 * N_LAYERS * 4 * 4 * 64 * 64
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_norm_counter(case):
+    """Counter NORMS over one call: every norm of a match call took the fused
+    kernel's op (the keypoint encoder's two an image and one a layer), none of
+    a training step's, whose forward runs under grad; the op is dispatched
+    once a taken norm, with tracing on as off."""
+    norms_a_call = 2 * 2 + 2 * N_LAYERS
+    off, on = _Ops(), _Ops()
+    call_off, call_on = CASES[case](), CASES[case]()
+    with off:
+        call_off()
+    with profiling.recording() as rec, on:
+        call_on()
+    taken, norms = profiling.norm_use(rec)
+    assert norms == norms_a_call and taken == (0 if case == "train_step" else norms_a_call)
+    assert on.names == off.names and on.names.count("impx.norm_act.default") == taken
 
 
 def test_span_clock_on_the_profiler_clock():
